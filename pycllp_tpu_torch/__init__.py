@@ -1,0 +1,48 @@
+"""pycllp_tpu_torch — the PyTorch/CUDA port of :mod:`pycllp_tpu`.
+
+Batched interior-point LP solving where thousands of independent LP
+instances (scenarios) are solved together on one NVIDIA GPU.  The JAX
+package ``pycllp_tpu`` is the reference; this package mirrors its layout
+and names module for module (``models/``, ``io/``, ``ops/``, ``solvers/``,
+``utils/``), imports ``torch`` and numpy, and never JAX.
+
+Ported so far: the narrow f32 HSD solve — Ruiz scaling, the Mehrotra
+start, the KKT-refined predictor-corrector and the chunked
+cap/compact/warm-resume scan — on hand-written CUDA Cholesky and solve
+kernels (``csrc/batchlast.cu``).  The wide f64 finish and the other
+solvers are not ported yet (ROADMAP.md).
+
+The device is explicit: solvers take ``device=`` (default ``"cuda"``),
+and a CUDA request without a card raises.  Pass ``device="cpu"`` to run
+on the host, where the kernels' plain PyTorch versions run.
+"""
+
+__version__ = "0.1.0"
+
+from pycllp_tpu_torch.models import GeneralLP, StandardLP, EqualityLP, SparseMatrixBuilder
+from pycllp_tpu_torch.solvers import (
+    BaseSolver,
+    Solution,
+    SolverOptions,
+    Status,
+    available_solvers,
+    get_solver,
+    register_solver,
+    solver_registry,
+)
+
+__all__ = [
+    "GeneralLP",
+    "StandardLP",
+    "EqualityLP",
+    "SparseMatrixBuilder",
+    "BaseSolver",
+    "Solution",
+    "SolverOptions",
+    "Status",
+    "available_solvers",
+    "get_solver",
+    "register_solver",
+    "solver_registry",
+    "__version__",
+]

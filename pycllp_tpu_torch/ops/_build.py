@@ -1,0 +1,126 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` into a shared library with a plain
+``extern "C"`` interface and loaded with ``ctypes`` — no PyTorch headers,
+so a build takes seconds.  The library goes to ``build/kernels/`` beside
+the package (git-ignored), named by a hash of the sources and flags: it
+is rebuilt only when a source changes, and only from the sources shipped
+with the package.
+
+Nothing here runs at import time.  :func:`load` builds on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+__all__ = ["BuildInfo", "build", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / spills per kernel, kept in BuildInfo.log
+)
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+# C entry points: name -> argtypes (every pointer and the stream as c_void_p)
+_SIGNATURES = {
+    "pycllp_chol_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
+    "pycllp_solve_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+}
+
+
+class BuildInfo(NamedTuple):
+    path: Path  # the shared library
+    seconds: float  # wall time of this call's compile (0.0 when cached)
+    cached: bool  # True when a library for these sources already existed
+    log: str  # nvcc's output (ptxas register/spill report)
+
+
+_LIB: ctypes.CDLL | None = None
+_INFO: BuildInfo | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in _SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    # torch's own lookup: $CUDA_HOME / $CUDA_PATH, nvcc on PATH, the
+    # default toolkit location
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
+    if cand is not None and cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels need the CUDA toolkit "
+            "(set CUDA_HOME or put nvcc on PATH)"
+        )
+    return found
+
+
+def build() -> BuildInfo:
+    """Compile the sources unless a library for them exists; return where."""
+    global _INFO
+    if _INFO is not None:
+        return _INFO
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    out = _BUILD_DIR / f"libpycllp_kernels-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        _INFO = BuildInfo(out, 0.0, True, "")
+        return _INFO
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in srcs if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: a concurrent builder never
+    # sees (or loads) a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            capture_output=True, text=True, check=False,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _INFO = BuildInfo(out, time.perf_counter() - t0, False, proc.stdout + proc.stderr)
+    return _INFO
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with argtypes declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

@@ -1,0 +1,287 @@
+"""Batch-last kernel set: hand-written CUDA Cholesky and solve kernels.
+
+Counterpart of :mod:`pycllp_tpu.ops.batchlast`.  Instances live on the
+LAST axis, as in the reference:
+
+* With shared structure, ``M = A·diag(d)·Aᵀ`` collapses to ONE matmul:
+  ``M[(i,j), b] = Σ_n (A[i,n]·A[j,n]) · d[n,b] = (W @ dᵀ)[(i,j), b]``
+  where ``W[(i,j), n] = A[i,n]·A[j,n]`` is precomputed once per
+  structure.  The product lands in batch-last layout, so it stays a
+  plain ``torch.matmul`` (the reference leaves it to XLA too).
+* The Cholesky and the triangular solves are the hand-written CUDA
+  kernels in ``csrc/batchlast.cu`` (:func:`chol_bl`, :func:`solve_bl`),
+  one thread per instance, coalesced over the lane axis.
+
+Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
+:func:`_solve_bl_plain`) that runs the same loop order on tensors.  The
+wrappers take the plain version only for tensors on the CPU; for a CUDA
+tensor they launch the kernel or raise.  Each launch adds one to
+``CHOL_LAUNCHES`` / ``SOLVE_LAUNCHES``.
+
+f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
+(dtype dispatch: the kernels are instantiated for float32 only).
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from pycllp_tpu_torch.ops import _build
+from pycllp_tpu_torch.ops.reference import (
+    KernelSet,
+    PreparedA,
+    REFERENCE_KERNELS,
+    _mv,
+)
+
+__all__ = [
+    "BatchLastKernels",
+    "BATCHLAST_KERNELS",
+    "BLFactor",
+    "PreparedBL",
+    "chol_bl",
+    "solve_bl",
+]
+
+# launch counters: one per kernel launch, nowhere else
+CHOL_LAUNCHES = 0
+SOLVE_LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+
+def _chol_bl_plain(M, reg):
+    """Right-looking batch-lane Cholesky of M + reg·I, as ``_chol_body``.
+
+    M (m, m, B), reg (B,) → L (m, m, B), dinv (m, B).  Every scalar step of
+    the textbook algorithm is one tensor op across the lanes; a pivot ≤ 0
+    turns its lane NaN.  Works in place on a clone of M.
+    """
+    m = M.shape[0]
+    L = M.clone()
+    dinv = torch.empty(M.shape[1:], dtype=M.dtype, device=M.device)
+    for k in range(m):
+        akk = L[k, k] + reg
+        pos = akk > 0
+        sq = torch.sqrt(torch.where(pos, akk, 1.0))
+        inv = torch.where(pos, 1.0 / sq, torch.nan)
+        L[k, k] = torch.where(pos, sq, torch.nan)
+        dinv[k] = inv
+        if k + 1 < m:
+            col = L[k + 1 :, k] * inv
+            L[k + 1 :, k] = col
+            L[k + 1 :, k + 1 :] -= col[:, None, :] * col[None, :, :]
+    return L, dinv
+
+
+def _solve_bl_plain(L, dinv, R):
+    """Solve L Lᵀ v = r for k stacked RHS, as ``_solve_kernel``.
+
+    L (m, m, B), dinv (m, B), R (k, m, B) → V (k, m, B).  Forward pass
+    left-looking (dot with row ``L[i, :i]``), backward pass right-looking;
+    divisions use the reciprocal diagonal.  Works in place on a clone of R.
+    """
+    m = L.shape[0]
+    V = R.clone()
+    for i in range(m):
+        if i > 0:
+            acc = (L[i, :i][None] * V[:, :i]).sum(dim=1)
+            V[:, i] = (V[:, i] - acc) * dinv[i]
+        else:
+            V[:, i] = V[:, i] * dinv[i]
+    for i in reversed(range(m)):
+        vi = V[:, i] * dinv[i]
+        V[:, i] = vi
+        if i > 0:
+            V[:, :i] -= L[i, :i][None] * vi[:, None]
+    return V
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _check_cuda_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
+    _require(t.is_cuda, f"{name} must be a CUDA tensor, got device {t.device}")
+    _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    _require(tuple(t.shape) == shape, f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    _require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def _raise_on_error(fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
+
+
+def _chol_bl_cuda(M, reg):
+    global CHOL_LAUNCHES
+    _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
+    m, B = M.shape[0], M.shape[2]
+    _check_cuda_f32("M", M, (m, m, B))
+    _check_cuda_f32("reg", reg, (B,))
+    _require(reg.device == M.device, "M and reg must be on the same device")
+    L = torch.empty_like(M)
+    dinv = torch.empty((m, B), dtype=M.dtype, device=M.device)
+    if B == 0:
+        return L, dinv
+    lib = _build.load()
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_chol_bl_f32(
+            M.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, B, stream
+        )
+    _raise_on_error("chol_bl", err)
+    CHOL_LAUNCHES += 1
+    return L, dinv
+
+
+def _solve_bl_cuda(L, dinv, R):
+    global SOLVE_LAUNCHES
+    _require(L.dim() == 3 and L.shape[0] == L.shape[1], f"L must be (m, m, B), got {tuple(L.shape)}")
+    _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
+    m, B = L.shape[0], L.shape[2]
+    k = R.shape[0]
+    _check_cuda_f32("L", L, (m, m, B))
+    _check_cuda_f32("dinv", dinv, (m, B))
+    _check_cuda_f32("R", R, (k, m, B))
+    _require(L.device == dinv.device == R.device, "L, dinv and R must be on the same device")
+    V = torch.empty_like(R)
+    if B == 0 or k == 0:
+        return V
+    lib = _build.load()
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_solve_bl_f32(
+            L.data_ptr(), dinv.data_ptr(), R.data_ptr(), V.data_ptr(), m, B, k, stream
+        )
+    _raise_on_error("solve_bl", err)
+    SOLVE_LAUNCHES += 1
+    return V
+
+
+def chol_bl(M, reg):
+    """M (m, m, B), reg (B,) → (L, dinv): factor M + reg·I per lane.
+
+    CUDA tensors launch the hand-written kernel (float32, contiguous, or
+    raise); CPU tensors run :func:`_chol_bl_plain`.
+    """
+    if M.device.type == "cpu":
+        return _chol_bl_plain(M, reg)
+    return _chol_bl_cuda(M, reg)
+
+
+def solve_bl(L, dinv, R):
+    """L (m, m, B), dinv (m, B), R (k, m, B) → V (k, m, B): L Lᵀ v = r.
+
+    CUDA tensors launch the hand-written kernel (float32, contiguous, or
+    raise); CPU tensors run :func:`_solve_bl_plain`.
+    """
+    if L.device.type == "cpu":
+        return _solve_bl_plain(L, dinv, R)
+    return _solve_bl_cuda(L, dinv, R)
+
+
+# ---------------------------------------------------------------------------
+# KernelSet implementation
+# ---------------------------------------------------------------------------
+
+
+class PreparedBL(typing.NamedTuple):
+    """Prepared shared-A context + the (m², n) self-outer-product W."""
+
+    A: typing.Any
+    Asq: typing.Any
+    W: typing.Any
+
+
+class BLFactor(typing.NamedTuple):
+    """Batch-last factorization: L (m, m, B), dinv (m, B), no lane padding."""
+
+    ctx: typing.Any
+    L: typing.Any
+    dinv_diag: typing.Any  # reciprocal diagonal of L, (m, B)
+    d: typing.Any
+    reg: typing.Any
+
+
+class BatchLastKernels(KernelSet):
+    """Batch-last kernel set on the hand-written CUDA kernels.
+
+    Shared 2-D A forms ``M = (W @ dᵀ).reshape(m, m, B)`` with one matmul;
+    per-instance (3-D) A forms M per instance, emitted batch-last.  Both
+    factor with :func:`chol_bl` and solve with :func:`solve_bl`.  f64
+    routes to the reference set.  The reference's fused variants
+    (``fuse_form``, ``fuse_facsol``) have no ported kernels yet.
+    """
+
+    name = "cuda_batchlast"
+
+    def __init__(self, fuse_form: bool = False, fuse_facsol: bool = False):
+        if fuse_form or fuse_facsol:
+            raise NotImplementedError(
+                "fuse_form / fuse_facsol need the fused kernels "
+                "(_fused_factor_bl, _facsol_bl), which are not ported yet "
+                "(ROADMAP.md §2)"
+            )
+
+    def prepare(self, A):
+        if A.dim() != 2:
+            return REFERENCE_KERNELS.prepare(A)
+        m, n = A.shape
+        W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+        return PreparedBL(A=A, Asq=A * A, W=W)
+
+    def mv(self, ctx, x):
+        return REFERENCE_KERNELS.mv(ctx, x)
+
+    def rmv(self, ctx, y):
+        return REFERENCE_KERNELS.rmv(ctx, y)
+
+    def factor(self, ctx, d, reg_eps):
+        # route on the RESULT dtype: an f64 A with f32 d still makes an
+        # f64 M, and the kernels are float32 only
+        if torch.float64 in (d.dtype, ctx.A.dtype):
+            base = ctx if isinstance(ctx, PreparedA) else PreparedA(ctx.A, ctx.Asq)
+            return REFERENCE_KERNELS.factor(base, d, reg_eps)
+        diag = _mv(ctx.Asq, d)
+        reg = (reg_eps * diag.amax(dim=-1)).to(d.dtype)
+        if not isinstance(ctx, PreparedBL):
+            # per-instance A: no shared-W trick; form M per instance and
+            # lay it out batch-last for the same kernel
+            A = ctx.A
+            M_bl = ((A * d[:, None, :]) @ A.mT).permute(1, 2, 0).contiguous()
+        else:
+            m = ctx.A.shape[0]
+            M_bl = (ctx.W @ d.T).reshape(m, m, d.shape[0])
+        L, dinv = chol_bl(M_bl, reg)
+        return BLFactor(ctx=ctx, L=L, dinv_diag=dinv, d=d, reg=reg)
+
+    def solve(self, fac, rs):
+        if not isinstance(fac, BLFactor):
+            return REFERENCE_KERNELS.solve(fac, rs)
+        R = torch.stack([r.T for r in rs], dim=0)  # (k, m, B), contiguous
+        V = solve_bl(fac.L, fac.dinv_diag, R)
+        return tuple(V[i].T for i in range(len(rs)))
+
+    def finish_kernels(self, which: str = "df64") -> KernelSet:
+        """Wide-phase sibling: only ``"reference"`` is ported so far."""
+        if which == "reference":
+            return REFERENCE_KERNELS
+        raise NotImplementedError(
+            f"finish kernel set {which!r} is not ported yet (ROADMAP.md §1: "
+            "crossover/mixed and the native-f64 wide set)"
+        )
+
+
+BATCHLAST_KERNELS = BatchLastKernels()

@@ -1,0 +1,24 @@
+"""Solver layer: registry + the ported backends."""
+
+from pycllp_tpu_torch.solvers.options import Solution, SolverOptions, Status
+from pycllp_tpu_torch.solvers.base import (
+    BaseSolver,
+    available_solvers,
+    get_solver,
+    register_solver,
+    solver_registry,
+)
+
+# importing backend modules registers them (only the ported ones)
+from pycllp_tpu_torch.solvers import torch_hsd as _torch_hsd  # noqa: F401
+
+__all__ = [
+    "BaseSolver",
+    "Solution",
+    "SolverOptions",
+    "Status",
+    "available_solvers",
+    "get_solver",
+    "register_solver",
+    "solver_registry",
+]

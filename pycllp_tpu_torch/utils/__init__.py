@@ -1,0 +1,17 @@
+"""Utilities: scaling and device selection."""
+
+from pycllp_tpu_torch.utils.device import resolve_device
+from pycllp_tpu_torch.utils.scaling import (
+    RuizScaling,
+    ruiz_equilibrate,
+    scale_problem,
+    unscale_solution,
+)
+
+__all__ = [
+    "RuizScaling",
+    "resolve_device",
+    "ruiz_equilibrate",
+    "scale_problem",
+    "unscale_solution",
+]
