@@ -1,16 +1,27 @@
 """On-card smoke run of the PyTorch/CUDA port (``pycllp_tpu_torch``).
 
-Builds the hand-written CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card, then drives the
-port's main path — 65,536 dense 64×64 LPs through
-``get_solver("hsd_pallas", device="cuda", ...)`` at the narrow-only
-options of ``BENCH_FINISH=0`` — and audits the answers against scipy.
+Builds the hand-written CUDA kernels from the sources in this checkout
+(``csrc/batchlast.cu`` and ``csrc/df64.cu``), holds each against its plain
+PyTorch version on the card, and drives the port's paths:
+
+1. device and build;
+2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32), the FP64
+   ``df_chol_bl``/``df_solve_bl`` and the Ozaki ``slice_rounds_bl``, plus
+   the df64 and Ozaki accuracy contracts of ``tests_tpu/smoke.py``;
+3. the narrow main path — 65,536 dense 64×64 LPs through
+   ``get_solver("hsd_pallas", device="cuda")`` at the ``BENCH_FINISH=0``
+   options;
+4. two 256-lane probes with a wide finish (a df64 IPM finish, and a
+   mixed-engine crossover finish), each audited against scipy;
+5. the full main path — ``bench.py``'s default configuration: the same
+   65,536 LPs through ``hsd_solve_scan`` with the wide f64 crossover
+   finish and its drain tiers — audited to the 1e-6 contract.
 
 Usage (from the repository root, one CUDA card):
 
     python3 chip_smoke.py
 
-Every phase prints one line; any failure raises and the script exits
+Every phase prints lines; any failure raises and the script exits
 non-zero (there is no CPU fallback).  The line before the last is the
 kernel report as JSON, the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -18,6 +29,8 @@ kernel report as JSON, the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -29,29 +42,59 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from pycllp_tpu_torch import Status, get_solver  # noqa: E402
+from pycllp_tpu_torch import SolverOptions, Status, get_solver  # noqa: E402
 from pycllp_tpu_torch.io.generate import random_standard_lp  # noqa: E402
 from pycllp_tpu_torch.ops import _build  # noqa: E402
 from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
+from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.solvers import hsd as hsd_mod  # noqa: E402
 
-SOURCE = "pycllp_tpu_torch/csrc/batchlast.cu"
-KERNEL_RTOL = 1e-4  # kernel vs plain and vs the f32 reference set (smoke's bound)
-# max relative objective error of the audited lanes.  The JAX reference,
-# run on the CPU at this exact input and these options, audits at 2.2535e-3:
-# its lane 18 ends STALLED at that error (the port lands on the same lane
-# at the same error), so 2e-3 would fail the reference itself.
+SOURCES = {
+    "chol_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
+    "solve_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
+    "df_chol_bl": "pycllp_tpu_torch/csrc/df64.cu",
+    "df_solve_bl": "pycllp_tpu_torch/csrc/df64.cu",
+    "slice_rounds_bl": "pycllp_tpu_torch/csrc/df64.cu",
+}
+REPLACES = {
+    "chol_bl": "pycllp_tpu/ops/batchlast.py:223",
+    "solve_bl": "pycllp_tpu/ops/batchlast.py:273",
+    "df_chol_bl": "pycllp_tpu/ops/df64.py:264",
+    "df_solve_bl": "pycllp_tpu/ops/df64.py:295",
+    "slice_rounds_bl": "pycllp_tpu/ops/df64.py:504",
+}
+KERNEL_RTOL = 1e-4  # f32 kernels vs plain and vs the f32 reference set (smoke's bound)
+F64_RTOL = 1e-12  # FP64 kernels vs their plain versions
+# max relative objective error of the audited lanes of the NARROW path.
+# The JAX reference, run on the CPU at this exact input and these options,
+# audits at 2.2535e-3: its lane 18 ends STALLED at that error (the port
+# lands on the same lane at the same error), so 2e-3 would fail it.
 AUDIT_MAX = 3e-3
-OK_SHARE = 0.99  # OPTIMAL + STALLED share of lanes
+OK_SHARE = 0.99  # narrow path: OPTIMAL + STALLED share of lanes
+CONTRACT = 1e-6  # wide finish: audited relative objective error, per lane
+PROBE_OPTIMAL = 0.9  # probes: OPTIMAL share (tests_tpu/smoke.py's bound)
+MAIN_OPTIMAL = 0.99  # full main path: OPTIMAL share
 
-# the BENCH_FINISH=0 operating point of bench.py, through the registry
 N_LP, M, N = 65536, 64, 64
+# the BENCH_FINISH=0 operating point of bench.py, through the registry
 SOLVER_KW = dict(
     dtype="float32", tol=1e-5, maxiter=40, stall_patience=3, stall_rtol=0.05,
     refine_steps=0, kkt_refine=3, kkt_refine_pred=0, init_point="mehrotra",
     chunk=16384, compact_cap=12, compact_bucket=5120,
 )
+# bench.py's bench_options() at its defaults (BENCH_FINISH=1): the f32 bulk,
+# then the wide f64 crossover finish on the mixed1 engine
+BENCH_OPTIONS = dict(
+    tol=1e-6, maxiter=40, dtype="float32", stall_patience=3, stall_rtol=0.05,
+    refine_steps=0, kkt_refine=3, kkt_refine_pred=0, kkt_warmup=0, gondzio_correctors=0,
+    init_point="mehrotra", finish_dtype="float64", switch_tol=1e-5, finish_maxiter=20,
+    finish_gondzio=0, finish_mode="crossover", crossover_kset="mixed1", crossover_repair=2,
+    crossover_refine=2, crossover_feas_tol=1e-9, finish_kkt_refine=0,
+)
+# bench.py's run_throughput scan arguments
+SCAN_KW = dict(chunk=16384, keys=("objective", "status", "iterations"), compact_cap=12,
+               compact_bucket=5120, finish_cap=3, finish_bucket=1024)
 
 
 def say(phase: str, msg: str) -> None:
@@ -85,6 +128,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def in_turns(label: str, kern, plain, reps_k: int = 10, reps_p: int = 5) -> tuple[float, float]:
+    """Times in turns (plain, kernel, kernel, plain); returns mean (kernel, plain) ms."""
+    p1 = time_ms(plain, reps_p)
+    k1 = time_ms(kern, reps_k)
+    k2 = time_ms(kern, reps_k)
+    p2 = time_ms(plain, reps_p)
+    say("kernel time", f"{label}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def zero_counts() -> None:
+    bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = 0
+    df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
+    hsd_mod.HOST_STEPS = 0
+
+
+def read_counts() -> dict:
+    return {"chol_bl": bl.CHOL_LAUNCHES, "solve_bl": bl.SOLVE_LAUNCHES,
+            "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
+            "slice_rounds_bl": df64.SLICE_LAUNCHES}
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -102,9 +167,15 @@ def phase_device() -> tuple[str, str]:
 def phase_build() -> None:
     info = _build.build()
     _build.load()
-    regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln or "spill" in ln]
+    regs = [ln.strip() for ln in info.log.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     say("build", f"{info.path.name} in {info.seconds:.2f}s (cached={info.cached}); "
         + " | ".join(regs))
+
+
+# ---------------------------------------------------------------------------
+# kernel parity and times
+# ---------------------------------------------------------------------------
 
 
 def _inputs(B: int, seed: int, dev):
@@ -126,7 +197,13 @@ def _formed(A, d, reg_eps):
     return (ctx.W @ d.T).reshape(m, m, d.shape[0]), reg
 
 
-def phase_kernels(dev) -> list[dict]:
+def _lower(L):
+    return torch.tril(L.permute(2, 0, 1))
+
+
+def phase_kernels(dev) -> dict:
+    """chol_bl / solve_bl (f32) against their plain versions; returns
+    {name: (max_abs_err, ms, plain_ms)}."""
     errs = {"chol_bl": 0.0, "solve_bl": 0.0}
     for B in (256, 300, 16384):
         A, d, R = _inputs(B, seed=B, dev=dev)
@@ -134,11 +211,9 @@ def phase_kernels(dev) -> list[dict]:
         L_k, dinv_k = bl._chol_bl_cuda(M_bl, reg)
         L_p, dinv_p = bl._chol_bl_plain(M_bl, reg)
         torch.cuda.synchronize()
-        e_chol = max(rel_err(torch.tril(L_k.permute(2, 0, 1)), torch.tril(L_p.permute(2, 0, 1))),
-                     rel_err(dinv_k, dinv_p))
+        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
         check(e_chol < KERNEL_RTOL, f"chol_bl vs plain at B={B}: rel {e_chol:.2e}")
-        errs["chol_bl"] = max(errs["chol_bl"], abs_err(torch.tril(L_k.permute(2, 0, 1)),
-                                                       torch.tril(L_p.permute(2, 0, 1))),
+        errs["chol_bl"] = max(errs["chol_bl"], abs_err(_lower(L_k), _lower(L_p)),
                               abs_err(dinv_k, dinv_p))
         # f32 reference set (torch.linalg) on the same data
         fac_r = REFERENCE_KERNELS.factor(PreparedA(A, A * A), d, 1e-6)
@@ -167,69 +242,208 @@ def phase_kernels(dev) -> list[dict]:
     check(bool(torch.isnan(V_k[0, :, 2]).any()), "NaN lane: lane 2 is not NaN")
     others = torch.cat([V_k[0, :, :2], V_k[0, :, 3:]], dim=1)
     check(bool(torch.isfinite(others).all()), "NaN lane: another lane is not finite")
-    say("kernel parity", "negated-d lane 2 is NaN, the other 255 lanes finite")
+    say("kernel parity", "chol_bl: negated-d lane 2 is NaN, the other 255 lanes finite")
 
-    # times at the main path's shapes (m = 64, B = 16,384), in turns
+    # times at the narrow path's shapes (m = 64, B = 16,384), in turns
     A, d, R = _inputs(16384, seed=1, dev=dev)
     M_bl, reg = _formed(A, d, 1e-6)
     L, dinv = bl._chol_bl_cuda(M_bl, reg)
     R1, R2 = R[:1].contiguous(), R.contiguous()
-    runs = {
-        "chol_bl": (lambda: bl._chol_bl_cuda(M_bl, reg), lambda: bl._chol_bl_plain(M_bl, reg)),
-        "solve_bl": (lambda: bl._solve_bl_cuda(L, dinv, R1), lambda: bl._solve_bl_plain(L, dinv, R1)),
-        "solve_bl k=2": (lambda: bl._solve_bl_cuda(L, dinv, R2), lambda: bl._solve_bl_plain(L, dinv, R2)),
-    }
+    t_chol = in_turns("chol_bl at m=64, B=16384", lambda: bl._chol_bl_cuda(M_bl, reg),
+                      lambda: bl._chol_bl_plain(M_bl, reg))
+    t_solve = in_turns("solve_bl k=1 at m=64, B=16384", lambda: bl._solve_bl_cuda(L, dinv, R1),
+                       lambda: bl._solve_bl_plain(L, dinv, R1))
+    in_turns("solve_bl k=2 at m=64, B=16384", lambda: bl._solve_bl_cuda(L, dinv, R2),
+             lambda: bl._solve_bl_plain(L, dinv, R2))
+    return {"chol_bl": (errs["chol_bl"], *t_chol), "solve_bl": (errs["solve_bl"], *t_solve)}
+
+
+def _wide_inputs(B: int, seed: int, dev, spread: float = 0.0):
+    """f64 A (64×128, /√n), d (B, 128) — uniform in [0.5, 2] or 10^U(±spread) — and R (2, 64, B)."""
+    rng = np.random.default_rng(seed)
+    m, n = 64, 128
+    A = rng.normal(size=(m, n)) / np.sqrt(n)
+    if spread:
+        d = 10.0 ** rng.uniform(-spread, spread, size=(B, n))
+    else:
+        d = rng.uniform(0.5, 2.0, size=(B, n))
+    R = rng.normal(size=(2, m, B))
+    return (torch.from_numpy(A).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(R).to(dev))
+
+
+def _formed64(A, d, reg_eps):
+    """f64 batch-last M = A·diag(d)·Aᵀ and reg = reg_eps·max(diag)."""
+    m = A.shape[0]
+    W = (A[:, None, :] * A[None, :, :]).reshape(m * m, -1)
+    reg = reg_eps * (d @ (A * A).T).amax(dim=-1)
+    return (W @ d.T).reshape(m, m, d.shape[0]).contiguous(), reg
+
+
+def phase_wide_kernels(dev) -> dict:
+    """The FP64 factor/solve and the slicing kernel against their plain
+    versions, the df64 and Ozaki contracts, and times at the wide path's
+    shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
+    errs = {"df_chol_bl": 0.0, "df_solve_bl": 0.0, "slice_rounds_bl": 0.0}
+    for B in (256, 300):
+        A, d, R = _wide_inputs(B, seed=100 + B, dev=dev)
+        M_bl, reg = _formed64(A, d, 1e-12)
+        L_k, dinv_k = df64._df_chol_bl_cuda(M_bl, reg)
+        L_p, dinv_p = df64._df_chol_bl_plain(M_bl, reg)
+        torch.cuda.synchronize()
+        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+        check(e_chol < F64_RTOL, f"df_chol_bl vs plain at B={B}: rel {e_chol:.2e}")
+        errs["df_chol_bl"] = max(errs["df_chol_bl"], abs_err(_lower(L_k), _lower(L_p)),
+                                 abs_err(dinv_k, dinv_p))
+        line = [f"B={B}: df_chol rel {e_chol:.1e}"]
+        for k in (1, 2):
+            Rk = R[:k].contiguous()
+            V_k = df64._df_solve_bl_cuda(L_k, dinv_k, Rk)
+            V_p = df64._df_solve_bl_plain(L_k, dinv_k, Rk)
+            torch.cuda.synchronize()
+            e = rel_err(V_k, V_p)
+            check(e < F64_RTOL, f"df_solve_bl k={k} vs plain at B={B}: rel {e:.2e}")
+            errs["df_solve_bl"] = max(errs["df_solve_bl"], abs_err(V_k, V_p))
+            line.append(f"df_solve k={k} rel {e:.1e}")
+        say("kernel parity", "; ".join(line))
+
+    # a lane with negated d is indefinite: NaN there, finite elsewhere
+    A, d, R = _wide_inputs(256, seed=9, dev=dev)
+    d[2] = -d[2]
+    M_bl, reg = _formed64(A, d, 0.0)
+    L_k, dinv_k = df64._df_chol_bl_cuda(M_bl, reg)
+    V_k = df64._df_solve_bl_cuda(L_k, dinv_k, R[:1].contiguous())
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(V_k[0, :, 2]).any()), "df NaN lane: lane 2 is not NaN")
+    others = torch.cat([V_k[0, :, :2], V_k[0, :, 3:]], dim=1)
+    check(bool(torch.isfinite(others).all()), "df NaN lane: another lane is not finite")
+    say("kernel parity", "df_chol_bl: negated-d lane 2 is NaN, the other 255 lanes finite")
+
+    # slicing: bit-identical to the plain version
+    rng = np.random.default_rng(7)
+    for r, B in ((128, 16384), (64, 300)):
+        X = rng.normal(size=(r, B)) * 10.0 ** rng.uniform(-8, 8, size=(r, B))
+        X = torch.from_numpy(X / np.abs(X).max(axis=0, keepdims=True)).to(dev)
+        Rh, Rl = df64._split_hi_lo(X)
+        for params in (df64.ozaki_mv_params(128), df64.ozaki_params(128)):
+            s, n_slices, _ = params
+            S_k = df64._slice_rounds_bl_cuda(Rh, Rl, s, n_slices)
+            S_p = df64._slice_rounds_bl_plain(Rh, Rl, s, n_slices)
+            torch.cuda.synchronize()
+            diff = abs_err(S_k, S_p)
+            same = bool(torch.equal(S_k.view(torch.int32), S_p.view(torch.int32)))
+            check(same and diff == 0.0, f"slice_rounds_bl ({r}, {B}) s={s} n={n_slices}: "
+                  f"not bit-identical (max abs diff {diff:.3e})")
+            errs["slice_rounds_bl"] = max(errs["slice_rounds_bl"], diff)
+        say("kernel parity", f"slice_rounds_bl ({r}, {B}): bit-identical to plain for "
+            f"(s, n_slices) = {df64.ozaki_mv_params(128)[:2]} and {df64.ozaki_params(128)[:2]}")
+
+    # check_df64 (tests_tpu/smoke.py): backward error at a 1e±12 spread
+    kset = df64.DF64_FINISH_KERNELS
+    A, d, R = _wide_inputs(256, seed=1, dev=dev, spread=12)
+    r = R[0].T.contiguous()
+    ctx = kset.prepare(A)
+    fac = kset.factor(ctx, d, 1e-12)
+    (v,) = kset.solve(fac, (r,))
+    check(bool(torch.isfinite(v).all()), "df64 solve produced non-finite values")
+    Mf = torch.einsum("mn,bn,kn->bmk", A, d, A) + fac.reg[:, None, None] * torch.eye(64, device=dev,
+                                                                                     dtype=A.dtype)
+    res = (torch.einsum("bmk,bk->bm", Mf, v) - r).abs()
+    scale = Mf.abs().sum(-1).amax(-1) * v.abs().amax(-1) + r.abs().amax(-1)
+    back = float((res.amax(-1) / scale).max())
+    check(back < 1e-11, f"df64 backward error {back:.2e} at a 1e±12 spread")
+    # ... and agreement with the f64 reference set at a moderate spread
+    _, d2, _ = _wide_inputs(256, seed=2, dev=dev, spread=3)
+    (v2,) = kset.solve(kset.factor(ctx, d2, 1e-12), (r,))
+    fac_r = REFERENCE_KERNELS.factor(PreparedA(A, A * A), d2, 1e-12)
+    (v_r,) = REFERENCE_KERNELS.solve(fac_r, (r,))
+    agree = float(((v2 - v_r).abs() / v_r.abs().amax(-1, keepdim=True).clamp(min=1e-30)).max())
+    check(agree < 1e-7, f"df64 vs f64 reference set rel {agree:.2e} at a 1e±3 spread")
+    say("df64 contract", f"backward error {back:.2e} (< 1e-11) at 1e±12; "
+        f"vs f64 reference set {agree:.2e} (< 1e-7) at 1e±3")
+
+    # check_ozaki: the formation against an f64 einsum at a 1e±30 spread
+    A, d, _ = _wide_inputs(512, seed=3, dev=dev, spread=30)
+    ctx = kset.prepare(A)
+    s, n_slices, cut = df64.ozaki_params(128)
+    Mo = df64._ozaki_matmul(*ctx.Woz, d.T, s=s, n_slices=n_slices, cut=cut)
+    M_ref = torch.einsum("mn,bn,kn->mkb", A, d, A).reshape(64 * 64, 512)
+    oz = float(((Mo - M_ref).abs() / M_ref.abs().amax(0, keepdim=True)).max())
+    check(oz < 2.5e-13, f"Ozaki formation rel {oz:.2e} of the output scale")
+    say("Ozaki contract", f"formation vs f64 einsum {oz:.2e} of the output scale (< 2.5e-13) "
+        "at a 1e±30 spread")
+
+    # times, in turns, at the wide path's shapes
     times = {}
-    for name, (kern, plain) in runs.items():
-        p1 = time_ms(plain, 5)
-        k1 = time_ms(kern, 10)
-        k2 = time_ms(kern, 10)
-        p2 = time_ms(plain, 5)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        say("kernel time", f"{name} at m=64, B=16384: kernel {k1:.3f}/{k2:.3f} ms, "
-            f"plain {p1:.3f}/{p2:.3f} ms")
-    report = []
-    for name, replaces in (("chol_bl", "pycllp_tpu/ops/batchlast.py:223"),
-                           ("solve_bl", "pycllp_tpu/ops/batchlast.py:273")):
-        ms, plain_ms = times[name]
-        report.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                       "launches": None, "max_abs_err": errs[name],
-                       "ms": ms, "plain_ms": plain_ms})
-    return report
+    for B in (1024, 256):
+        A, d, R = _wide_inputs(B, seed=5, dev=dev)
+        M_bl, reg = _formed64(A, d, 1e-12)
+        t = in_turns(f"df_chol_bl at m=64, B={B}", lambda: df64._df_chol_bl_cuda(M_bl, reg),
+                     lambda: df64._df_chol_bl_plain(M_bl, reg))
+        times.setdefault("df_chol_bl", t)
+        if B == 1024:
+            L, dinv = df64._df_chol_bl_cuda(M_bl, reg)
+            R1, R2 = R[:1].contiguous(), R.contiguous()
+            times["df_solve_bl"] = in_turns(
+                "df_solve_bl k=1 at m=64, B=1024", lambda: df64._df_solve_bl_cuda(L, dinv, R1),
+                lambda: df64._df_solve_bl_plain(L, dinv, R1))
+            in_turns("df_solve_bl k=2 at m=64, B=1024", lambda: df64._df_solve_bl_cuda(L, dinv, R2),
+                     lambda: df64._df_solve_bl_plain(L, dinv, R2))
+    s, n_slices, _ = df64.ozaki_mv_params(128)
+    for B in (16384, 32768):
+        X = torch.rand((128, B), dtype=torch.float64, device=dev) * 2 - 1
+        Rh, Rl = df64._split_hi_lo(X)
+        t = in_turns(f"slice_rounds_bl at (128, {B}), s={s}, n_slices={n_slices}",
+                     lambda: df64._slice_rounds_bl_cuda(Rh, Rl, s, n_slices),
+                     lambda: df64._slice_rounds_bl_plain(Rh, Rl, s, n_slices))
+        times.setdefault("slice_rounds_bl", t)
+    return {k: (errs[k], *times[k]) for k in errs}
 
 
-def audit(lp, objective, status) -> tuple[float, int]:
-    """scipy highs on 64 evenly spaced lanes plus up to 64 non-OPTIMAL ones."""
+# ---------------------------------------------------------------------------
+# solver paths
+# ---------------------------------------------------------------------------
+
+
+def audit(lp, objective, lanes) -> dict:
+    """scipy highs on the given lanes: {lane: relative objective error}.
+
+    ``objective`` is in the standard (max cᵀx) form of ``lp``; the
+    equality-form solve's objective is its negative."""
     from scipy.optimize import linprog
 
-    idx = set(np.linspace(0, N_LP - 1, 64, dtype=int).tolist())
-    stragglers = np.flatnonzero(status != int(Status.OPTIMAL))[:64]
-    idx = sorted(idx | set(stragglers.tolist()))
     A = np.asarray(lp.A, np.float64)
+    n = A.shape[1]
     rels = {}
-    for i in idx:
+    for i in lanes:
         res = linprog(-np.asarray(lp.c[i], np.float64), A_ub=A,
                       b_ub=np.asarray(lp.b[i], np.float64),
-                      bounds=[(0, None)] * N, method="highs")
+                      bounds=[(0, None)] * n, method="highs")
         check(res.status == 0, f"scipy could not solve lane {i}: {res.message}")
-        rels[i] = abs(float(objective[i]) - (-res.fun)) / max(1.0, abs(res.fun))
-    return rels, len(stragglers)
+        rels[int(i)] = abs(float(objective[i]) - (-res.fun)) / max(1.0, abs(res.fun))
+    return rels
 
 
-def phase_main_path(smi: str) -> dict:
+def status_mix(status) -> dict:
+    uniq, counts = np.unique(status, return_counts=True)
+    return {Status(int(u)).name: int(c) for u, c in zip(uniq, counts)}
+
+
+def phase_narrow_path(smi: str) -> dict:
     lp = random_standard_lp(M, N, nlp=N_LP, seed=3, dtype=np.float32)
     solver = get_solver("hsd_pallas", device="cuda", **SOLVER_KW)
     solver.init(lp)
     n_chunks = -(-N_LP // SOLVER_KW["chunk"])
 
-    bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = hsd_mod.HOST_STEPS = 0
+    zero_counts()
     t0 = time.perf_counter()
     sol = solver.solve()
     first_s = time.perf_counter() - t0
-    chol, solves, steps = bl.CHOL_LAUNCHES, bl.SOLVE_LAUNCHES, hsd_mod.HOST_STEPS
-    say("main path", f"first solve {first_s:.3f}s; launches chol_bl={chol} solve_bl={solves}; "
+    counts, steps = read_counts(), hsd_mod.HOST_STEPS
+    chol, solves = counts["chol_bl"], counts["solve_bl"]
+    say("narrow path", f"first solve {first_s:.3f}s; launches {counts}; "
         f"host-loop iterations={steps}, Mehrotra starts={n_chunks}")
-    check(chol > 0 and solves > 0, "a kernel of the main path was never launched")
+    check(chol > 0 and solves > 0, "a kernel of the narrow path was never launched")
     check(chol == steps + n_chunks,
           f"chol_bl launches {chol} != host iterations {steps} + Mehrotra starts {n_chunks}")
     # per iteration: the joint k=2 solve, the corrector, 3 KKT sweeps
@@ -238,24 +452,23 @@ def phase_main_path(smi: str) -> dict:
 
     status = np.asarray(sol.status)
     check(sol.x.shape == (N_LP, N) and sol.objective.shape == (N_LP,), "solution shapes")
-    uniq, counts = np.unique(status, return_counts=True)
-    mix = {Status(int(u)).name: int(c) for u, c in zip(uniq, counts)}
     ok = np.isin(status, (int(Status.OPTIMAL), int(Status.STALLED)))
     check(np.isfinite(sol.objective[ok]).all() and np.isfinite(sol.x[ok]).all(),
           "non-finite answer on an OPTIMAL/STALLED lane")
     it = np.asarray(sol.iterations)
-    say("main path", f"status mix {mix}; OPTIMAL+STALLED {ok.mean():.4%}; iterations "
-        f"min/mean/max {it.min()}/{it.mean():.2f}/{it.max()}, p50/p90/p99 "
+    say("narrow path", f"status mix {status_mix(status)}; OPTIMAL+STALLED {ok.mean():.4%}; "
+        f"iterations min/mean/max {it.min()}/{it.mean():.2f}/{it.max()}, p50/p90/p99 "
         f"{'/'.join(str(int(v)) for v in np.percentile(it, [50, 90, 99]))}")
     check(ok.mean() >= OK_SHARE, f"OPTIMAL+STALLED share {ok.mean():.4f} < {OK_SHARE}")
 
-    rels, n_strag = audit(lp, sol.objective, status)
+    stragglers = np.flatnonzero(status != int(Status.OPTIMAL))[:64]
+    lanes = sorted(set(np.linspace(0, N_LP - 1, 64, dtype=int).tolist()) | set(stragglers.tolist()))
+    rels = audit(lp, sol.objective, lanes)
     worst_lane = max(rels, key=rels.get)
     worst = rels[worst_lane]
-    errs = np.array(list(rels.values()))
-    say("audit", f"scipy highs on {len(rels)} lanes (incl. {n_strag} non-OPTIMAL): "
+    say("narrow audit", f"scipy highs on {len(rels)} lanes (incl. {len(stragglers)} non-OPTIMAL): "
         f"max relative objective error {worst:.4e} at lane {worst_lane} "
-        f"({Status(int(status[worst_lane])).name}), median {np.median(errs):.2e} "
+        f"({Status(int(status[worst_lane])).name}), median {np.median(list(rels.values())):.2e} "
         f"(limit {AUDIT_MAX})")
     check(worst <= AUDIT_MAX, f"audit max {worst:.3e} > {AUDIT_MAX}")
 
@@ -264,20 +477,129 @@ def phase_main_path(smi: str) -> dict:
     sol2 = solver.solve()
     wall = time.perf_counter() - t0
     same = float((np.asarray(sol2.status) == status).mean())
-    say("main path", f"second solve {wall:.3f}s = {N_LP / wall:.1f} LP/s "
+    say("narrow path", f"second solve {wall:.3f}s = {N_LP / wall:.1f} LP/s "
         f"({N_LP} LPs of {M}x{N}, narrow f32; status agreement with the first solve "
         f"{same:.4%}) on {smi}")
-    return {"chol_bl": chol, "solve_bl": solves}
+    return counts
+
+
+def _probe(name: str, seed: int, opts: SolverOptions) -> dict:
+    """tests_tpu/smoke.py's 256-lane probes through hsd_solve_batched."""
+    B = 256
+    lp = random_standard_lp(64, 64, nlp=B, seed=seed, dtype=np.float32)
+    eq = lp.to_equality_form()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = hsd_mod.hsd_solve_batched(
+        np.asarray(eq.A, np.float32), np.asarray(eq.b, np.float32), np.asarray(eq.c, np.float32),
+        opts, bl.BATCHLAST_KERNELS, device="cuda",
+    )
+    st = out["status"].cpu().numpy()
+    obj = -out["objective"].cpu().numpy()  # the equality form minimises −cᵀx
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    rels = audit(lp, obj, np.linspace(0, B - 1, 64, dtype=int))
+    worst = max(rels.values())
+    say(name, f"{secs:.3f}s; status mix {status_mix(st)}; launches {counts}; host-loop "
+        f"iterations {hsd_mod.HOST_STEPS}; audit of 64 lanes max {worst:.3e}, "
+        f"mean {np.mean(list(rels.values())):.2e}")
+    check((st == int(Status.OPTIMAL)).mean() >= PROBE_OPTIMAL,
+          f"{name}: only {(st == 0).sum()}/{B} OPTIMAL")
+    check(worst <= CONTRACT, f"{name}: audit max {worst:.3e} > {CONTRACT}")
+    return counts
+
+
+def phase_probes() -> dict:
+    common = dict(maxiter=40, dtype="float32", stall_patience=3, stall_rtol=0.05, refine_steps=0,
+                  init_point="mehrotra", finish_dtype="float64", switch_tol=1e-5,
+                  finish_maxiter=20)
+    # check_probe: the wide IPM finish factors on the df64 set every iteration
+    counts = _probe("df64 probe", 3, SolverOptions(tol=1e-6, finish_kset="df64", **common))
+    check(counts["df_chol_bl"] > 0 and counts["df_solve_bl"] > 0,
+          "df64 probe: df_chol_bl / df_solve_bl were never launched")
+    # check_crossover_mixed: the mixed-engine crossover finish
+    _probe("crossover probe", 5, SolverOptions(
+        tol=2e-7, kkt_refine=2, finish_mode="crossover", crossover_kset="mixed",
+        crossover_repair=2, **common))
+    return counts
+
+
+def phase_main_path(smi: str) -> dict:
+    lp = random_standard_lp(M, N, nlp=N_LP, seed=3, dtype=np.float32)
+    eq = lp.to_equality_form()
+    dev = torch.device("cuda", 0)
+    A = np.asarray(eq.A, np.float32)
+    b = torch.from_numpy(np.asarray(eq.b, np.float32)).to(dev)
+    c = torch.from_numpy(np.asarray(eq.c, np.float32)).to(dev)
+    opts = SolverOptions(**BENCH_OPTIONS)
+
+    zero_counts()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        out = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
+                                     stage_sync=True, **SCAN_KW)
+    status = out["status"].cpu().numpy()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    say("main path", f"first solve (stage_sync) {first_s:.3f}s; launches {counts}; "
+        f"host-loop iterations {hsd_mod.HOST_STEPS}")
+    for ln in err.getvalue().splitlines():
+        say("main path", ln)
+    for name in ("chol_bl", "solve_bl", "slice_rounds_bl"):
+        check(counts[name] > 0, f"{name} was never launched on the main path")
+
+    obj = -out["objective"].cpu().numpy()  # the equality form minimises −cᵀx
+    it = out["iterations"].cpu().numpy()
+    check(obj.shape == (N_LP,) and status.shape == (N_LP,), "solution shapes")
+    opt = status == int(Status.OPTIMAL)
+    check(np.isfinite(obj[opt]).all(), "non-finite objective on an OPTIMAL lane")
+    say("main path", f"status mix {status_mix(status)}; OPTIMAL {opt.mean():.4%}; iterations "
+        f"p50/p90/p99 {'/'.join(str(int(v)) for v in np.percentile(it, [50, 90, 99]))}, "
+        f"max {it.max()}")
+    check(opt.mean() >= MAIN_OPTIMAL, f"OPTIMAL share {opt.mean():.4f} < {MAIN_OPTIMAL}")
+
+    rels = audit(lp, obj, np.linspace(0, N_LP - 1, 64, dtype=int))
+    worst_lane = max(rels, key=rels.get)
+    say("main audit", f"scipy highs on 64 evenly spaced lanes: max relative objective error "
+        f"{rels[worst_lane]:.4e} at lane {worst_lane}, median "
+        f"{np.median(list(rels.values())):.2e} (limit {CONTRACT} per lane)")
+    check(rels[worst_lane] <= CONTRACT, f"audit max {rels[worst_lane]:.3e} > {CONTRACT}")
+    stragglers = np.flatnonzero(~opt)[:64]
+    if len(stragglers):
+        srels = audit(lp, obj, stragglers)
+        say("main audit", f"{len(stragglers)} non-OPTIMAL lanes (reported, not bounded): "
+            + ", ".join(f"{i} {Status(int(status[i])).name} {e:.2e}" for i, e in srels.items()))
+
+    for rep in ("second", "third"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out2 = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
+                                      **SCAN_KW)
+        status2 = out2["status"].cpu().numpy()
+        wall = time.perf_counter() - t0
+        say("main path", f"{rep} solve {wall:.3f}s = {N_LP / wall:.1f} LP/s ({N_LP} LPs of "
+            f"{M}x{N}, f32 bulk + f64 crossover finish; status agreement with the first solve "
+            f"{(status2 == status).mean():.4%}) on {smi}")
+    return counts
 
 
 def main() -> None:
     kind, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    report = phase_kernels(dev)
-    launches = phase_main_path(smi)
-    for entry in report:
-        entry["launches"] = launches[entry["name"]]
+    measured = phase_kernels(dev)
+    measured.update(phase_wide_kernels(dev))
+    narrow = phase_narrow_path(smi)
+    probe = phase_probes()
+    main_counts = phase_main_path(smi)
+    # launches: the full main path's count; the narrow path's and the df64
+    # probe's (which must run the FP64 factor/solve) beside it
+    report = [{"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": main_counts[name],
+               "narrow_path_launches": narrow[name], "df64_probe_launches": probe[name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              for name, (err, ms, plain_ms) in measured.items()]
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -6,11 +6,14 @@ package ``pycllp_tpu`` is the reference; this package mirrors its layout
 and names module for module (``models/``, ``io/``, ``ops/``, ``solvers/``,
 ``utils/``), imports ``torch`` and numpy, and never JAX.
 
-Ported so far: the narrow f32 HSD solve — Ruiz scaling, the Mehrotra
-start, the KKT-refined predictor-corrector and the chunked
-cap/compact/warm-resume scan — on hand-written CUDA Cholesky and solve
-kernels (``csrc/batchlast.cu``).  The wide f64 finish and the other
-solvers are not ported yet (ROADMAP.md).
+Ported so far: the batched HSD solve of the default bench configuration —
+the narrow f32 phase (Ruiz scaling, the Mehrotra start, the KKT-refined
+predictor-corrector, the chunked cap/compact/warm-resume scan) on
+hand-written CUDA Cholesky and solve kernels (``csrc/batchlast.cu``), and
+the wide f64 finish (vertex crossover on the mixed engine, the drain
+tiers, a wide IPM finish) on hand-written FP64 factor/solve kernels and
+the Ozaki slicing kernel (``csrc/df64.cu``).  The other solvers are not
+ported yet (ROADMAP.md).
 
 The device is explicit: solvers take ``device=`` (default ``"cuda"``),
 and a CUDA request without a card raises.  Pass ``device="cpu"`` to run

@@ -1,0 +1,202 @@
+// Batch-last Cholesky factor and k-RHS solve, templated on the element type.
+//
+// Shared by csrc/batchlast.cu (float: chol_bl, solve_bl) and csrc/df64.cu
+// (double: df_chol_bl, df_solve_bl).  Each .cu file includes this header
+// and instantiates the type it needs; the templates live in an unnamed
+// namespace, so every translation unit keeps its own copy.
+//
+// Layout: batch-LAST, exactly as the reference keeps it.  M and L are
+// (m, m, B), dinv is (m, B), R and V are (k, m, B), all C-contiguous, so
+// element [i, j, b] sits at (i * m + j) * B + b.  The factor takes the
+// (W @ d^T).reshape(m, m, B) tensor that the caller forms with a GEMM,
+// without a transpose.
+//
+// Design.  Every access is coalesced over the lane axis: the 32 threads
+// of a warp always serve 32 neighbouring lanes, so they touch 32
+// neighbouring values.  No padding of B is needed (the TPU's 128-lane
+// blocks were a Pallas constraint): the grid is bounds-checked.
+//
+// * chol_bl_kernel: one block per 32 lanes, its 8 warps splitting the
+//   rows (warp w owns rows i = w mod 8).  Per pivot k every warp reads
+//   the pivot, the owners scale column k and park it in shared memory
+//   (m x 32 values: 8 KB in float, 16 KB in double at m = 64), one
+//   barrier, then each owner applies the trailing update to its own
+//   rows, reading column k from shared memory; a second barrier closes
+//   the step.  The update touches only the lower triangle, half the
+//   bytes of the reference's full-square update.
+// * solve_bl_kernel: one thread per (lane, right-hand side), walking the
+//   reference's loops for its own instance: the forward pass
+//   left-looking (a dot with row L[i, :i]), the backward pass
+//   right-looking.  The working vector lives in V itself (L1-cached).
+//
+// Semantics kept from the reference's _chol_body and _df_chol_kernel:
+// the per-lane shift reg[b] is added at each pivot read (= factoring
+// M + reg*I), the reciprocal diagonal is written to dinv, and a pivot
+// <= 0 (or NaN) writes NaN to that diagonal and to dinv, which poisons
+// the rest of the lane; other lanes are unaffected.  Only the lower
+// triangle of L is factored: no consumer reads the upper triangle (the
+// solve reads L[i, :i] and dinv), and it keeps M's values.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;       // solve_bl / elementwise block size
+constexpr int kCholLanes = 32;      // chol_bl: lanes per block (one warp wide)
+constexpr int kCholRowWarps = 8;    // chol_bl: warps per block, splitting the rows
+
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// correctly rounded square roots (no fast-math flags are used)
+__device__ __forceinline__ float root(float v) { return sqrtf(v); }
+__device__ __forceinline__ double root(double v) { return sqrt(v); }
+
+template <typename T>
+__global__ void __launch_bounds__(kCholLanes * kCholRowWarps)
+chol_bl_kernel(const T* __restrict__ M, const T* __restrict__ reg,
+               T* __restrict__ L, T* __restrict__ dinv, int m, int B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* col = reinterpret_cast<T*>(smem_raw);  // (m, kCholLanes): column k, scaled
+  constexpr int R = kCholRowWarps;
+  const int lane = threadIdx.x;
+  const int w = threadIdx.y;
+  const int b = blockIdx.x * kCholLanes + lane;
+  // threads past B stay in the loop (they meet every barrier) but touch
+  // no device memory
+  const bool live = b < B;
+  const size_t sB = static_cast<size_t>(B);
+  const size_t sm = static_cast<size_t>(m);
+
+  // L := M (whole square: the upper triangle keeps M's values)
+  if (live) {
+    for (int i = w; i < m; i += R) {
+      for (int j = 0; j < m; ++j) L[(i * sm + j) * sB + b] = M[(i * sm + j) * sB + b];
+    }
+  }
+  __syncthreads();
+
+  const T r = live ? reg[b] : T(0);
+  const T nan = quiet_nan<T>();
+  for (int k = 0; k < m; ++k) {
+    const size_t kk = (k * sm + k) * sB + b;
+    const T akk = live ? L[kk] + r : T(1);
+    const bool pos = akk > T(0);
+    const T sq = root(pos ? akk : T(1));
+    const T inv = pos ? T(1) / sq : nan;
+    // first row > k owned by this warp
+    const int first = k + 1 + ((w - (k + 1)) % R + R) % R;
+    // column k below the diagonal: L[i, k] *= 1 / L[k, k]
+    for (int i = first; i < m; i += R) {
+      T v = T(0);
+      if (live) {
+        v = L[(i * sm + k) * sB + b] * inv;
+        L[(i * sm + k) * sB + b] = v;
+      }
+      col[i * kCholLanes + lane] = v;
+    }
+    __syncthreads();  // column k is complete and every warp has read the pivot
+    if (live && w == k % R) {
+      L[kk] = pos ? sq : nan;
+      dinv[k * sB + b] = inv;
+    }
+    // trailing update of the owned rows, lower triangle:
+    // L[i, j] -= L[i, k] * L[j, k]
+    if (live) {
+      for (int i = first; i < m; i += R) {
+        const T lik = col[i * kCholLanes + lane];
+        T* Li = L + i * sm * sB + b;
+#pragma unroll 4
+        for (int j = k + 1; j <= i; ++j) Li[j * sB] -= lik * col[j * kCholLanes + lane];
+      }
+    }
+    __syncthreads();  // the next pivot is updated and column k may be overwritten
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+solve_bl_kernel(const T* __restrict__ L, const T* __restrict__ dinv,
+                const T* __restrict__ R, T* __restrict__ V, int m, int B,
+                int k_rhs) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<int64_t>(k_rhs) * B) return;
+  const int rhs = static_cast<int>(t / B);
+  const int b = static_cast<int>(t - static_cast<int64_t>(rhs) * B);
+  const size_t sB = static_cast<size_t>(B);
+  const size_t sm = static_cast<size_t>(m);
+  const T* Rr = R + rhs * sm * sB + b;
+  T* Vr = V + rhs * sm * sB + b;  // the working vector: w[j] at Vr[j * sB]
+
+  // forward, left-looking: w[i] = (r[i] - L[i, :i] . w[:i]) * dinv[i]
+  for (int i = 0; i < m; ++i) {
+    const T* Li = L + i * sm * sB + b;
+    T acc = T(0);
+#pragma unroll 4
+    for (int j = 0; j < i; ++j) acc += Li[j * sB] * Vr[j * sB];
+    Vr[i * sB] = (Rr[i * sB] - acc) * dinv[i * sB + b];
+  }
+  // backward, right-looking: v[i] = w[i] * dinv[i]; w[:i] -= L[i, :i] * v[i]
+  for (int i = m - 1; i >= 0; --i) {
+    const T* Li = L + i * sm * sB + b;
+    const T vi = Vr[i * sB] * dinv[i * sB + b];
+    Vr[i * sB] = vi;
+#pragma unroll 4
+    for (int j = 0; j < i; ++j) Vr[j * sB] -= Li[j * sB] * vi;
+  }
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+inline unsigned int blocks_for(int64_t n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+// Host-side launches of the two templates on the given stream; each
+// returns cudaGetLastError() (0 = launched) and does not synchronise.
+template <typename T>
+int launch_chol_bl(const void* M, const void* reg, void* L, void* dinv, int m, int B,
+                   void* stream) {
+  cudaGetLastError();  // clear a stale error so the return names this launch
+  const size_t smem = static_cast<size_t>(m) * kCholLanes * sizeof(T);
+  const cudaError_t err = allow_smem(chol_bl_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 block(kCholLanes, kCholRowWarps);
+  const unsigned int grid = static_cast<unsigned int>((B + kCholLanes - 1) / kCholLanes);
+  chol_bl_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(M), static_cast<const T*>(reg), static_cast<T*>(L),
+      static_cast<T*>(dinv), m, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_solve_bl(const void* L, const void* dinv, const void* R, void* V, int m, int B,
+                    int k_rhs, void* stream) {
+  cudaGetLastError();
+  solve_bl_kernel<T><<<blocks_for(static_cast<int64_t>(k_rhs) * B), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), static_cast<const T*>(dinv), static_cast<const T*>(R),
+      static_cast<T*>(V), m, B, k_rhs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

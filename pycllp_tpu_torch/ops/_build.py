@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into a shared library with a plain
+The sources are compiled with ``nvcc`` (one process per ``.cu``, started
+together, then one link) into a shared library with a plain
 ``extern "C"`` interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds.  The library goes to ``build/kernels/`` beside
 the package (git-ignored), named by a hash of the sources and flags: it
@@ -28,9 +29,11 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG.parent / "build" / "kernels"
 
+# per-source compile flags; no fast-math flag: the slicing kernel must
+# keep denormals and IEEE rounding to match its plain version bit for bit
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in BuildInfo.log
 )
 
@@ -40,6 +43,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "pycllp_chol_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
     "pycllp_solve_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_chol_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
+    "pycllp_solve_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
 }
 
 
@@ -90,26 +96,37 @@ def build() -> BuildInfo:
         _INFO = BuildInfo(out, 0.0, True, "")
         return _INFO
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in srcs if p.suffix == ".cu"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent builder never
-    # sees (or loads) a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    # compile into a private directory, then rename the library into
+    # place: a concurrent build never sees (or loads) a half-written one
+    work = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
     try:
+        # one nvcc per source, all started together, then one link
+        objs, procs = [], []
+        for src in (p for p in srcs if p.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            objs.append(str(obj))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        lib = work / "lib.so"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+            [nvcc, "-shared", "-o", str(lib), *objs],
             capture_output=True, text=True, check=False,
         )
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{log}")
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    _INFO = BuildInfo(out, time.perf_counter() - t0, False, proc.stdout + proc.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+    _INFO = BuildInfo(out, time.perf_counter() - t0, False, log)
     return _INFO
 
 

@@ -19,7 +19,10 @@ tensor they launch the kernel or raise.  Each launch adds one to
 ``CHOL_LAUNCHES`` / ``SOLVE_LAUNCHES``.
 
 f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
-(dtype dispatch: the kernels are instantiated for float32 only).
+(dtype dispatch: this set's kernels are float32).  The wide finish phase
+runs on a sibling set chosen by :meth:`BatchLastKernels.finish_kernels`
+(the FP64 kernels of :mod:`pycllp_tpu_torch.ops.df64`, or the f32-factor
+mixed engine of :mod:`pycllp_tpu_torch.ops.mixed`).
 """
 
 from __future__ import annotations
@@ -112,9 +115,9 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def _check_cuda_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
+def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32) -> None:
     _require(t.is_cuda, f"{name} must be a CUDA tensor, got device {t.device}")
-    _require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
     _require(tuple(t.shape) == shape, f"{name} must have shape {shape}, got {tuple(t.shape)}")
     _require(t.is_contiguous(), f"{name} must be contiguous")
 
@@ -124,49 +127,63 @@ def _raise_on_error(fn: str, err: int) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
 
 
-def _chol_bl_cuda(M, reg):
-    global CHOL_LAUNCHES
+def _launch_chol(M, reg, dtype, entry: str):
+    """Check the operands and launch the batch-last Cholesky instantiated
+    for ``dtype`` (C entry point ``entry``); returns ``(L, dinv, launched)``."""
     _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
     m, B = M.shape[0], M.shape[2]
-    _check_cuda_f32("M", M, (m, m, B))
-    _check_cuda_f32("reg", reg, (B,))
+    _check_cuda("M", M, (m, m, B), dtype)
+    _check_cuda("reg", reg, (B,), dtype)
     _require(reg.device == M.device, "M and reg must be on the same device")
     L = torch.empty_like(M)
     dinv = torch.empty((m, B), dtype=M.dtype, device=M.device)
     if B == 0:
-        return L, dinv
+        return L, dinv, False
     lib = _build.load()
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pycllp_chol_bl_f32(
+        err = getattr(lib, entry)(
             M.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, B, stream
         )
-    _raise_on_error("chol_bl", err)
-    CHOL_LAUNCHES += 1
+    _raise_on_error(entry, err)
+    return L, dinv, True
+
+
+def _launch_solve(L, dinv, R, dtype, entry: str):
+    """Check the operands and launch the batch-last k-RHS solve instantiated
+    for ``dtype`` (C entry point ``entry``); returns ``(V, launched)``."""
+    _require(L.dim() == 3 and L.shape[0] == L.shape[1], f"L must be (m, m, B), got {tuple(L.shape)}")
+    _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
+    m, B = L.shape[0], L.shape[2]
+    k = R.shape[0]
+    _check_cuda("L", L, (m, m, B), dtype)
+    _check_cuda("dinv", dinv, (m, B), dtype)
+    _check_cuda("R", R, (k, m, B), dtype)
+    _require(L.device == dinv.device == R.device, "L, dinv and R must be on the same device")
+    V = torch.empty_like(R)
+    if B == 0 or k == 0:
+        return V, False
+    lib = _build.load()
+    with torch.cuda.device(L.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            L.data_ptr(), dinv.data_ptr(), R.data_ptr(), V.data_ptr(), m, B, k, stream
+        )
+    _raise_on_error(entry, err)
+    return V, True
+
+
+def _chol_bl_cuda(M, reg):
+    global CHOL_LAUNCHES
+    L, dinv, launched = _launch_chol(M, reg, torch.float32, "pycllp_chol_bl_f32")
+    CHOL_LAUNCHES += launched
     return L, dinv
 
 
 def _solve_bl_cuda(L, dinv, R):
     global SOLVE_LAUNCHES
-    _require(L.dim() == 3 and L.shape[0] == L.shape[1], f"L must be (m, m, B), got {tuple(L.shape)}")
-    _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
-    m, B = L.shape[0], L.shape[2]
-    k = R.shape[0]
-    _check_cuda_f32("L", L, (m, m, B))
-    _check_cuda_f32("dinv", dinv, (m, B))
-    _check_cuda_f32("R", R, (k, m, B))
-    _require(L.device == dinv.device == R.device, "L, dinv and R must be on the same device")
-    V = torch.empty_like(R)
-    if B == 0 or k == 0:
-        return V
-    lib = _build.load()
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pycllp_solve_bl_f32(
-            L.data_ptr(), dinv.data_ptr(), R.data_ptr(), V.data_ptr(), m, B, k, stream
-        )
-    _raise_on_error("solve_bl", err)
-    SOLVE_LAUNCHES += 1
+    V, launched = _launch_solve(L, dinv, R, torch.float32, "pycllp_solve_bl_f32")
+    SOLVE_LAUNCHES += launched
     return V
 
 
@@ -275,13 +292,38 @@ class BatchLastKernels(KernelSet):
         return tuple(V[i].T for i in range(len(rs)))
 
     def finish_kernels(self, which: str = "df64") -> KernelSet:
-        """Wide-phase sibling: only ``"reference"`` is ported so far."""
-        if which == "reference":
-            return REFERENCE_KERNELS
-        raise NotImplementedError(
-            f"finish kernel set {which!r} is not ported yet (ROADMAP.md §1: "
-            "crossover/mixed and the native-f64 wide set)"
-        )
+        """Wide-phase sibling selected by ``SolverOptions.finish_kset``,
+        cached per name.
+
+        ``"df64"`` (default): native-FP64 CUDA factor/solve with Ozaki
+        matvecs and formation (:mod:`pycllp_tpu_torch.ops.df64`);
+        ``"df64_f64form"``: the same with an f64 GEMM formation;
+        ``"mixed"`` / ``"mixed1"``: f32 CUDA factor + f64 refinement
+        (:mod:`pycllp_tpu_torch.ops.mixed`), the crossover engine;
+        ``"reference"``: the plain set.  ``"df64_fastform"``, the
+        reference's recorded negative result, is not ported.
+        """
+        cache = self.__dict__.setdefault("_finish_kernels", {})
+        fk = cache.get(which)
+        if fk is None:
+            if which == "df64":
+                from pycllp_tpu_torch.ops.df64 import DF64_FINISH_KERNELS as fk
+            elif which == "df64_f64form":
+                from pycllp_tpu_torch.ops.df64 import DF64_F64FORM_KERNELS as fk
+            elif which == "df64_fastform":
+                from pycllp_tpu_torch.ops.df64 import FASTFORM_NOT_PORTED
+
+                raise NotImplementedError(FASTFORM_NOT_PORTED)
+            elif which == "mixed":
+                from pycllp_tpu_torch.ops.mixed import MIXED_FINISH_KERNELS as fk
+            elif which == "mixed1":
+                from pycllp_tpu_torch.ops.mixed import MIXED_IR1_KERNELS as fk
+            elif which == "reference":
+                fk = REFERENCE_KERNELS
+            else:
+                raise ValueError(f"unknown finish kernel set {which!r}")
+            cache[which] = fk
+        return fk
 
 
 BATCHLAST_KERNELS = BatchLastKernels()

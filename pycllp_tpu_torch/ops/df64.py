@@ -1,0 +1,432 @@
+"""Wide-phase kernel set: native-FP64 CUDA factor/solve and Ozaki products.
+
+Counterpart of :mod:`pycllp_tpu.ops.df64`, with the same names so a
+reader finds each piece.  The reference carries every wide number as a
+double-single (hi, lo) f32 pair, because the TPU has no hardware f64:
+its ``_df_chol_bl`` / ``_df_solve_bl`` Pallas kernels run the batch-lane
+Cholesky and triangular solves in that pair arithmetic.  The H100 has
+native FP64, so here the card computes in FP64:
+
+* :func:`df_chol_bl` / :func:`df_solve_bl` are the hand-written CUDA
+  kernels in ``csrc/df64.cu`` — the double instantiations of the
+  batch-last templates behind :func:`~pycllp_tpu_torch.ops.batchlast.chol_bl`
+  and :func:`~pycllp_tpu_torch.ops.batchlast.solve_bl`.  They compute the
+  same function as the reference's kernels, more accurately (the pair
+  carries ~49 bits), and :class:`DoubleSingleKernels` hands them f64
+  tensors without a hi/lo split.
+* The Ozaki scheme stays: shared-A matvecs and the normal-matrix
+  formation run as exact f32 group GEMMs of integer slices, which
+  :func:`slice_rounds_bl` (also in ``csrc/df64.cu``) cuts.  The hi/lo
+  split survives only there.  The group GEMMs are exact only if every
+  integer partial sum stays ≤ 2²⁴ in an f32 accumulator, so
+  :func:`_ozaki_matmul` refuses to run with TF32 on.
+
+Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
+:func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`).  The wrappers
+take the plain version only for CPU tensors; for a CUDA tensor they
+launch the kernel or raise.  Each launch adds one to ``DF_CHOL_LAUNCHES``,
+``DF_SOLVE_LAUNCHES`` or ``SLICE_LAUNCHES``.
+
+The reference's environment knobs ``PYCLLP_OZAKI_BITS`` and
+``PYCLLP_OZAKI_MV_BITS`` are explicit ``bits=`` arguments here.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from pycllp_tpu_torch.ops import _build
+from pycllp_tpu_torch.ops.batchlast import (
+    _check_cuda,
+    _chol_bl_plain,
+    _launch_chol,
+    _launch_solve,
+    _raise_on_error,
+    _require,
+    _solve_bl_plain,
+)
+from pycllp_tpu_torch.ops.reference import KernelSet, _mv, _rmv
+
+__all__ = [
+    "DoubleSingleKernels",
+    "DF64_FINISH_KERNELS",
+    "DF64_F64FORM_KERNELS",
+    "df_chol_bl",
+    "df_solve_bl",
+    "slice_rounds_bl",
+    "ozaki_params",
+    "ozaki_mv_params",
+]
+
+# launch counters: one per kernel launch, nowhere else
+DF_CHOL_LAUNCHES = 0
+DF_SOLVE_LAUNCHES = 0
+SLICE_LAUNCHES = 0
+
+FASTFORM_NOT_PORTED = (
+    'form="fast" (finish_kset="df64_fastform") is not ported: the reference '
+    "records it as a negative result — 3 f32 GEMMs on hi/lo splits give "
+    "f32-accumulation accuracy, and 15.8K of 16.4K lanes ended NUMERICAL "
+    "(pycllp_tpu/ops/df64.py:614-617)"
+)
+
+
+# ---------------------------------------------------------------------------
+# double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
+# ---------------------------------------------------------------------------
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fast_two_sum(a, b):
+    """Requires |a| >= |b| (guaranteed at every call site)."""
+    s = a + b
+    return s, b - (s - a)
+
+
+def df_add(x, y):
+    s, e = _two_sum(x[0], y[0])
+    return _fast_two_sum(s, e + (x[1] + y[1]))
+
+
+def df_sub(x, y):
+    return df_add(x, (-y[0], -y[1]))
+
+
+def _split_hi_lo(x64):
+    """f64 tensor → (hi, lo) f32 pair with hi + lo == x64 to ~2⁻⁴⁸."""
+    hi = x64.to(torch.float32)
+    lo = (x64 - hi.to(x64.dtype)).to(torch.float32)
+    return hi, lo
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors, and the on-card comparison)
+# ---------------------------------------------------------------------------
+
+# The FP64 factor and solve run the loops of the f32 kernels, whose plain
+# versions are dtype-generic: right-looking Cholesky with the shift added
+# at each pivot read and NaN for a pivot that is not > 0; forward
+# left-looking, backward right-looking solve.
+_df_chol_bl_plain = _chol_bl_plain
+_df_solve_bl_plain = _solve_bl_plain
+
+
+def _slice_rounds_bl_plain(Rh, Rl, s: int, n_slices: int):
+    """(r, B) normalised f32 hi/lo pair → (n_slices, r, B) integer f32 bands.
+
+    As ``_slice_rounds_kernel``: slice k is round-half-even of
+    ``h·2^(s·k)``; the remainder ``(h, l) −= slice_k·2^(−s·k)`` is carried
+    in double-single.  Every step is an exact power-of-two scaling, a
+    rounding, or an f32 add, so the kernel reproduces it bit for bit.
+    """
+    out = torch.empty((n_slices,) + tuple(Rh.shape), dtype=torch.float32, device=Rh.device)
+    h, l = Rh, Rl
+    for k in range(1, n_slices + 1):
+        ik = torch.round(h * 2.0 ** (s * k))
+        out[k - 1] = ik
+        xk = ik * 2.0 ** (-s * k)
+        h, l = df_sub((h, l), (xk, torch.zeros_like(xk)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+
+def _df_chol_bl_cuda(M, reg):
+    global DF_CHOL_LAUNCHES
+    L, dinv, launched = _launch_chol(M, reg, torch.float64, "pycllp_chol_bl_f64")
+    DF_CHOL_LAUNCHES += launched
+    return L, dinv
+
+
+def _df_solve_bl_cuda(L, dinv, R):
+    global DF_SOLVE_LAUNCHES
+    V, launched = _launch_solve(L, dinv, R, torch.float64, "pycllp_solve_bl_f64")
+    DF_SOLVE_LAUNCHES += launched
+    return V
+
+
+def _slice_rounds_bl_cuda(Rh, Rl, s: int, n_slices: int):
+    global SLICE_LAUNCHES
+    _require(Rh.dim() == 2, f"Rh must be (r, B), got {tuple(Rh.shape)}")
+    r, B = Rh.shape
+    _check_cuda("Rh", Rh, (r, B))
+    _check_cuda("Rl", Rl, (r, B))
+    _require(Rh.device == Rl.device, "Rh and Rl must be on the same device")
+    _require(1 <= s and 1 <= n_slices and s * (n_slices + 1) < 126,
+             f"s={s}, n_slices={n_slices}: the slice scales must be normal f32 powers of two")
+    S = torch.empty((n_slices, r, B), dtype=torch.float32, device=Rh.device)
+    if r * B == 0:
+        return S
+    lib = _build.load()
+    with torch.cuda.device(Rh.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_slice_rounds_bl(
+            Rh.data_ptr(), Rl.data_ptr(), S.data_ptr(), r, B, s, n_slices, stream
+        )
+    _raise_on_error("slice_rounds_bl", err)
+    SLICE_LAUNCHES += 1
+    return S
+
+
+def df_chol_bl(M, reg):
+    """M (m, m, B), reg (B,) f64 → (L, dinv): factor M + reg·I per lane.
+
+    CUDA tensors launch the hand-written FP64 kernel (float64, contiguous,
+    or raise); CPU tensors run :func:`_df_chol_bl_plain`.
+    """
+    if M.device.type == "cpu":
+        return _df_chol_bl_plain(M, reg)
+    return _df_chol_bl_cuda(M, reg)
+
+
+def df_solve_bl(L, dinv, R):
+    """L (m, m, B), dinv (m, B), R (k, m, B) f64 → V (k, m, B): L Lᵀ v = r.
+
+    CUDA tensors launch the hand-written FP64 kernel (float64, contiguous,
+    or raise); CPU tensors run :func:`_df_solve_bl_plain`.
+    """
+    if L.device.type == "cpu":
+        return _df_solve_bl_plain(L, dinv, R)
+    return _df_solve_bl_cuda(L, dinv, R)
+
+
+def slice_rounds_bl(Rh, Rl, s: int, n_slices: int):
+    """(r, B) f32 hi/lo pair → (n_slices, r, B) integer-valued f32 bands.
+
+    CUDA tensors launch the hand-written kernel (float32, contiguous, or
+    raise); CPU tensors run :func:`_slice_rounds_bl_plain`.
+    """
+    if Rh.device.type == "cpu":
+        return _slice_rounds_bl_plain(Rh, Rl, s, n_slices)
+    return _slice_rounds_bl_cuda(Rh, Rl, s, n_slices)
+
+
+# ---------------------------------------------------------------------------
+# Ozaki-scheme exact GEMM: ~2⁻⁴⁹-accurate W @ dᵀ from exact f32 GEMMs
+# ---------------------------------------------------------------------------
+#
+# Each operand is normalised IN F64 by its per-row (W) / per-column (dᵀ)
+# maximum, rounded up to a power of two (late-IPM d reaches 5e47, beyond
+# f32 range, so an f32-first split would make those columns inf), split
+# into an f32 (hi, lo) pair and cut into ``n_slices`` integer-valued
+# s-bit bands.  Slice pairs (k, l) are grouped by level t = k + l: within
+# a group every product shares the exact quantum 2^(−s·t), so the group's
+# pairs concatenate along the contraction axis into ONE f32 GEMM whose
+# integer partial sums stay ≤ 2²⁴ — exact in the f32 accumulator.  The
+# cut − 1 group results are combined in f64 with the outer scales.
+
+OZAKI_S = 7  # max bits per slice
+OZAKI_BITS = 66  # captured width per operand for the normal-matrix
+# formation: its error is absolute (≈ n·2^(−bits)·row scale·column scale)
+# and the solve amplifies it by cond(M+δI) ≈ 1e12 (reference sizing note)
+OZAKI_MV_BITS = 48  # captured width for the matvecs: their consumers (IR
+# residuals, the crossover's 1e-9 verification) need far less
+
+
+def ozaki_mv_params(n: int, bits: int = OZAKI_MV_BITS):
+    """(s, n_slices, cut) for the matvec paths (``OZAKI_MV_BITS`` wide)."""
+    return ozaki_params(n, bits)
+
+
+def ozaki_params(n: int, bits: int = OZAKI_BITS):
+    """(s, n_slices, cut) for contraction length ``n``.
+
+    A group GEMM accumulates ≤ n·n_slices integer products of magnitude
+    ≤ 2^(2s); every partial sum must stay ≤ 2²⁴.  Pick the largest s that
+    satisfies it (fewer slices → fewer GEMMs), with n_slices = ceil(bits/s).
+    """
+    for s in range(OZAKI_S, 2, -1):
+        n_slices = -(-bits // s)
+        if n * n_slices * (1 << (2 * s)) <= (1 << 24):
+            return s, n_slices, n_slices + 1
+    raise ValueError(f"contraction length {n} too large for exact Ozaki slicing")
+
+
+def _df_slice_int(X64, axis, *, s, n_slices):
+    """Slice f64 ``X64`` into integer-valued s-bit f32 bands along ``axis``.
+
+    Returns ``(slices, mx)``: a per-``axis`` scale ``mx`` (f64, an exact
+    power of two) and ``n_slices`` f32 bands (indexable by band; a
+    ``(n_slices, r, B)`` tensor on the 2-D axis-0 path) with integer
+    entries in [−2^s, 2^s] such that X64 ≈ mx · Σ_k slices[k]·2^(−s·(k+1)).
+    The normalisation is in f64, before any f32 cast.
+    """
+    mx = X64.abs().amax(dim=axis, keepdim=True)
+    mx = mx.clamp(min=torch.finfo(torch.float32).tiny)
+    # E = ceil(log2(mx)); an off-by-one at exact powers of two only
+    # halves/doubles the normalised magnitude
+    E = torch.ceil(torch.log2(mx))
+    mx = torch.exp2(E)  # exact power of two
+    Rh, Rl = _split_hi_lo(X64 * torch.exp2(-E))  # exact scaling; |R| ≤ 1
+    if X64.dim() == 2 and axis == 0:
+        # the hot path (vector operands of every wide matvec/formation):
+        # all rounds in one pass of the slicing kernel
+        return slice_rounds_bl(Rh.contiguous(), Rl.contiguous(), s, n_slices), mx
+    slices = []
+    for k in range(1, n_slices + 1):
+        ik = torch.round(Rh * 2.0 ** (s * k))  # integer-valued
+        slices.append(ik)
+        xk = ik * 2.0 ** (-s * k)
+        Rh, Rl = df_sub((Rh, Rl), (xk, torch.zeros_like(xk)))
+    return slices, mx
+
+
+def _group_levels(n_slices, cut):
+    """For each level t = 2 … cut, the slice indices k of its pairs."""
+    return [
+        (t, range(max(1, t - n_slices), min(n_slices, t - 1) + 1))
+        for t in range(2, cut + 1)
+    ]
+
+
+def _ozaki_prepare(W64, *, s, n_slices, cut):
+    """Precompute per-group concatenated slice blocks of ``W`` (rows, n).
+
+    Group t's block stacks slices [max(1, t−n_slices) … t−1] along the
+    contraction axis.  Returns (tuple of per-group f32 blocks, per-row scale).
+    """
+    sl, e = _df_slice_int(W64.to(torch.float64), axis=1, s=s, n_slices=n_slices)
+    groups = tuple(
+        torch.cat([sl[k - 1] for k in ks], dim=1) for _, ks in _group_levels(n_slices, cut)
+    )
+    return groups, e
+
+
+def _ozaki_matmul(W_groups, We, d64, *, s, n_slices, cut):
+    """~2^(−s·(cut−1))-accurate ``W @ d64`` from exact f32 GEMMs.
+
+    ``W_groups``/``We``: from :func:`_ozaki_prepare`.  ``d64``: (n, B)
+    f64, sliced here along axis 0.  Returns f64 (rows, B).  Raises if
+    TF32 is on: the group GEMMs are exact only in a full f32 accumulator.
+    """
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the Ozaki group GEMMs need full f32 accumulation: switch TF32 off "
+            "(torch.backends.cuda.matmul.allow_tf32 = False)"
+        )
+    dsl, de = _df_slice_int(d64.to(torch.float64), axis=0, s=s, n_slices=n_slices)
+    acc = None
+    for (t, ks), Wg in zip(_group_levels(n_slices, cut), W_groups):
+        Dg = torch.cat([dsl[t - k - 1] for k in ks], dim=0)
+        term = (Wg @ Dg).to(torch.float64) * 2.0 ** (-s * t)
+        acc = term if acc is None else acc + term
+    return acc * (We * de)
+
+
+# ---------------------------------------------------------------------------
+# KernelSet implementation (f64 public interface)
+# ---------------------------------------------------------------------------
+
+
+class PreparedDF(typing.NamedTuple):
+    A: typing.Any  # (m, n) or (B, m, n) f64
+    Asq: typing.Any
+    W: typing.Any  # (m², n) f64 self-outer-product, or None for 3-D A
+    Woz: typing.Any  # (per-group integer slice blocks, e_row) or None
+    Amv: typing.Any  # Ozaki slice groups of A — exact-GEMM f64 matvecs
+    Armv: typing.Any  # ... and of Aᵀ (different contraction length)
+
+
+class DFFactor(typing.NamedTuple):
+    """FP64 batch-last factor: L (m, m, B), dinv (m, B)."""
+
+    ctx: PreparedDF
+    L: typing.Any
+    dinv: typing.Any
+    d: typing.Any
+    reg: typing.Any  # the f64 shift; the factor saw it rounded to f32
+
+
+class DoubleSingleKernels(KernelSet):
+    """f64-interface kernel set whose O(m³) work runs in FP64 CUDA kernels.
+
+    The reference's name is kept (there the factor and solve run in
+    double-single Pallas); on the card they compute in native FP64.
+    Shared-A matvecs run as Ozaki products; the normal matrix is formed
+    by the Ozaki product (``form="ozaki"``, default) or an f64 GEMM
+    (``form="f64"``), and handed to :func:`df_chol_bl` in f64.
+    ``form="fast"`` is not ported (:data:`FASTFORM_NOT_PORTED`).
+    """
+
+    name = "cuda_df64"
+
+    def __init__(self, form: str = "ozaki"):
+        if form == "fast":
+            raise NotImplementedError(FASTFORM_NOT_PORTED)
+        if form not in ("ozaki", "f64"):
+            raise ValueError(f"unknown formation {form!r}")
+        self.form = form
+        if form != "ozaki":
+            self.name = f"cuda_df64_{form}form"
+
+    def prepare(self, A):
+        A = A.to(torch.float64)
+        if A.dim() != 2:
+            return PreparedDF(A=A, Asq=A * A, W=None, Woz=None, Amv=None, Armv=None)
+        m, n = A.shape
+        W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+        Woz = None
+        if self.form == "ozaki":
+            s, n_slices, cut = ozaki_params(n)
+            Woz = _ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
+        sm, nm, cm = ozaki_mv_params(n)
+        sr, nr, cr = ozaki_mv_params(m)
+        Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
+        Armv = _ozaki_prepare(A.T, s=sr, n_slices=nr, cut=cr)
+        return PreparedDF(A=A, Asq=A * A, W=W, Woz=Woz, Amv=Amv, Armv=Armv)
+
+    def mv(self, ctx, x):
+        if getattr(ctx, "Amv", None) is None or x.dim() != 2:
+            return _mv(ctx.A, x)
+        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1])
+        return _ozaki_matmul(*ctx.Amv, x.T, s=s, n_slices=n_slices, cut=cut).T
+
+    def rmv(self, ctx, y):
+        if getattr(ctx, "Armv", None) is None or y.dim() != 2:
+            return _rmv(ctx.A, y)
+        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2])
+        return _ozaki_matmul(*ctx.Armv, y.T, s=s, n_slices=n_slices, cut=cut).T
+
+    def factor(self, ctx, d, reg_eps):
+        if not isinstance(ctx, PreparedDF):
+            ctx = self.prepare(ctx.A)
+        d = d.to(torch.float64)
+        m = ctx.A.shape[-2]
+        B = d.shape[0]
+        # reg needs only max(diag(ADAᵀ)) to ~%: d spans beyond f32 range,
+        # so normalise per lane in f64 first, run one f32 product, rescale
+        dmax_s = d.amax(dim=-1).clamp(min=torch.finfo(torch.float64).tiny)
+        ds = (d / dmax_s[..., None]).to(torch.float32)
+        diag32 = _mv(ctx.Asq.to(torch.float32), ds)
+        reg = reg_eps * diag32.amax(dim=-1).to(torch.float64) * dmax_s
+        if ctx.W is None:
+            M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()
+        elif self.form == "ozaki":
+            s, n_slices, cut = ozaki_params(ctx.A.shape[-1])
+            M = _ozaki_matmul(*ctx.Woz, d.T, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
+        else:
+            M = (ctx.W @ d.T).reshape(m, m, B)  # batch-last directly
+        # the factor sees δ rounded to f32, as the reference's kernel adds
+        # (reg_f32, 0): keeping that rounding keeps the factor the reference's
+        reg_k = reg.to(torch.float32).to(torch.float64)
+        L, dinv = df_chol_bl(M, reg_k)
+        return DFFactor(ctx=ctx, L=L, dinv=dinv, d=d, reg=reg)
+
+    def solve(self, fac, rs):
+        R = torch.stack([r.T for r in rs], dim=0).to(torch.float64)  # (k, m, B)
+        V = df_solve_bl(fac.L, fac.dinv, R)
+        return tuple(V[i].T for i in range(len(rs)))
+
+
+DF64_FINISH_KERNELS = DoubleSingleKernels()  # Ozaki formation (default)
+DF64_F64FORM_KERNELS = DoubleSingleKernels(form="f64")

@@ -1,23 +1,29 @@
-"""Homogeneous self-dual interior-point core (batched), narrow path.
+"""Homogeneous self-dual interior-point core (batched), narrow + wide finish.
 
 Counterpart of :mod:`pycllp_tpu.solvers.hsd`, ported function by
 function with the same names.  Algorithm: the homogeneous self-dual
 embedding with Mehrotra predictor-corrector, KKT-level refinement,
-Gondzio correctors, per-lane best-iterate tracking and a stall cutoff.
+Gondzio correctors, per-lane best-iterate tracking and a stall cutoff;
+with ``finish_dtype`` set, a wide f64 finish (vertex crossover or a wide
+IPM continuation) polishes every lane to the full ``tol``.
 
 What differs from the reference, and why:
 
 * ``lax.while_loop`` becomes a host loop whose predicate
   ``(k < maxiter) & any(status == RUNNING)`` syncs once per iteration;
-  ``lax.scan`` over chunks becomes a Python loop over chunks.  The loop
-  counter ``k`` is a Python int.  ``maxiter`` stays absolute in ``k``, and
-  a compacted bucket resumes at ``k = cap``.
+  ``lax.scan`` over chunks becomes a Python loop over chunks, and every
+  ``lax.cond`` a Python branch on a value read back from the device.
+  The loop counter ``k`` is a Python int.  ``maxiter`` stays absolute in
+  ``k``, and a compacted bucket resumes at ``k = cap``.
 * The device is explicit (``device=``, default ``"cuda"``); no tensor
   moves to another device on its own.
 * f32 matmuls run in full f32 (TF32 pinned off for the solve, the
   counterpart of the reference's ``default_matmul_precision("highest")``).
-* Only the narrow phase is ported.  A wide finish (``finish_dtype``) raises
-  ``NotImplementedError``; so does ``log_every``.
+* The reference's environment knobs are arguments: ``truncate`` of
+  :func:`_hsd_scan_finish_core` (``PYCLLP_FINISH_TRUNCATE``) and
+  ``stage_sync`` of :func:`hsd_solve_scan` (``PYCLLP_SCAN_SYNC``).
+* ``log_every`` (per-iteration metrics) is not ported and raises
+  ``NotImplementedError``.
 
 Problem form: ``min cᵀx  s.t.  Ax = b, x ≥ 0`` (EqualityLP).  HSD
 embedding variables: x ≥ 0, y free, z ≥ 0, τ ≥ 0, κ ≥ 0; residuals
@@ -30,6 +36,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import sys
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -488,6 +496,133 @@ def _fold_to_best(ctx, b, c, s: HSDState, kset: KernelSet, only=None) -> HSDStat
     )
 
 
+def _crossover_kset(kset: KernelSet, fkset: KernelSet, opts: SolverOptions):
+    """Kernel set for the crossover basis solves (``opts.crossover_kset``):
+    "wide" → the finish set itself; otherwise resolved through the BASE
+    set's ``finish_kernels`` selector (e.g. "mixed1")."""
+    if opts.crossover_kset in (None, "wide"):
+        return fkset
+    return kset.finish_kernels(opts.crossover_kset)
+
+
+def _crossover_state(
+    fctx, b, c, state: HSDState, fkset: KernelSet, opts: SolverOptions, tol,
+    reopen: bool = True,
+) -> HSDState:
+    """Apply the vertex crossover (solvers/crossover.py) to a wide state.
+
+    Every lane not already proven INFEASIBLE/UNBOUNDED gets a candidate;
+    a lane is accepted when the candidate passes BOTH the sign/residual
+    verification and the ρ-indicator optimality test at full ``tol`` —
+    accepted lanes become OPTIMAL with the vertex as their iterate
+    (τ = 1, κ = 0).  With ``reopen``, rejected lanes become RUNNING for a
+    wide IPM continuation; a final (rescue) crossover passes
+    ``reopen=False`` so reject statuses (STALLED in particular, which the
+    restart logic keys on) are left untouched.
+    """
+    from pycllp_tpu_torch.solvers.crossover import crossover_candidate
+
+    tau_safe = state.tau.clamp(min=torch.finfo(state.x.dtype).tiny)[..., None]
+    xv, yv, zv, ok, rp, rd = crossover_candidate(
+        fctx, b, c, state.x / tau_safe, state.z / tau_safe, fkset,
+        refine=opts.crossover_refine,
+        feas_tol=opts.crossover_feas_tol,
+        repair=opts.crossover_repair,
+    )
+    tau1 = torch.ones_like(state.tau)
+    kap0 = torch.zeros_like(state.kappa)
+    # ρ test from the residuals the verification already computed (rd is
+    # the z-clamp residue); the gap/μ quantities are cheap dots
+    rg = (c * xv).sum(-1) - (b * yv).sum(-1) + kap0
+    mu = ((xv * zv).sum(-1) + tau1 * kap0) / (xv.shape[-1] + 1)
+    by = (b * yv).sum(-1)
+    ind = _indicators(rp, rd, rg, mu, tau1, kap0, by, state.rp0, state.rd0, state.rg0, state.mu0)
+    opt = (ind.rho_p <= tol) & (ind.rho_d <= tol) & (ind.rho_A <= tol)
+    eligible = (state.status != _INFEASIBLE) & (state.status != _UNBOUNDED)
+    accept = eligible & ok & opt
+    an = accept[..., None]
+    status = torch.where(eligible & reopen, _RUNNING, state.status)
+    return state._replace(
+        x=torch.where(an, xv, state.x),
+        y=torch.where(an, yv, state.y),
+        z=torch.where(an, zv, state.z),
+        tau=torch.where(accept, tau1, state.tau),
+        kappa=torch.where(accept, kap0, state.kappa),
+        status=torch.where(accept, _OPTIMAL, status),
+    )
+
+
+def _restart_merge(state: HSDState, fresh: HSDState, retry) -> HSDState:
+    """Merge a fresh start into ``state`` for the ``retry`` lanes.
+
+    Retry lanes take the fresh iterates and normalizers but KEEP their
+    old best trackers (a failed restart can never answer worse than the
+    old best); the loop clock restarts at 0 for every lane.
+    """
+    rn = retry[..., None]
+    return HSDState(
+        x=torch.where(rn, fresh.x, state.x),
+        y=torch.where(rn, fresh.y, state.y),
+        z=torch.where(rn, fresh.z, state.z),
+        tau=torch.where(retry, fresh.tau, state.tau),
+        kappa=torch.where(retry, fresh.kappa, state.kappa),
+        status=torch.where(retry, _RUNNING, state.status),
+        iterations=state.iterations,
+        k=0,
+        rp0=torch.where(retry, fresh.rp0, state.rp0),
+        rd0=torch.where(retry, fresh.rd0, state.rd0),
+        rg0=torch.where(retry, fresh.rg0, state.rg0),
+        mu0=torch.where(retry, fresh.mu0, state.mu0),
+        best_x=state.best_x,
+        best_y=state.best_y,
+        best_z=state.best_z,
+        best_tau=state.best_tau,
+        best_kappa=state.best_kappa,
+        best_score=state.best_score,
+        best_k=torch.zeros_like(state.best_k),
+    )
+
+
+# stall_patience for restart phases: a restarted lane keeps its OLD best
+# trackers, so the stall clock's baseline is the old best_score, which a
+# cold start cannot beat until it has ~converged.  Restart phases are
+# budget-capped already, so the cutoff buys nothing there: disable it.
+_NO_STALL = 1 << 30
+
+
+def _retry_mask(status):
+    return (status == _RUNNING) | (status == _STALLED) | (status == _NUMERICAL)
+
+
+def _take(state: HSDState, idx) -> HSDState:
+    """Gather the lanes ``idx`` of every per-lane field (``k`` is shared)."""
+    return HSDState(*[v if f == "k" else v[idx] for f, v in zip(HSDState._fields, state)])
+
+
+def _scatter(state: HSDState, sub: HSDState, idx, resumed) -> HSDState:
+    """Write ``sub``'s lanes back over ``state[idx]`` where ``resumed``;
+    the shared loop counter merges by ``max``.  Out of place, as the
+    reference's ``v.at[idx].set(...)``."""
+    merged = {}
+    for name, v in state._asdict().items():
+        v2 = getattr(sub, name)
+        if name == "k":
+            merged[name] = max(v, v2)
+            continue
+        mask = resumed.reshape(resumed.shape + (1,) * (v2.dim() - 1))
+        out = v.clone()
+        out[idx] = torch.where(mask, v2, v[idx])
+        merged[name] = out
+    return HSDState(**merged)
+
+
+def _first_lanes(mask, width: int):
+    """Indices of up to ``width`` lanes, ``mask`` lanes first, in lane
+    order (``stable=True``: torch's default sort is not stable, and the
+    reference's argsort is)."""
+    return torch.argsort((~mask).to(torch.int8), stable=True)[:width]
+
+
 def _mehrotra_start(ctx, b, c, kset: KernelSet, reg_eps):
     """Mehrotra's least-squares starting point, HSD-adapted.
 
@@ -607,6 +742,13 @@ def _package(ctx, b_s, c_s, state: HSDState, kset: KernelSet, opts: SolverOption
     for the reported objective value.
     """
     x, y, z, tau, kappa, status, ind = _finalize(ctx, b_s, c_s, state, kset, opts.tol)
+    out = _unscaled_outputs(x, y, z, tau, kappa, status, state.iterations, scaling, c_orig)
+    out.update(rho_p=ind.rho_p, rho_d=ind.rho_d, rho_gap=ind.rho_g)
+    return out
+
+
+def _unscaled_outputs(x, y, z, tau, kappa, status, iterations, scaling, c_orig):
+    """De-embed (÷τ) and unscale a terminal iterate into the output dict."""
     out_dtype = x.dtype
     tau_safe = tau.clamp(min=torch.finfo(out_dtype).tiny)
     inv_tau = (1.0 / tau_safe)[..., None]
@@ -625,11 +767,44 @@ def _package(ctx, b_s, c_s, state: HSDState, kset: KernelSet, opts: SolverOption
         "kappa": kappa,
         "objective": objective,
         "status": status,
-        "iterations": state.iterations,
-        "rho_p": ind.rho_p,
-        "rho_d": ind.rho_d,
-        "rho_gap": ind.rho_g,
+        "iterations": iterations,
     }
+
+
+def _package_bucketed(
+    ctx, b_s, c_s, state: HSDState, kset: KernelSet, opts: SolverOptions,
+    scaling, c_orig, bucket: int
+):
+    """:func:`_package` with the finalize/classify pass confined to a
+    gathered bucket of the NON-TERMINAL lanes.
+
+    Terminal lanes (OPTIMAL / INFEASIBLE / UNBOUNDED) pass through
+    untouched and only the gathered remainder runs ``_finalize``
+    (best-iterate fold + last-chance classification).  Non-terminal lanes
+    beyond ``bucket`` keep their iterate; still-RUNNING ones are flagged
+    ITERATION_LIMIT.  When they overflow the bucket, a full-width
+    best-iterate fold over the non-terminal lanes runs first, so an
+    overflow lane answers with its best iterate; beyond-bucket
+    STALLED/NUMERICAL lanes still skip the last-chance reclassification —
+    the reference's remaining (status-only) divergence from
+    :func:`_package`, reproduced.  The ρ diagnostics are not computed.
+    """
+    terminal = (
+        (state.status == _OPTIMAL) | (state.status == _INFEASIBLE) | (state.status == _UNBOUNDED)
+    )
+    nt = ~terminal
+    n_nt = int(nt.sum())
+    if n_nt > bucket:
+        state = _fold_to_best(ctx, b_s, c_s, state, kset, only=nt)
+    if n_nt:  # with every lane terminal, the gathered finalize changes nothing
+        idx = _first_lanes(nt, bucket)
+        sub = _take(state, idx)
+        x, y, z, tau, kappa, status, _ = _finalize(ctx, b_s[idx], c_s[idx], sub, kset, opts.tol)
+        sub = sub._replace(x=x, y=y, z=z, tau=tau, kappa=kappa, status=status)
+        state = _scatter(state, sub, idx, nt[idx])
+    status = torch.where(state.status == _RUNNING, _ITERATION_LIMIT, state.status)
+    return _unscaled_outputs(state.x, state.y, state.z, state.tau, state.kappa, status,
+                             state.iterations, scaling, c_orig)
 
 
 # ---------------------------------------------------------------------------
@@ -670,14 +845,21 @@ def _resolve_dtype(opts: SolverOptions, *arrays) -> torch.dtype:
     return functools.reduce(torch.promote_types, [_dtype_of(a) for a in arrays])
 
 
+def _finish_dtype(opts: SolverOptions, dtype):
+    """The wide finish dtype, or None when no (distinct) finish is configured."""
+    if opts.finish_dtype is None or _DTYPES[str(opts.finish_dtype)] == dtype:
+        return None
+    return _DTYPES[str(opts.finish_dtype)]
+
+
 def _require_ported(opts: SolverOptions, dtype) -> None:
-    """Raise for options whose code paths are not ported yet."""
-    if opts.finish_dtype is not None and _DTYPES[str(opts.finish_dtype)] != dtype:
-        raise NotImplementedError(
-            f"finish_dtype={opts.finish_dtype!r}: the wide finish phase is not "
-            "ported yet (ROADMAP.md §1: crossover and the mixed engine, then "
-            "the scan finish with the native-f64 wide set); use finish_dtype=None"
-        )
+    """Raise for options whose code paths are not ported."""
+    if _finish_dtype(opts, dtype) is not None and "df64_fastform" in (
+        opts.finish_kset, opts.crossover_kset
+    ):
+        from pycllp_tpu_torch.ops.df64 import FASTFORM_NOT_PORTED
+
+        raise NotImplementedError(FASTFORM_NOT_PORTED)
     if opts.log_every:
         raise NotImplementedError(
             "log_every: per-iteration metrics (utils/logging.py) are not ported yet"
@@ -722,16 +904,24 @@ def hsd_solve_batched(
 def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
     dtype = _resolve_dtype(opts, A, b, c)
     _require_ported(opts, dtype)
-    A_w = _to(A, dtype, dev)
-    b_w = _to(b, dtype, dev)
-    c_w = _to(c, dtype, dev)
+    fdtype = _finish_dtype(opts, dtype)
+    # With a finish phase configured, scaling and the phase-2 arrays are
+    # built in the WIDE dtype from the original inputs; phase 1 sees the
+    # rounded copies.  (Upcasting already-rounded phase-1 arrays would
+    # make the polish phase faithfully solve the rounded problem and
+    # freeze in an O(ε_narrow) objective error.)
+    wide = fdtype or dtype
+    A_w = _to(A, wide, dev)
+    b_w = _to(b, wide, dev)
+    c_w = _to(c, wide, dev)
 
     if opts.scale:
         scaling = ruiz_equilibrate(A_w)
-        A_s, b_s, c_s = scale_problem(A_w, b_w, c_w, scaling)
+        A_sw, b_sw, c_sw = scale_problem(A_w, b_w, c_w, scaling)
     else:
         scaling = None
-        A_s, b_s, c_s = A_w, b_w, c_w
+        A_sw, b_sw, c_sw = A_w, b_w, c_w
+    A_s, b_s, c_s = A_sw.to(dtype), b_sw.to(dtype), c_sw.to(dtype)
 
     ctx = kset.prepare(A_s)
     if warm is not None:
@@ -739,13 +929,73 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
         # (inverse of unscale_solution: x̃ = x/s, ỹ = y/r, z̃ = z·s)
         xw, yw, zw = (_to(v, dtype, dev) for v in warm)
         if scaling is not None:
-            xw = xw / scaling.col
-            yw = yw / scaling.row
-            zw = zw * scaling.col
+            xw = xw / scaling.col.to(dtype)
+            yw = yw / scaling.row.to(dtype)
+            zw = zw * scaling.col.to(dtype)
         warm = (xw, yw, zw)
     state = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=warm)
-    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, opts.tol, opts.maxiter)
-    return _package(ctx, b_s, c_s, state, kset, opts, scaling, c_w)
+
+    phase1_tol = max(opts.tol, opts.switch_tol) if fdtype else opts.tol
+    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, phase1_tol, opts.maxiter)
+    if fdtype is None:
+        return _package(ctx, b_s, c_s, state, kset, opts, scaling, c_w)
+
+    # continue the SAME interior state in the wide dtype, against the
+    # wide-dtype problem data; the kernel set may substitute a wide
+    # sibling (KernelSet.finish_kernels) so the O(m³) work stays fast
+    fkset = kset.finish_kernels(opts.finish_kset)
+    ckset = _crossover_kset(kset, fkset, opts)
+    state = _fold_to_best(ctx, b_s, c_s, state, kset)
+    ctx = fkset.prepare(A_sw)
+    cctx = ctx if ckset is fkset else ckset.prepare(A_sw)
+    state = _cast_state(state, fdtype)
+    state = state._replace(
+        best_score=torch.full_like(state.best_score, torch.finfo(fdtype).max),
+        best_k=torch.full_like(state.best_k, state.k),
+    )
+    if opts.finish_mode == "crossover":
+        # one wide basis solve finishes accepted lanes as OPTIMAL;
+        # rejects are re-opened RUNNING for the IPM continuation below
+        state = _crossover_state(cctx, b_sw, c_sw, state, ckset, opts, opts.tol)
+    else:
+        state = state._replace(
+            status=torch.where(state.status != _NUMERICAL, _RUNNING, state.status)
+        )
+    wopts = _wide_opts(opts)
+    state = _run_phase(
+        ctx, b_sw, c_sw, state, wopts, fkset, fdtype, opts.tol, opts.maxiter + opts.finish_maxiter
+    )
+    if opts.finish_mode == "crossover":
+        # second attempt after the IPM sharpened the rejects, and a rescue
+        # for lanes whose IPM stalled just above tol; reopen=False keeps
+        # reject statuses STALLED/NUMERICAL for the restart below
+        state = _fold_to_best(ctx, b_sw, c_sw, state, fkset)
+        state = _crossover_state(cctx, b_sw, c_sw, state, ckset, opts, opts.tol, reopen=False)
+    if opts.finish_restart:
+        # fresh-restart fallback: STALLED/NUMERICAL lanes rerun from a cold
+        # Mehrotra start; still-RUNNING (budget-capped) lanes continue warm
+        # with the restart round's budget (k resets to 0)
+        retry = (state.status == _STALLED) | (state.status == _NUMERICAL)
+        fresh = _fresh_state(ctx, b_sw, c_sw, opts.replace(init_point="mehrotra"), fkset, fdtype)
+        state = _restart_merge(state, fresh, retry)
+        state = _run_phase(
+            ctx, b_sw, c_sw, state, wopts.replace(stall_patience=_NO_STALL), fkset, fdtype,
+            opts.tol, opts.finish_maxiter + 10,
+        )
+    return _package(ctx, b_sw, c_sw, state, fkset, opts, scaling, c_w)
+
+
+def _wide_opts(opts: SolverOptions) -> SolverOptions:
+    """Options of the wide IPM phases: the finish patience, no relative
+    stall threshold, the finish KKT sweeps (symmetric: the asymmetric
+    predictor schedule is a narrow knob) and the finish Gondzio count."""
+    return opts.replace(
+        stall_patience=opts.finish_patience,
+        stall_rtol=0.0,
+        kkt_refine=opts.resolved_finish_kkt_refine(),
+        kkt_refine_pred=None,
+        gondzio_correctors=opts.finish_gondzio,
+    )
 
 
 def hsd_solve(A, b, c, opts: SolverOptions = SolverOptions(), kset: KernelSet = REFERENCE_KERNELS,
@@ -802,54 +1052,108 @@ def _hsd_scan_core(A, b3, c3, opts, kset, keys, dev, warm_chain=False):
     return {k: torch.cat([o[k] for o in outs]) for k in keys}
 
 
-def _compact_resume(ctx, b_sf, c_sf, sflat, opts, kset, dtype, tol, maxiter, bucket):
+def _compact_resume(
+    ctx, b_sf, c_sf, sflat, opts, kset, dtype, tol, maxiter, bucket, restart=False
+):
     """Compact the still-RUNNING lanes and resume them warm.
 
-    Stable argsort of the finished mask (``stable=True``: torch's default
-    sort is not stable, and the reference's is) → gather the full
-    interior state of up to ``bucket`` unfinished lanes into one dense
-    batch, run the masked loop with the remaining budget, scatter the
-    state back.  Lanes beyond ``bucket`` (overflow) keep their capped
-    state.
+    Stable argsort of the finished mask → gather the full interior state
+    of up to ``bucket`` unfinished lanes into one dense batch, run the
+    masked loop with the remaining budget, scatter the state back.  Lanes
+    beyond ``bucket`` (overflow) keep their capped state.
+
+    ``restart=True``: additionally gather STALLED/NUMERICAL lanes and
+    rerun those from a COLD Mehrotra start (old best trackers kept, so a
+    failed restart cannot regress); still-RUNNING lanes in the same
+    bucket resume WARM.
     """
-    unfinished = sflat.status == _RUNNING
-    idx = torch.argsort((~unfinished).to(torch.int8), stable=True)[:bucket]
-    state2 = HSDState(*[v if f == "k" else v[idx] for f, v in zip(HSDState._fields, sflat)])
+    unfinished = _retry_mask(sflat.status) if restart else (sflat.status == _RUNNING)
+    idx = _first_lanes(unfinished, bucket)
+    state2 = _take(sflat, idx)
     resumed = unfinished[idx]
-    # restart the stall clock at the resume point: gathered lanes carry a
-    # best_k from their own (earlier) clock, and k may have jumped past it
-    state2 = state2._replace(best_k=torch.full_like(state2.best_k, state2.k))
+    if restart:
+        fresh = _fresh_state(
+            ctx, b_sf[idx], c_sf[idx], opts.replace(init_point="mehrotra"), kset, dtype
+        )
+        stuck = (sflat.status == _STALLED) | (sflat.status == _NUMERICAL)
+        # _restart_merge re-opens the stuck lanes and zeroes every lane's
+        # stall clock; RUNNING overflow lanes keep their warm state
+        state2 = _restart_merge(state2, fresh, stuck[idx])
+        opts = opts.replace(stall_patience=_NO_STALL)
+    else:
+        # restart the stall clock at the resume point: gathered lanes carry
+        # a best_k from their own (earlier) clock, and k may have jumped
+        # past it
+        state2 = state2._replace(best_k=torch.full_like(state2.best_k, state2.k))
     state2 = _run_phase(ctx, b_sf[idx], c_sf[idx], state2, opts, kset, dtype, tol, maxiter)
-    merged = {}
-    for name, v in sflat._asdict().items():
-        v2 = getattr(state2, name)
-        if name == "k":
-            merged[name] = max(v, v2)
-            continue
-        mask = resumed.reshape(resumed.shape + (1,) * (v2.dim() - 1))
-        # out of place, as the reference's v.at[idx].set(...)
-        out = v.clone()
-        out[idx] = torch.where(mask, v2, v[idx])
-        merged[name] = out
-    return HSDState(**merged)
+    return _scatter(sflat, state2, idx, resumed)
+
+
+def _narrow_opts_view(opts: SolverOptions, phase1_tol: float) -> SolverOptions:
+    """Canonicalize finish-phase knobs out of the narrow stages' options
+    (as the reference, whose narrow program is cached on them).
+    ``finish_dtype`` is kept — it decides the dtype the scaling is
+    computed in — and the phase-1 tolerance is pre-folded into ``tol``."""
+    return opts.replace(
+        tol=phase1_tol,
+        switch_tol=1e-3,
+        finish_maxiter=20,
+        finish_kset="df64",
+        finish_patience=8,
+        finish_restart=True,
+        finish_mode="ipm",
+        finish_kkt_refine=None,
+        finish_gondzio=0,
+        crossover_refine=2,
+        crossover_feas_tol=1e-9,
+        crossover_kset="mixed1",
+        crossover_repair=2,
+    )
+
+
+def _finish_opts_view(opts: SolverOptions) -> SolverOptions:
+    """The twin of :func:`_narrow_opts_view`: canonicalize narrow-only
+    knobs out of the finish stages' options; ``kkt_refine`` (a narrow
+    acceptance knob) is pre-resolved into ``finish_kkt_refine``."""
+    return opts.replace(
+        maxiter=40,
+        stall_patience=12,
+        stall_rtol=0.0,
+        kkt_refine=0,
+        finish_kkt_refine=opts.resolved_finish_kkt_refine(),
+        gondzio_correctors=0,
+        kkt_refine_pred=None,
+        kkt_warmup=0,
+        init_point="mehrotra",
+        warm_start=False,
+        warm_lambda=0.05,
+        switch_tol=1e-3,
+    )
 
 
 def _scan_scaled_arrays(A, b3, c3, opts, dev):
-    """Shared preamble of the scan path: dtype, Ruiz scaling, scaled flat data."""
+    """Shared preamble of the scan stages: wide + narrow scaled data.
+
+    With a finish configured the Ruiz scaling and the scaled data are
+    computed in the WIDE dtype from the original inputs (the narrow
+    stages cast them down), as in :func:`_hsd_solve_batched_impl`.
+    Returns ``(dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w)``.
+    """
     dtype = _resolve_dtype(opts, A, b3, c3)
+    wide = _finish_dtype(opts, dtype) or dtype
     K, chunk, m = b3.shape
     n = c3.shape[-1]
     N = K * chunk
-    A_w = _to(A, dtype, dev)
-    c_flat = c3.reshape(N, n).to(dtype)
-    b_flat = b3.reshape(N, m).to(dtype)
+    A_w = _to(A, wide, dev)
+    c_flat_w = c3.reshape(N, n).to(wide)
+    b_flat_w = b3.reshape(N, m).to(wide)
     if opts.scale:
         scaling = ruiz_equilibrate(A_w)
-        A_s, b_sf, c_sf = scale_problem(A_w, b_flat, c_flat, scaling)
+        A_sw, b_sfw, c_sfw = scale_problem(A_w, b_flat_w, c_flat_w, scaling)
     else:
         scaling = None
-        A_s, b_sf, c_sf = A_w, b_flat, c_flat
-    return dtype, scaling, A_s, b_sf, c_sf, c_flat
+        A_sw, b_sfw, c_sfw = A_w, b_flat_w, c_flat_w
+    return dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w
 
 
 def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_chain=False):
@@ -860,10 +1164,14 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
     into one ``bucket``-wide batch that resumes WARM (same iterates, best
     trackers, loop counter continuing at ``cap``) with the full
     ``opts.maxiter`` budget.  Results scatter back over the stage-1 rows.
+
+    With ``keys`` the packaged outputs are returned; with ``keys=None``
+    the flat narrow :class:`HSDState`, for :func:`_hsd_scan_finish_core`.
     """
-    dtype, scaling, A_s, b_sf, c_sf, c_flat = _scan_scaled_arrays(A, b3, c3, opts, dev)
+    dtype, _, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, dev)
     K, chunk, m = b3.shape
     n = c3.shape[-1]
+    A_s, b_sf, c_sf = A_sw.to(dtype), b_sfw.to(dtype), c_sfw.to(dtype)
     ctx = kset.prepare(A_s)
     tol = opts.tol
 
@@ -899,8 +1207,189 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
 
     # ---- stage 2: compact the narrow tail, resume with full budget ----
     sflat = _compact_resume(ctx, b_sf, c_sf, sflat, opts, kset, dtype, tol, opts.maxiter, bucket)
-    outs = _package(ctx, b_sf, c_sf, sflat, kset, opts, scaling, c_flat)
+    if keys is None:
+        return sflat
+    outs = _package(ctx, b_sf, c_sf, sflat, kset, opts, scaling, c_flat_w.to(dtype))
     return {k: outs[k] for k in keys}
+
+
+def _hsd_scan_finish_core(
+    A, b3, c3, sflat, opts, kset, keys, finish_cap, finish_bucket, dev, rounds=4,
+    truncate=None,
+):
+    """Stages 3+4: the wide finish over the narrow :class:`HSDState`.
+
+    Polishes every lane to the full ``opts.tol`` in the wide dtype.
+    Stage 3 runs the vertex crossover (or a capped wide IPM) per chunk;
+    stage 4 drains the rejects through bounded rounds of gathered wide
+    work, each skipped when no lane needs it, so a high-acceptance batch
+    pays ~nothing there, and a reject volume larger than a bucket is
+    drained by repeats instead of overflowing to ITERATION_LIMIT.
+
+    ``truncate`` ("pre", "stage3", "tier0" or "tier1"; the reference's
+    ``PYCLLP_FINISH_TRUNCATE``) returns the packaged outputs right after
+    the named stage, to split the finish's cost.
+    """
+    dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(
+        A, b3, c3, opts, dev
+    )
+    K, chunk, m = b3.shape
+    n = c3.shape[-1]
+    N = K * chunk
+    A_s, b_sf, c_sf = A_sw.to(dtype), b_sfw.to(dtype), c_sfw.to(dtype)
+    ctx = kset.prepare(A_s)
+
+    # ---- stage 3: wide finish over ALL lanes, chunk by chunk ----
+    fkset = kset.finish_kernels(opts.finish_kset)
+    fctx = fkset.prepare(A_sw)
+    ckset = _crossover_kset(kset, fkset, opts)
+    cctx = fctx if ckset is fkset else ckset.prepare(A_sw)
+    sflat = _fold_to_best(ctx, b_sf, c_sf, sflat, kset)
+    sflat = _cast_state(sflat, wide)
+    sflat = sflat._replace(
+        k=0,
+        best_score=torch.full_like(sflat.best_score, torch.finfo(wide).max),
+        best_k=torch.zeros_like(sflat.best_k),
+    )
+    wopts = _wide_opts(opts)
+
+    def packaged(s):
+        outs = _package_bucketed(fctx, b_sfw, c_sfw, s, fkset, opts, scaling, c_flat_w,
+                                 finish_bucket)
+        return {k: outs[k] for k in keys}
+
+    if truncate == "pre":
+        return packaged(sflat)
+
+    if opts.finish_mode == "crossover":
+        # ONE basis solve per lane: accepted lanes are OPTIMAL outright;
+        # rejects re-open RUNNING and fall through to the drain tiers.
+        # Repair is 0 here: tier 0 applies opts.crossover_repair to the
+        # GATHERED rejects instead (same math, a fraction of the width).
+        s3_opts = opts.replace(crossover_repair=0)
+
+        def stage3(st, b_s, c_s):
+            return _crossover_state(cctx, b_s, c_s, st, ckset, s3_opts, opts.tol)
+
+        base_k = 0
+    else:
+        sflat = sflat._replace(
+            status=torch.where(sflat.status != _NUMERICAL, _RUNNING, sflat.status)
+        )
+
+        def stage3(st, b_s, c_s):
+            return _run_phase(fctx, b_s, c_s, st, wopts, fkset, wide, opts.tol, finish_cap)
+
+        base_k = finish_cap
+
+    parts = []
+    for kk in range(K):
+        rows = slice(kk * chunk, (kk + 1) * chunk)
+        parts.append(stage3(_take(sflat, rows), b_sfw[rows], c_sfw[rows]))  # each from k = 0
+    sflat = HSDState(**{
+        f: base_k if f == "k" else torch.cat([getattr(p, f) for p in parts])
+        for f in HSDState._fields
+    })
+    del parts
+    if truncate == "stage3":
+        return packaged(sflat)
+
+    if opts.finish_mode == "crossover":
+        # ---- stage 4 (crossover): bounded draining rounds ----
+        def drain(s, width, n_rounds, body):
+            """Bounded rounds of [gather → body → scatter] over the RUNNING
+            lanes, each lane treated AT MOST ONCE: a lane still RUNNING
+            after a full tier treatment is masked out of later rounds.
+            Rounds repeat only to drain reject VOLUME beyond one bucket;
+            the loop ends as soon as no untreated lane is RUNNING."""
+            treated = torch.zeros_like(s.status, dtype=torch.bool)
+            for _ in range(n_rounds):
+                unfinished = (s.status == _RUNNING) & ~treated
+                if not bool(unfinished.any()):
+                    break
+                idx = _first_lanes(unfinished, width)
+                resumed = unfinished[idx]
+                st2 = body(b_sfw[idx], c_sfw[idx], _take(s, idx))
+                treated = treated.clone()
+                treated[idx] = treated[idx] | resumed
+                s = _scatter(s, st2, idx, resumed)
+            return s
+
+        # tier 0: basis-repair rounds on the gathered rejects, mixed engine
+        def tier0(b2, c2, st2):
+            return _crossover_state(cctx, b2, c2, st2, ckset, opts, opts.tol)
+
+        if opts.crossover_repair:  # without repair a re-cross of the
+            # unchanged state would re-fail identically — skip the tier
+            sflat = drain(sflat, min(max(16384, 8 * finish_bucket), N), rounds, tier0)
+        if truncate == "tier0":
+            return packaged(sflat)
+
+        # the wide tiers verify at a FLOORED feasibility tolerance (a right
+        # basis solved in wide precision carries residual ~1e-8-class for
+        # the ill-conditioned lanes that reach them) with one refinement
+        # sweep after a direct wide factor
+        topts = opts.replace(
+            crossover_feas_tol=max(opts.crossover_feas_tol, 1e-8),
+            crossover_refine=min(opts.crossover_refine, 1),
+        )
+
+        # tier 1: short wide IPM → wide cross (budgets relative to st2.k)
+        def tier1(b2, c2, st2):
+            st2 = st2._replace(best_k=torch.full_like(st2.best_k, st2.k))
+            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
+                             st2.k + finish_cap)
+            st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
+            return _crossover_state(fctx, b2, c2, st2, fkset, topts, opts.tol)
+
+        sflat = drain(sflat, finish_bucket, rounds, tier1)
+        if truncate == "tier1":
+            return packaged(sflat)
+
+        # tier 2: narrow, deep — IPM to budget, restart, rescue.
+        # reopen=False in the rescue keeps rejects STALLED, so each lane
+        # gets the deep treatment exactly once
+        def tier2(b2, c2, st2):
+            st2 = st2._replace(best_k=torch.full_like(st2.best_k, st2.k))
+            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
+                             st2.k + opts.finish_maxiter)
+            if opts.finish_restart:
+                stuck = (st2.status == _STALLED) | (st2.status == _NUMERICAL)
+                fresh = _fresh_state(
+                    fctx, b2, c2, opts.replace(init_point="mehrotra"), fkset, wide
+                )
+                st2 = _restart_merge(st2, fresh, stuck)
+                st2 = _run_phase(
+                    fctx, b2, c2, st2, wopts.replace(stall_patience=_NO_STALL), fkset, wide,
+                    opts.tol, opts.finish_maxiter + 10,
+                )
+            st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
+            return _crossover_state(fctx, b2, c2, st2, fkset, topts, opts.tol, reopen=False)
+
+        sflat = drain(sflat, 256, rounds, tier2)
+    else:
+        # ---- stage 4 (ipm): two gated compact rounds.  A tail larger
+        # than the bucket overflows round 1 — those lanes stay RUNNING and
+        # round 2 gathers them; round 2 doubles as the fresh-restart
+        # fallback for STALLED/NUMERICAL lanes.  Each round's budget
+        # extends past the previous round's endpoint (k is shared). ----
+        if bool((sflat.status == _RUNNING).any()):
+            sflat = _compact_resume(
+                fctx, b_sfw, c_sfw, sflat, wopts, fkset, wide, opts.tol,
+                base_k + opts.finish_maxiter, finish_bucket,
+            )
+        if bool(_retry_mask(sflat.status).any()):
+            sflat = _compact_resume(
+                fctx, b_sfw, c_sfw, sflat, wopts, fkset, wide, opts.tol,
+                base_k + 2 * opts.finish_maxiter, finish_bucket,
+                restart=opts.finish_restart,
+            )
+    if any(k in ("rho_p", "rho_d", "rho_gap") for k in keys):
+        outs = _package(fctx, b_sfw, c_sfw, sflat, fkset, opts, scaling, c_flat_w)
+        return {k: outs[k] for k in keys}
+    # ρ diagnostics not requested → finalize/classify only the gathered
+    # non-terminal remainder (see _package_bucketed)
+    return packaged(sflat)
 
 
 def hsd_solve_scan(
@@ -914,8 +1403,11 @@ def hsd_solve_scan(
     keys: tuple = ("x", "y", "z", "objective", "status", "iterations"),
     compact_cap: int | None = None,
     compact_bucket: int = 8192,
+    finish_cap: int = 6,
+    finish_bucket: int | None = None,
     warm_chain: bool = False,
     device="cuda",
+    stage_sync: bool = False,
 ):
     """Chunked batched solve over shared 2-D ``A``.
 
@@ -928,18 +1420,27 @@ def hsd_solve_scan(
     resumes warm with the full budget (see :func:`_hsd_scan_narrow_core`).
     Lanes beyond ``compact_bucket`` keep their capped answer.
 
+    With ``opts.finish_dtype`` set, the compact sweep is followed by a
+    wide polish of EVERY lane to the full ``opts.tol``
+    (:func:`_hsd_scan_finish_core`): per chunk, one vertex crossover
+    (``finish_mode="crossover"``) or a ``finish_cap``-capped wide IPM,
+    then the rejects drained through buckets of ``finish_bucket`` lanes
+    (default ``compact_bucket``).
+
     ``warm_chain``: chunk k+1's lane j warm-starts from chunk k's lane-j
     solution, for correlated scenario streams.
 
-    The reference's wide finish (``opts.finish_dtype``) is not ported yet
-    and raises ``NotImplementedError``.
+    ``stage_sync``: with a finish, synchronise the device after the
+    narrow and after the finish stage and print each stage's seconds to
+    stderr (the reference's ``PYCLLP_SCAN_SYNC``).
     """
     if getattr(A, "ndim", 2) != 2:
         raise ValueError("hsd_solve_scan requires shared 2-D A")
     dev = resolve_device(device)
     b = torch.as_tensor(b, device=dev)
     c = torch.as_tensor(c, device=dev)
-    _require_ported(opts, _resolve_dtype(opts, A, b, c))
+    dtype = _resolve_dtype(opts, A, b, c)
+    _require_ported(opts, dtype)
     N = b.shape[0]
     chunk = min(chunk, N)
     pad = (-N) % chunk
@@ -949,12 +1450,42 @@ def hsd_solve_scan(
     K = b.shape[0] // chunk
     b3 = b.reshape(K, chunk, -1)
     c3 = c.reshape(K, chunk, -1)
+    keys = tuple(keys)
     with _full_precision_matmuls():
-        if compact_cap is not None:
+        if compact_cap is None:
+            res = _hsd_scan_core(A, b3, c3, opts, kset, keys, dev, bool(warm_chain))
+        elif _finish_dtype(opts, dtype) is None:
             res = _hsd_scan_narrow_core(
-                A, b3, c3, opts, kset, tuple(keys), int(compact_cap),
+                A, b3, c3, opts, kset, keys, int(compact_cap),
                 min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
             )
         else:
-            res = _hsd_scan_core(A, b3, c3, opts, kset, tuple(keys), dev, bool(warm_chain))
+            phase1_tol = max(opts.tol, opts.switch_tol)
+            t0 = time.perf_counter()
+            sflat = _hsd_scan_narrow_core(
+                A, b3, c3, _narrow_opts_view(opts, phase1_tol), kset, None,
+                int(compact_cap), min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
+            )
+            if stage_sync:
+                _sync(dev)
+                running = int((sflat.status == _RUNNING).sum())
+                print(f"[scan] narrow stage: {time.perf_counter() - t0:.3f}s "
+                      f"(sync; {running} lanes still RUNNING)", file=sys.stderr, flush=True)
+                t0 = time.perf_counter()
+            fb = min(int(finish_bucket or compact_bucket), K * chunk)
+            res = _hsd_scan_finish_core(
+                A, b3, c3, sflat, _finish_opts_view(opts), kset, keys, int(finish_cap), fb, dev,
+                # enough drain rounds to empty the WHOLE batch through the
+                # bucket; the rounds loop ends once no lane is RUNNING
+                rounds=max(4, -(-(K * chunk) // fb)),
+            )
+            if stage_sync:
+                _sync(dev)
+                print(f"[scan] finish stage: {time.perf_counter() - t0:.3f}s (sync)",
+                      file=sys.stderr, flush=True)
     return {k: v[:N] for k, v in res.items()}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -2,10 +2,11 @@
 
 Counterpart of :mod:`pycllp_tpu.solvers.options`: the same fields with
 the same defaults, so a reference configuration carries over field for
-field (:func:`pycllp_tpu_torch.interop.options_from_reference`).  Options
-for parts of the reference that are not ported yet (the wide finish and
-its crossover) are kept so that configurations stay comparable; the
-solvers raise ``NotImplementedError`` when one of them is switched on.
+field (:func:`pycllp_tpu_torch.interop.options_from_reference`).  The
+few options whose code paths are not ported (``log_every``, and
+``finish_kset="df64_fastform"``, a negative result of the reference) are
+kept so that configurations stay comparable; the solvers raise
+``NotImplementedError`` when one of them is switched on.
 """
 
 from __future__ import annotations
@@ -71,8 +72,9 @@ class SolverOptions:
         Iterations without best-score progress before a lane is frozen
         as STALLED (its best iterate is returned).
     finish_dtype:
-        Wide finish phase dtype.  Not ported yet: any value other than
-        None (or ``dtype`` itself) raises ``NotImplementedError``.
+        Wide finish phase dtype ("float64"; None = narrow only): the
+        narrow phase stops at ``switch_tol`` and a wide finish (vertex
+        crossover or wide IPM, ``finish_mode``) polishes to ``tol``.
     """
 
     tol: float = 1e-6
@@ -97,7 +99,7 @@ class SolverOptions:
     stall_rtol: float = 0.0  # minimum RELATIVE best-score improvement that
     # counts as progress for the stall clock (0 = any improvement).  Best-
     # iterate tracking itself still accepts ANY improvement.
-    # -- wide finish (not ported yet; kept so configurations carry over) --
+    # -- wide finish --
     finish_dtype: str | None = None
     finish_maxiter: int = 20
     switch_tol: float = 1e-3

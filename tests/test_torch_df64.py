@@ -1,0 +1,289 @@
+"""Port parity: the wide kernel sets (ops/df64.py, ops/mixed.py).
+
+The port's wide factor and solve compute in native FP64 where the JAX
+reference computes in double-single (hi/lo f32) Pallas; the Ozaki slicing
+is the same f32 arithmetic in both.  On the CPU the port runs the plain
+versions of its CUDA kernels; the JAX Pallas kernels run in interpret mode.
+
+* ``ozaki_params`` / ``ozaki_mv_params``: equal to the reference's;
+* the slicing: ``_slice_rounds_bl_plain`` equals JAX ``_slice_rounds_bl``
+  BITWISE (the CUDA kernel is held to the plain version bitwise on the card);
+* the Ozaki product: within 1e-14 of the output scale of the reference's,
+  at a 1e±30 spread of d;
+* ``DF64_FINISH_KERNELS``: backward error < 1e-11 at a 1e±12 spread
+  (tests_tpu/smoke.py's contract), agreement with the reference's set
+  < 1e-7 at 1e±3; the f32 rounding of δ; the NaN lane; per-instance A;
+* the mixed set on the port's batch-last base against the reference's,
+  d uniform in [0.5, 2]: solves agree to 1e-8 relative;
+* the TF32 guard of the Ozaki GEMMs, and ``form="fast"`` raising.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pycllp_tpu.ops import df64 as ref_df64
+from pycllp_tpu.ops import mixed as ref_mixed
+from pycllp_tpu.ops.batchlast import BATCHLAST_KERNELS as REF_BL
+from pycllp_tpu_torch.ops import batchlast as bl
+from pycllp_tpu_torch.ops import df64, mixed
+from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
+
+DF = df64.DF64_FINISH_KERNELS
+REF_DF = ref_df64.DF64_FINISH_KERNELS
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def _normalised_pair(r, B, seed):
+    """A (r, B) hi/lo f32 pair of f64 data normalised per column to |x| ≤ 1."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((r, B)) * 10.0 ** rng.uniform(-6, 6, (r, B))
+    X /= np.abs(X).max(axis=0, keepdims=True)
+    hi = X.astype(np.float32)
+    lo = (X - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def _backward_error(A, d, reg, r, v):
+    """‖Mv − r‖ / (‖M‖‖v‖ + ‖r‖) per lane, max over lanes (M exact in numpy f64)."""
+    A = np.broadcast_to(A, (d.shape[0],) + A.shape[-2:])  # shared or per-instance A
+    M = np.einsum("bmn,bn,bkn->bmk", A, d, A) + reg[:, None, None] * np.eye(A.shape[1])
+    res = np.abs(np.einsum("bmk,bk->bm", M, v) - r)
+    scale = np.abs(M).sum(-1).max(-1) * np.abs(v).max(-1) + np.abs(r).max(-1)
+    return float((res.max(-1) / scale).max())
+
+
+@pytest.mark.parametrize("n", [8, 24, 36, 64, 128, 200])
+def test_ozaki_params_match_reference(n):
+    assert df64.ozaki_params(n) == ref_df64.ozaki_params(n)
+    assert df64.ozaki_mv_params(n) == ref_df64.ozaki_mv_params(n)
+    assert df64.ozaki_params(n, bits=56) == ref_df64.ozaki_params(n, 56)
+
+
+@pytest.mark.parametrize("r,B", [(24, 128), (36, 150)])
+@pytest.mark.parametrize("which", ["mv", "formation"])
+def test_slice_rounds_plain_bitwise_equal_to_pallas(r, B, which):
+    n = 128 if which == "mv" else 64
+    s, n_slices, _ = (df64.ozaki_mv_params if which == "mv" else df64.ozaki_params)(n)
+    hi, lo = _normalised_pair(r, B, seed=r + B)
+    ref = np.stack([np.asarray(a) for a in ref_df64._slice_rounds_bl(
+        jnp.asarray(hi), jnp.asarray(lo), s=s, n_slices=n_slices)])
+    got = df64._slice_rounds_bl_plain(*_t(hi, lo), s, n_slices).numpy()
+    assert ref.dtype == got.dtype == np.float32 and got.shape == (n_slices, r, B)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    # integer-valued bands of at most s bits
+    assert np.array_equal(got, np.round(got)) and np.abs(got).max() <= 2.0 ** s
+    # the dispatching wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(df64.slice_rounds_bl(*_t(hi, lo), s, n_slices).numpy(), got)
+
+
+def test_ozaki_matmul_matches_jax():
+    rng = np.random.default_rng(0)
+    m, n, B = 8, 20, 128
+    A = rng.standard_normal((m, n))
+    W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+    d = 10.0 ** rng.uniform(-30, 30, size=(n, B))
+    s, n_slices, cut = df64.ozaki_params(n)
+    kw = dict(s=s, n_slices=n_slices, cut=cut)
+    ref = np.asarray(ref_df64._ozaki_matmul(
+        *ref_df64._ozaki_prepare(jnp.asarray(W), **kw), jnp.asarray(d), **kw))
+    Wt, dt = _t(W, d)
+    got = df64._ozaki_matmul(*df64._ozaki_prepare(Wt, **kw), dt, **kw).numpy()
+    scale = np.abs(ref).max(axis=0, keepdims=True)
+    assert np.abs(got - ref).max(axis=0, keepdims=True).max() <= 1e-14 * scale.max()
+    assert (np.abs(got - ref) / scale).max() <= 1e-14
+    assert (np.abs(got - W @ d) / scale).max() <= 1e-14
+
+
+@pytest.mark.parametrize("m,n,B", [(16, 24, 128), (32, 48, 256)])
+def test_df64_set_contracts_and_parity(m, n, B):
+    rng = np.random.default_rng(m)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    r = rng.standard_normal((B, m))
+    At, rt = _t(A, r)
+    ctx = DF.prepare(At)
+    # backward error at a late-IPM-like 1e±12 spread (smoke's check_df64 (a))
+    d = 10.0 ** rng.uniform(-12, 12, size=(B, n))
+    fac = DF.factor(ctx, torch.from_numpy(d), 1e-12)
+    (v,) = DF.solve(fac, (rt,))
+    assert torch.isfinite(v).all()
+    assert _backward_error(A, d, fac.reg.numpy(), r, v.numpy()) < 1e-11
+    # agreement with the reference's df64 set at a moderate 1e±3 spread
+    d2 = 10.0 ** rng.uniform(-3, 3, size=(B, n))
+    (v2,) = DF.solve(DF.factor(ctx, torch.from_numpy(d2), 1e-12), (rt,))
+    ref_ctx = REF_DF.prepare(jnp.asarray(A))
+    (v_ref,) = REF_DF.solve(REF_DF.factor(ref_ctx, jnp.asarray(d2), 1e-12), (jnp.asarray(r),))
+    v_ref = np.asarray(v_ref)
+    rel = np.abs(v2.numpy() - v_ref) / np.abs(v_ref).max(-1, keepdims=True)
+    assert rel.max() < 1e-7
+    # the Ozaki matvecs (48 captured bits) against plain f64 products
+    x = rng.standard_normal((B, n))
+    np.testing.assert_allclose(DF.mv(ctx, torch.from_numpy(x)).numpy(), x @ A.T,
+                               rtol=0, atol=1e-12 * np.abs(x @ A.T).max())
+    np.testing.assert_allclose(DF.rmv(ctx, rt).numpy(), r @ A,
+                               rtol=0, atol=1e-12 * np.abs(r @ A).max())
+
+
+def test_df64_f64form_matches_ozaki_form():
+    rng = np.random.default_rng(3)
+    m, n, B = 12, 20, 64
+    A = rng.standard_normal((m, n))
+    d = 10.0 ** rng.uniform(-3, 3, size=(B, n))
+    r = rng.standard_normal((B, m))
+    At, dt, rt = _t(A, d, r)
+    (v_f64,) = df64.DF64_F64FORM_KERNELS.solve(
+        df64.DF64_F64FORM_KERNELS.factor(df64.DF64_F64FORM_KERNELS.prepare(At), dt, 1e-12), (rt,))
+    (v_oz,) = DF.solve(DF.factor(DF.prepare(At), dt, 1e-12), (rt,))
+    assert (v_f64 - v_oz).abs().max() / v_oz.abs().max() < 1e-9
+    assert BATCHLAST_KERNELS.finish_kernels("df64_f64form") is df64.DF64_F64FORM_KERNELS
+
+
+def test_reg_enters_the_factor_rounded_to_f32(monkeypatch):
+    """δ is computed through an f32 product of normalised d and reaches the
+    factor rounded to f32, as the reference adds (reg_f32, 0); matvec_M
+    keeps the f64 value."""
+    seen = {}
+
+    def spy(M, reg):
+        seen["reg"] = reg.clone()
+        return df64._df_chol_bl_plain(M, reg)
+
+    monkeypatch.setattr(df64, "df_chol_bl", spy)
+    rng = np.random.default_rng(4)
+    A = rng.standard_normal((10, 16))
+    d = 10.0 ** rng.uniform(-20, 20, size=(32, 16))
+    At, dt = _t(A, d)
+    fac = DF.factor(DF.prepare(At), dt, 1e-12)
+    assert seen["reg"].dtype == torch.float64
+    torch.testing.assert_close(seen["reg"], fac.reg.to(torch.float32).to(torch.float64),
+                               rtol=0, atol=0)
+    assert (seen["reg"] != fac.reg).any()  # the rounding is real, not a no-op
+    # δ = reg_eps·max(diag(A·D·Aᵀ)) to f32-product accuracy
+    np.testing.assert_allclose(fac.reg.numpy(), 1e-12 * ((A * A) @ d.T).max(0), rtol=1e-6)
+
+
+def test_df64_nan_lane_poisons_only_itself():
+    rng = np.random.default_rng(9)
+    A = rng.standard_normal((6, 15))
+    d = rng.uniform(0.5, 2.0, size=(4, 15))
+    d[2] = -d[2]  # indefinite M on lane 2
+    At, dt, rt = _t(A, d, rng.standard_normal((4, 6)))
+    fac = df64.DF64_F64FORM_KERNELS.factor(df64.DF64_F64FORM_KERNELS.prepare(At), dt, 0.0)
+    assert torch.isnan(fac.dinv[:, 2]).any()
+    (v,) = df64.DF64_F64FORM_KERNELS.solve(fac, (rt,))
+    assert torch.isnan(v[2]).any() and torch.isfinite(v[[0, 1, 3]]).all()
+
+
+def test_df64_per_instance_A():
+    rng = np.random.default_rng(6)
+    m, n, B = 12, 20, 40
+    A3 = rng.standard_normal((B, m, n))
+    d = np.abs(rng.standard_normal((B, n))) + 1e-2
+    r = rng.standard_normal((B, m))
+    ctx = DF.prepare(torch.from_numpy(A3))
+    assert ctx.W is None and ctx.Amv is None
+    fac = DF.factor(ctx, torch.from_numpy(d), 1e-14)
+    (v,) = DF.solve(fac, (torch.from_numpy(r),))
+    assert _backward_error(A3, d, fac.reg.numpy(), r, v.numpy()) < 1e-13
+    M = np.einsum("bmn,bn,bkn->bmk", A3, d, A3) + fac.reg.numpy()[:, None, None] * np.eye(m)
+    np.testing.assert_allclose(v.numpy(), np.linalg.solve(M, r[..., None])[..., 0],
+                               rtol=1e-10, atol=1e-10)
+
+
+def test_fastform_is_not_ported():
+    with pytest.raises(NotImplementedError, match="negative result"):
+        df64.DoubleSingleKernels(form="fast")
+    with pytest.raises(NotImplementedError, match="negative result"):
+        BATCHLAST_KERNELS.finish_kernels("df64_fastform")
+    with pytest.raises(ValueError):
+        BATCHLAST_KERNELS.finish_kernels("no_such_set")
+
+
+def test_finish_kernels_cached_per_name():
+    assert BATCHLAST_KERNELS.finish_kernels() is DF
+    assert BATCHLAST_KERNELS.finish_kernels("df64") is BATCHLAST_KERNELS.finish_kernels("df64")
+    assert BATCHLAST_KERNELS.finish_kernels("mixed") is mixed.MIXED_FINISH_KERNELS
+    assert BATCHLAST_KERNELS.finish_kernels("mixed1") is mixed.MIXED_IR1_KERNELS
+    assert mixed.MIXED_IR1_KERNELS.ir_steps == 1 and mixed.MIXED_FINISH_KERNELS.ir_steps == 3
+    assert DF.finish_kernels("anything") is DF  # wide sets ignore the selector
+
+
+@pytest.mark.parametrize("ir_steps", [1, 3])
+@pytest.mark.parametrize("jacobi", [True, False])
+def test_mixed_set_matches_jax(ir_steps, jacobi):
+    rng = np.random.default_rng(ir_steps + 10 * jacobi)
+    m, n, B = 10, 24, 96
+    A = rng.standard_normal((m, n))
+    d = rng.uniform(0.5, 2.0, size=(B, n))
+    rs = tuple(rng.standard_normal((B, m)) for _ in range(2))
+    ref_k = ref_mixed.MixedPrecisionKernels(REF_BL, ir_steps=ir_steps, jacobi=jacobi)
+    port_k = mixed.MixedPrecisionKernels(BATCHLAST_KERNELS, ir_steps=ir_steps, jacobi=jacobi)
+    ref_fac = ref_k.factor(ref_k.prepare(jnp.asarray(A)), jnp.asarray(d), 1e-12)
+    At, dt = _t(A, d)
+    fac = port_k.factor(port_k.prepare(At), dt, 1e-12)
+    assert (fac.s is not None) == jacobi and isinstance(fac.fac_lo, bl.BLFactor)
+    for rhs in (rs[:1], rs):  # k = 1 and the stacked k = 2 sweep
+        ref_v = ref_k.solve(ref_fac, tuple(jnp.asarray(r) for r in rhs))
+        v = port_k.solve(fac, _t(*rhs))
+        for a, b in zip(v, ref_v):
+            b = np.asarray(b)
+            assert a.dtype == torch.float64
+            assert np.abs(a.numpy() - b).max() / np.abs(b).max() < 1e-8
+
+
+def test_mixed_per_instance_A_refines_each_rhs():
+    rng = np.random.default_rng(8)
+    B, m, n = 6, 8, 14
+    A3 = rng.standard_normal((B, m, n))
+    d = rng.uniform(0.5, 2.0, size=(B, n))
+    rs = tuple(rng.standard_normal((B, m)) for _ in range(2))
+    k = mixed.MIXED_FINISH_KERNELS
+    ctx = k.prepare(torch.from_numpy(A3))
+    assert ctx.Amv is None
+    fac = k.factor(ctx, torch.from_numpy(d), 1e-12)
+    for v, r in zip(k.solve(fac, _t(*rs)), rs):
+        M = np.einsum("bmn,bn,bkn->bmk", A3, d, A3) + fac.reg.numpy()[:, None, None] * np.eye(m)
+        np.testing.assert_allclose(v.numpy(), np.linalg.solve(M, r[..., None])[..., 0],
+                                   rtol=1e-8, atol=1e-8)
+
+
+def test_ozaki_gemm_refuses_tf32(monkeypatch):
+    s, n_slices, cut = df64.ozaki_mv_params(6)
+    W = torch.ones((4, 6), dtype=torch.float64)
+    groups = df64._ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
+    d = torch.ones((6, 3), dtype=torch.float64)
+    torch.testing.assert_close(df64._ozaki_matmul(*groups, d, s=s, n_slices=n_slices, cut=cut),
+                               W @ d)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        df64._ozaki_matmul(*groups, d, s=s, n_slices=n_slices, cut=cut)
+
+
+def test_cpu_tensors_never_launch_a_wide_kernel(monkeypatch):
+    for name in ("DF_CHOL_LAUNCHES", "DF_SOLVE_LAUNCHES", "SLICE_LAUNCHES"):
+        monkeypatch.setattr(df64, name, 0)
+    rng = np.random.default_rng(1)
+    At, dt, rt = _t(rng.standard_normal((6, 10)), rng.uniform(0.5, 2, (8, 10)),
+                    rng.standard_normal((8, 6)))
+    ctx = DF.prepare(At)
+    DF.solve(DF.factor(ctx, dt, 1e-12), (rt, rt))
+    DF.mv(ctx, dt)
+    assert (df64.DF_CHOL_LAUNCHES, df64.DF_SOLVE_LAUNCHES, df64.SLICE_LAUNCHES) == (0, 0, 0)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The CUDA route launches or raises: it never computes on a CPU tensor."""
+    M = torch.eye(4, dtype=torch.float64).reshape(4, 4, 1).repeat(1, 1, 8).contiguous()
+    reg = torch.zeros(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        df64._df_chol_bl_cuda(M, reg)
+    L, dinv = df64.df_chol_bl(M, reg)  # the dispatching wrapper: CPU → plain version
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        df64._df_solve_bl_cuda(L, dinv, torch.ones(1, 4, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        df64._slice_rounds_bl_cuda(torch.zeros(3, 5), torch.zeros(3, 5), 7, 7)

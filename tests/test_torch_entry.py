@@ -54,9 +54,15 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
 
 def test_unported_options_raise():
     A, b, c = random_equality_lp(4, 9, nlp=3, seed=0)
-    for kw in (dict(finish_dtype="float64", dtype="float32"), dict(log_every=1)):
+    unported = (dict(finish_dtype="float64", dtype="float32", finish_kset="df64_fastform"),
+                dict(log_every=1))
+    for kw in unported:
         with pytest.raises(NotImplementedError):
             hsd_solve_batched(A, b, c, port_pkg.SolverOptions(**kw), device="cpu")
+    # the wide finish itself is ported
+    out = hsd_solve_batched(A, b, c, port_pkg.SolverOptions(finish_dtype="float64", dtype="float32"),
+                            device="cpu")
+    assert out["x"].dtype == torch.float64
 
 
 def test_readme_quickstart_runs_on_cpu():

@@ -142,5 +142,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         bl.BatchLastKernels(fuse_facsol=True)
     assert BATCHLAST_KERNELS.finish_kernels("reference") is REFERENCE_KERNELS
+    # every finish set is ported but the reference's recorded negative result
     with pytest.raises(NotImplementedError):
-        BATCHLAST_KERNELS.finish_kernels("df64")
+        BATCHLAST_KERNELS.finish_kernels("df64_fastform")
