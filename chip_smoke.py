@@ -5,9 +5,11 @@ Builds the hand-written CUDA kernels from the sources in this checkout
 PyTorch version on the card, and drives the port's paths:
 
 1. device and build;
-2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32), the FP64
-   ``df_chol_bl``/``df_solve_bl`` and the Ozaki ``slice_rounds_bl``, plus
-   the df64 and Ozaki accuracy contracts of ``tests_tpu/smoke.py``;
+2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32), the fused
+   ``fused_factor_bl``/``facsol_bl`` (f32, also against the split path
+   they replace), the FP64 ``df_chol_bl``/``df_solve_bl`` and the Ozaki
+   ``slice_rounds_bl``, plus the df64 and Ozaki accuracy contracts of
+   ``tests_tpu/smoke.py``;
 3. the narrow main path — 65,536 dense 64×64 LPs through
    ``get_solver("hsd_pallas", device="cuda")`` at the ``BENCH_FINISH=0``
    options;
@@ -15,7 +17,16 @@ PyTorch version on the card, and drives the port's paths:
    mixed-engine crossover finish), each audited against scipy;
 5. the full main path — ``bench.py``'s default configuration: the same
    65,536 LPs through ``hsd_solve_scan`` with the wide f64 crossover
-   finish and its drain tiers — audited to the 1e-6 contract.
+   finish and its drain tiers — audited to the 1e-6 contract;
+6. the same configuration on the fused-form set
+   (``BATCHLAST_FUSED_KERNELS``) and on the ``fuse_facsol`` set, each
+   audited and with its kernel's launches tied to the narrow iterations;
+7. the checkpointed scenario sweep (``scenario_sweep``, ``bench.py``'s
+   ``run_sweep`` configuration: 131,072 scenarios) on the fused-form
+   set, interrupted after its first window, resumed, and compared with
+   an uninterrupted sweep;
+8. per-iteration metrics (``log_every=1``) of a 4,096-lane solve through
+   ``metrics_to_jsonl``.
 
 Usage (from the repository root, one CUDA card):
 
@@ -33,14 +44,17 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 from pycllp_tpu_torch import SolverOptions, Status, get_solver  # noqa: E402
 from pycllp_tpu_torch.io.generate import random_standard_lp  # noqa: E402
@@ -49,10 +63,14 @@ from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.solvers import hsd as hsd_mod  # noqa: E402
+from pycllp_tpu_torch.utils.logging import metrics_to_jsonl  # noqa: E402
+from pycllp_tpu_torch.utils.sweep import scenario_sweep  # noqa: E402
 
 SOURCES = {
     "chol_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
     "solve_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
+    "fused_factor_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
+    "facsol_bl": "pycllp_tpu_torch/csrc/batchlast.cu",
     "df_chol_bl": "pycllp_tpu_torch/csrc/df64.cu",
     "df_solve_bl": "pycllp_tpu_torch/csrc/df64.cu",
     "slice_rounds_bl": "pycllp_tpu_torch/csrc/df64.cu",
@@ -60,6 +78,8 @@ SOURCES = {
 REPLACES = {
     "chol_bl": "pycllp_tpu/ops/batchlast.py:223",
     "solve_bl": "pycllp_tpu/ops/batchlast.py:273",
+    "fused_factor_bl": "pycllp_tpu/ops/batchlast.py:195",
+    "facsol_bl": "pycllp_tpu/ops/batchlast.py:247",
     "df_chol_bl": "pycllp_tpu/ops/df64.py:264",
     "df_solve_bl": "pycllp_tpu/ops/df64.py:295",
     "slice_rounds_bl": "pycllp_tpu/ops/df64.py:504",
@@ -95,6 +115,12 @@ BENCH_OPTIONS = dict(
 # bench.py's run_throughput scan arguments
 SCAN_KW = dict(chunk=16384, keys=("objective", "status", "iterations"), compact_cap=12,
                compact_bucket=5120, finish_cap=3, finish_bucket=1024)
+# bench.py's run_sweep: 131,072 scenarios in windows of 4 chunks, at the
+# same scan arguments
+SWEEP_N = 131072
+SWEEP_KW = dict(chunk=16384, compact_cap=12, compact_bucket=5120, window_chunks=4,
+                finish_cap=3, finish_bucket=1024)
+SWEEP_OBJ_RTOL = 1e-9  # resumed vs uninterrupted sweep: same kernels, same inputs
 
 
 def say(phase: str, msg: str) -> None:
@@ -140,14 +166,36 @@ def in_turns(label: str, kern, plain, reps_k: int = 10, reps_p: int = 5) -> tupl
 
 def zero_counts() -> None:
     bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = 0
+    bl.FUSED_FACTOR_LAUNCHES = bl.FACSOL_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
 
 
 def read_counts() -> dict:
     return {"chol_bl": bl.CHOL_LAUNCHES, "solve_bl": bl.SOLVE_LAUNCHES,
+            "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
-            "slice_rounds_bl": df64.SLICE_LAUNCHES}
+            "slice_rounds_bl": df64.SLICE_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS}
+
+
+@contextlib.contextmanager
+def narrow_stage_counts():
+    """Yield a dict that receives :func:`read_counts` at the moment the
+    scan's narrow stage hands over to its finish (the entry of
+    ``_hsd_scan_finish_core``), so a path's narrow launches and host
+    iterations can be told from its finish's."""
+    snap = {}
+    finish_core = hsd_mod._hsd_scan_finish_core
+
+    def entered(*args, **kwargs):
+        snap.update(read_counts())
+        return finish_core(*args, **kwargs)
+
+    hsd_mod._hsd_scan_finish_core = entered
+    try:
+        yield snap
+    finally:
+        hsd_mod._hsd_scan_finish_core = finish_core
 
 
 def phase_device() -> tuple[str, str]:
@@ -256,6 +304,109 @@ def phase_kernels(dev) -> dict:
     in_turns("solve_bl k=2 at m=64, B=16384", lambda: bl._solve_bl_cuda(L, dinv, R2),
              lambda: bl._solve_bl_plain(L, dinv, R2))
     return {"chol_bl": (errs["chol_bl"], *t_chol), "solve_bl": (errs["solve_bl"], *t_solve)}
+
+
+def phase_fused_kernels(dev) -> dict:
+    """fused_factor_bl / facsol_bl (f32) against their plain versions and
+    against the split path they replace (matmul + chol_bl; chol_bl +
+    solve_bl); returns {name: (max_abs_err, ms, plain_ms)}."""
+    errs = {"fused_factor_bl": 0.0, "facsol_bl": 0.0}
+    for B in (256, 300, 16384):
+        A, d, R = _inputs(B, seed=B, dev=dev)
+        W = bl.BATCHLAST_KERNELS.prepare(A).W
+        dT = d.T.contiguous()
+        M_bl, reg = _formed(A, d, 1e-6)
+        L_k, dinv_k = bl._fused_factor_bl_cuda(W, dT, reg)
+        L_p, dinv_p = bl._fused_factor_bl_plain(W, dT, reg)
+        L_s, dinv_s = bl._chol_bl_cuda(M_bl, reg)
+        torch.cuda.synchronize()
+        e_plain = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+        e_split = max(rel_err(_lower(L_k), _lower(L_s)), rel_err(dinv_k, dinv_s))
+        check(e_plain < KERNEL_RTOL, f"fused_factor_bl vs plain at B={B}: rel {e_plain:.2e}")
+        check(e_split < KERNEL_RTOL, f"fused_factor_bl vs chol_bl at B={B}: rel {e_split:.2e}")
+        check(bool((torch.triu(L_k.permute(2, 0, 1), 1) == 0).all()),
+              f"fused_factor_bl at B={B}: the upper triangle is not zero")
+        errs["fused_factor_bl"] = max(errs["fused_factor_bl"], abs_err(_lower(L_k), _lower(L_p)),
+                                      abs_err(dinv_k, dinv_p))
+        line = [f"B={B}: fused_factor rel {e_plain:.1e} (vs chol_bl {e_split:.1e})"]
+        for k in (1, 2):
+            Rk = R[:k].contiguous()
+            Lc, dinv_c, Vc = bl._facsol_bl_cuda(M_bl.clone(), reg, Rk)
+            Lp, dinv_cp, Vp = bl._facsol_bl_plain(M_bl.clone(), reg, Rk)
+            V_s = bl._solve_bl_cuda(L_s, dinv_s, Rk)
+            torch.cuda.synchronize()
+            e_plain = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp),
+                          rel_err(Vc, Vp))
+            e_split = max(rel_err(_lower(Lc), _lower(L_s)), rel_err(dinv_c, dinv_s),
+                          rel_err(Vc, V_s))
+            check(e_plain < KERNEL_RTOL, f"facsol_bl k={k} vs plain at B={B}: rel {e_plain:.2e}")
+            check(e_split < KERNEL_RTOL,
+                  f"facsol_bl k={k} vs chol_bl + solve_bl at B={B}: rel {e_split:.2e}")
+            errs["facsol_bl"] = max(errs["facsol_bl"], abs_err(_lower(Lc), _lower(Lp)),
+                                    abs_err(dinv_c, dinv_cp), abs_err(Vc, Vp))
+            line.append(f"facsol k={k} rel {e_plain:.1e} (vs chol_bl + solve_bl {e_split:.1e})")
+        say("kernel parity", "; ".join(line))
+
+    # a lane with negated d is indefinite: NaN there, finite elsewhere
+    A, d, R = _inputs(256, seed=9, dev=dev)
+    d[2] = -d[2]
+    W = bl.BATCHLAST_KERNELS.prepare(A).W
+    M_bl, reg = _formed(A, d, 0.0)
+    L_k, dinv_k = bl._fused_factor_bl_cuda(W, d.T.contiguous(), reg)
+    V_k = bl._solve_bl_cuda(L_k, dinv_k, R[:1].contiguous())
+    _, dinv_c, V_c = bl._facsol_bl_cuda(M_bl.clone(), reg, R.contiguous())
+    torch.cuda.synchronize()
+    for name, dinv, V in (("fused_factor_bl", dinv_k, V_k), ("facsol_bl", dinv_c, V_c)):
+        check(bool(torch.isnan(dinv[:, 2]).any()) and bool(torch.isnan(V[:, :, 2]).any()),
+              f"{name} NaN lane: lane 2 is not NaN")
+        others = torch.cat([V[:, :, :2], V[:, :, 3:]], dim=2)
+        check(bool(torch.isfinite(others).all()), f"{name} NaN lane: another lane is not finite")
+    say("kernel parity", "fused_factor_bl, facsol_bl: negated-d lane 2 is NaN, "
+        "the other 255 lanes finite")
+
+    # times at the narrow stage's chunk (16,384) and the resume bucket
+    # (5,120), m = 64, n = 128, in turns.  facsol_bl factors in place, so
+    # each timed call (and each of the paths beside it) starts with a copy
+    # of M into a work buffer.
+    times = {}
+    for B in (16384, 5120):
+        A, d, R = _inputs(B, seed=1, dev=dev)
+        W = bl.BATCHLAST_KERNELS.prepare(A).W
+        dT = d.T.contiguous()
+        M_bl, reg = _formed(A, d, 1e-6)
+        m = A.shape[0]
+        R2 = R.contiguous()
+        Mw = torch.empty_like(M_bl)
+        t = in_turns(f"fused_factor_bl at m=64, n=128, B={B}",
+                     lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                     lambda: bl._fused_factor_bl_plain(W, dT, reg))
+        in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at B={B}",
+                 lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                 lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
+        times.setdefault("fused_factor_bl", t)
+
+        def facsol():
+            Mw.copy_(M_bl)
+            return bl._facsol_bl_cuda(Mw, reg, R2)
+
+        def facsol_plain():
+            Mw.copy_(M_bl)
+            return bl._facsol_bl_plain(Mw, reg, R2)
+
+        def split():
+            Mw.copy_(M_bl)
+            L, dinv = bl._chol_bl_cuda(Mw, reg)
+            return bl._solve_bl_cuda(L, dinv, R2)
+
+        t = in_turns(f"facsol_bl k=2 (with the copy of M) at m=64, B={B}", facsol, facsol_plain)
+        in_turns(f"facsol_bl k=2 vs the split path (chol_bl + solve_bl k=2) at B={B}", facsol, split)
+        copy_ms = time_ms(lambda: Mw.copy_(M_bl), 10)
+        chol_ms = time_ms(lambda: bl._chol_bl_cuda(M_bl, reg), 10)
+        gemm_ms = time_ms(lambda: W @ dT, 10)
+        say("kernel time", f"at B={B}, alone: the copy of M {copy_ms:.4f} ms, chol_bl "
+            f"{chol_ms:.4f} ms, the GEMM forming M {gemm_ms:.4f} ms")
+        times.setdefault("facsol_bl", t)
+    return {k: (errs[k], *times[k]) for k in errs}
 
 
 def _wide_inputs(B: int, seed: int, dev, spread: float = 0.0):
@@ -524,64 +675,229 @@ def phase_probes() -> dict:
     return counts
 
 
-def phase_main_path(smi: str) -> dict:
-    lp = random_standard_lp(M, N, nlp=N_LP, seed=3, dtype=np.float32)
+def _bench_problem(nlp: int):
+    """bench.py's LPs (seed 3) as the equality form: the StandardLP for the
+    audit, A on the host, b and c staged on the card once."""
+    lp = random_standard_lp(M, N, nlp=nlp, seed=3, dtype=np.float32)
     eq = lp.to_equality_form()
     dev = torch.device("cuda", 0)
-    A = np.asarray(eq.A, np.float32)
     b = torch.from_numpy(np.asarray(eq.b, np.float32)).to(dev)
     c = torch.from_numpy(np.asarray(eq.c, np.float32)).to(dev)
+    return lp, np.asarray(eq.A, np.float32), b, c
+
+
+def _audit_main(label: str, lp, obj, status) -> None:
+    """The main path's bounds: OPTIMAL share and the 64-lane audit."""
+    opt = status == int(Status.OPTIMAL)
+    check(np.isfinite(obj[opt]).all(), f"{label}: non-finite objective on an OPTIMAL lane")
+    check(opt.mean() >= MAIN_OPTIMAL, f"{label}: OPTIMAL share {opt.mean():.4f} < {MAIN_OPTIMAL}")
+    rels = audit(lp, obj, np.linspace(0, len(obj) - 1, 64, dtype=int))
+    worst_lane = max(rels, key=rels.get)
+    say(f"{label} audit", f"scipy highs on 64 evenly spaced lanes: max relative objective "
+        f"error {rels[worst_lane]:.4e} at lane {worst_lane}, median "
+        f"{np.median(list(rels.values())):.2e} (limit {CONTRACT} per lane)")
+    check(rels[worst_lane] <= CONTRACT, f"{label}: audit max {rels[worst_lane]:.3e} > {CONTRACT}")
+    stragglers = np.flatnonzero(~opt)[:64]
+    if len(stragglers):
+        srels = audit(lp, obj, stragglers)
+        say(f"{label} audit", f"{len(stragglers)} non-OPTIMAL lanes (reported, not bounded): "
+            + ", ".join(f"{i} {Status(int(status[i])).name} {e:.2e}" for i, e in srels.items()))
+
+
+def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None) -> dict:
+    """bench.py's default configuration (65,536 LPs, ``hsd_solve_scan``,
+    f64 crossover finish) on ``kset``: a first solve with a sync between
+    the stages, its bounds, then ``reps`` more solves, timed.  Returns
+    the launch counts of the first solve (``total``) and at the hand-over
+    from the narrow stage to the finish (``narrow``), and its statuses."""
+    lp, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
 
     zero_counts()
     err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        out = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
-                                     stage_sync=True, **SCAN_KW)
+    with contextlib.redirect_stderr(err), narrow_stage_counts() as narrow:
+        out = hsd_mod.hsd_solve_scan(A, b, c, opts, kset, device="cuda", stage_sync=True,
+                                     **SCAN_KW)
     status = out["status"].cpu().numpy()
     first_s = time.perf_counter() - t0
     counts = read_counts()
-    say("main path", f"first solve (stage_sync) {first_s:.3f}s; launches {counts}; "
-        f"host-loop iterations {hsd_mod.HOST_STEPS}")
+    say(label, f"{kset.name}: first solve (stage_sync) {first_s:.3f}s; launches {counts}; "
+        f"at the narrow stage's end {narrow}")
     for ln in err.getvalue().splitlines():
-        say("main path", ln)
-    for name in ("chol_bl", "solve_bl", "slice_rounds_bl"):
-        check(counts[name] > 0, f"{name} was never launched on the main path")
+        say(label, ln)
 
     obj = -out["objective"].cpu().numpy()  # the equality form minimises −cᵀx
     it = out["iterations"].cpu().numpy()
-    check(obj.shape == (N_LP,) and status.shape == (N_LP,), "solution shapes")
+    check(obj.shape == (N_LP,) and status.shape == (N_LP,), f"{label}: solution shapes")
     opt = status == int(Status.OPTIMAL)
-    check(np.isfinite(obj[opt]).all(), "non-finite objective on an OPTIMAL lane")
-    say("main path", f"status mix {status_mix(status)}; OPTIMAL {opt.mean():.4%}; iterations "
+    say(label, f"status mix {status_mix(status)}; OPTIMAL {opt.mean():.4%}; iterations "
         f"p50/p90/p99 {'/'.join(str(int(v)) for v in np.percentile(it, [50, 90, 99]))}, "
         f"max {it.max()}")
-    check(opt.mean() >= MAIN_OPTIMAL, f"OPTIMAL share {opt.mean():.4f} < {MAIN_OPTIMAL}")
+    _audit_main(label, lp, obj, status)
 
-    rels = audit(lp, obj, np.linspace(0, N_LP - 1, 64, dtype=int))
-    worst_lane = max(rels, key=rels.get)
-    say("main audit", f"scipy highs on 64 evenly spaced lanes: max relative objective error "
-        f"{rels[worst_lane]:.4e} at lane {worst_lane}, median "
-        f"{np.median(list(rels.values())):.2e} (limit {CONTRACT} per lane)")
-    check(rels[worst_lane] <= CONTRACT, f"audit max {rels[worst_lane]:.3e} > {CONTRACT}")
-    stragglers = np.flatnonzero(~opt)[:64]
-    if len(stragglers):
-        srels = audit(lp, obj, stragglers)
-        say("main audit", f"{len(stragglers)} non-OPTIMAL lanes (reported, not bounded): "
-            + ", ".join(f"{i} {Status(int(status[i])).name} {e:.2e}" for i, e in srels.items()))
-
-    for rep in ("second", "third"):
+    for rep in reps:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out2 = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
-                                      **SCAN_KW)
+        out2 = hsd_mod.hsd_solve_scan(A, b, c, opts, kset, device="cuda", **SCAN_KW)
         status2 = out2["status"].cpu().numpy()
         wall = time.perf_counter() - t0
-        say("main path", f"{rep} solve {wall:.3f}s = {N_LP / wall:.1f} LP/s ({N_LP} LPs of "
+        vs = "" if ref_status is None else (
+            f"; status agreement with the default set's main path "
+            f"{(status2 == ref_status).mean():.4%}")
+        say(label, f"{rep} solve {wall:.3f}s = {N_LP / wall:.1f} LP/s ({N_LP} LPs of "
             f"{M}x{N}, f32 bulk + f64 crossover finish; status agreement with the first solve "
-            f"{(status2 == status).mean():.4%}) on {smi}")
+            f"{(status2 == status).mean():.4%}{vs}) on {smi}")
+    return {"total": counts, "narrow": narrow, "status": status}
+
+
+def phase_main_path(smi: str) -> dict:
+    run = _scan_path(smi, bl.BATCHLAST_KERNELS, "main path", ("second", "third"))
+    for name in ("chol_bl", "solve_bl", "slice_rounds_bl"):
+        check(run["total"][name] > 0, f"{name} was never launched on the main path")
+    return run
+
+
+def phase_fused_paths(smi: str, ref_status) -> tuple[dict, dict]:
+    """The main path's configuration on the fused-form set and on the
+    fuse_facsol set.  Each narrow iteration and each chunk's Mehrotra
+    start factors once; the finish keeps chol_bl / solve_bl (its mixed
+    engine is built on the default set)."""
+    n_chunks = -(-N_LP // SCAN_KW["chunk"])
+    form = _scan_path(smi, bl.BATCHLAST_FUSED_KERNELS, "fused-form path", ("second",), ref_status)
+    nar, tot = form["narrow"], form["total"]
+    steps = nar["host_steps"]
+    check(nar["fused_factor_bl"] == steps + n_chunks,
+          f"fused_factor_bl launches {nar['fused_factor_bl']} in the narrow stage != host "
+          f"iterations {steps} + Mehrotra starts {n_chunks}")
+    check(tot["fused_factor_bl"] == nar["fused_factor_bl"],
+          "fused_factor_bl was launched in the finish")
+    check(nar["chol_bl"] == 0, f"chol_bl launched {nar['chol_bl']} times in the fused narrow stage")
+    check(nar["solve_bl"] == 5 * steps + n_chunks,
+          f"narrow solve_bl launches {nar['solve_bl']} != 5 x {steps} + {n_chunks}")
+    say("fused-form path", f"narrow stage: fused_factor_bl {nar['fused_factor_bl']} = {steps} host "
+        f"iterations + {n_chunks} Mehrotra starts; finish: chol_bl {tot['chol_bl']}, solve_bl "
+        f"{tot['solve_bl'] - nar['solve_bl']}, {tot['host_steps'] - steps} host iterations")
+
+    facsol = _scan_path(smi, bl.BatchLastKernels(fuse_facsol=True), "facsol path", ("second",),
+                        ref_status)
+    nar, tot = facsol["narrow"], facsol["total"]
+    steps = nar["host_steps"]
+    check(nar["facsol_bl"] == steps + n_chunks,
+          f"facsol_bl launches {nar['facsol_bl']} in the narrow stage != host iterations "
+          f"{steps} + Mehrotra starts {n_chunks}")
+    check(tot["facsol_bl"] == nar["facsol_bl"], "facsol_bl was launched in the finish")
+    check(nar["chol_bl"] == 0, f"chol_bl launched {nar['chol_bl']} times in the facsol narrow stage")
+    # per iteration the corrector and 3 KKT sweeps; the joint k=2 solve is in facsol
+    check(nar["solve_bl"] == 4 * steps,
+          f"narrow solve_bl launches {nar['solve_bl']} != 4 x {steps}")
+    say("facsol path", f"narrow stage: facsol_bl {nar['facsol_bl']} = {steps} host iterations + "
+        f"{n_chunks} Mehrotra starts, solve_bl {nar['solve_bl']} = 4 x {steps}; finish: chol_bl "
+        f"{tot['chol_bl']}, solve_bl {tot['solve_bl'] - nar['solve_bl']}")
+    return form, facsol
+
+
+class _Interrupt(Exception):
+    """Raised from a sweep's progress callback to stop it mid-sweep."""
+
+
+def phase_sweep(smi: str) -> dict:
+    """bench.py's run_sweep on the fused-form set: interrupted after its
+    first window, resumed from the chunk files, and compared with an
+    uninterrupted sweep."""
+    lp, A, b, c = _bench_problem(SWEEP_N)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    kw = dict(SWEEP_KW, kset=bl.BATCHLAST_FUSED_KERNELS, device="cuda")
+    n_chunks = SWEEP_N // kw["chunk"]
+    first_window = kw["window_chunks"]
+
+    def stop_after_first_window(done, total):
+        if done < total:
+            raise _Interrupt(done)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="sweep-", dir=os.path.join(ROOT, "build"))
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            scenario_sweep(A, b, c, opts, out_dir=out_dir, progress=stop_after_first_window, **kw)
+            check(False, "the sweep was not interrupted")
+        except _Interrupt as stop:
+            check(stop.args[0] == first_window, f"interrupted after {stop.args[0]} chunks")
+        cut_s = time.perf_counter() - t0
+        files = sorted(os.listdir(out_dir))
+        chunk_files = [f for f in files if f.startswith("chunk_") and f.endswith(".npz")]
+        check("manifest.json" in files and len(chunk_files) == first_window,
+              f"after the interruption the sweep directory holds {files}")
+        check(not any(f.endswith(".tmp.npz") for f in files), "a half-written chunk was left")
+        say("sweep", f"interrupted after its first window ({first_window} of {n_chunks} chunks) "
+            f"in {cut_s:.3f}s; on disk: manifest.json + {len(chunk_files)} chunk files; "
+            f"launches {read_counts()}")
+
+        zero_counts()
+        t0 = time.perf_counter()
+        resumed = scenario_sweep(A, b, c, opts, out_dir=out_dir, **kw)
+        resume_s = time.perf_counter() - t0
+        counts = read_counts()
+        check(resumed.n_resumed == first_window,
+              f"the resumed sweep skipped {resumed.n_resumed} chunks, not {first_window}")
+        check(counts["fused_factor_bl"] > 0, "fused_factor_bl was never launched in the sweep")
+        say("sweep", f"resumed: {resumed.n_resumed} chunks loaded, {n_chunks - resumed.n_resumed} "
+            f"solved in {resume_s:.3f}s; the whole sweep's {SWEEP_N} scenarios answered = "
+            f"{SWEEP_N / resume_s:.1f} scenarios/s, "
+            f"{(n_chunks - resumed.n_resumed) * kw['chunk'] / resume_s:.1f} solved/s; "
+            f"launches {counts} on {smi}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = scenario_sweep(A, b, c, opts, **kw)
+    whole_s = time.perf_counter() - t0
+    same_status = bool(np.array_equal(resumed.status, whole.status))
+    rel = np.abs(resumed.objective - whole.objective) / np.maximum(1.0, np.abs(whole.objective))
+    bitwise = bool(np.array_equal(resumed.objective, whole.objective))
+    say("sweep", f"uninterrupted, no out_dir: {whole_s:.3f}s = {SWEEP_N / whole_s:.1f} "
+        f"scenarios/s on {smi}; resumed vs uninterrupted: statuses identical {same_status}, "
+        f"objective max rel {rel.max():.3e}, bitwise equal {bitwise}")
+    check(same_status, "resumed and uninterrupted sweeps disagree on a status")
+    check(rel.max() <= SWEEP_OBJ_RTOL, f"resumed vs uninterrupted objective rel {rel.max():.3e}")
+
+    obj = -resumed.objective  # the equality form minimises −cᵀx
+    say("sweep", f"status mix {status_mix(resumed.status)}")
+    _audit_main("sweep", lp, obj, resumed.status)
     return counts
+
+
+def phase_metrics() -> None:
+    """Per-iteration metrics: one 4,096-lane solve with log_every=1."""
+    B = 4096
+    lp = random_standard_lp(M, N, nlp=B, seed=5, dtype=np.float32)
+    eq = lp.to_equality_form()
+    kw = {k: v for k, v in SOLVER_KW.items() if k not in ("chunk", "compact_cap", "compact_bucket")}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix="metrics-", suffix=".jsonl", dir=os.path.join(ROOT, "build"))
+    os.close(fd)
+    try:
+        zero_counts()
+        with metrics_to_jsonl(path):
+            out = hsd_mod.hsd_solve_batched(
+                np.asarray(eq.A, np.float32), np.asarray(eq.b, np.float32),
+                np.asarray(eq.c, np.float32), SolverOptions(log_every=1, **kw),
+                bl.BATCHLAST_KERNELS, device="cuda",
+            )
+        out["status"].cpu()
+        with open(path) as f:
+            records = [json.loads(line) for line in f]
+    finally:
+        os.remove(path)
+    steps = hsd_mod.HOST_STEPS
+    check(len(records) == steps, f"{len(records)} metric records for {steps} host iterations")
+    check(records[0]["active"] == B and records[0]["iter"] == 0 and records[0]["phase"] == "float32",
+          f"first record {records[0]}")
+    say("metrics", f"{len(records)} records = host iterations; first {records[0]}; "
+        f"last {records[-1]}")
 
 
 def main() -> None:
@@ -590,16 +906,26 @@ def main() -> None:
     phase_build()
     measured = phase_kernels(dev)
     measured.update(phase_wide_kernels(dev))
+    measured.update(phase_fused_kernels(dev))
     narrow = phase_narrow_path(smi)
     probe = phase_probes()
-    main_counts = phase_main_path(smi)
-    # launches: the full main path's count; the narrow path's and the df64
-    # probe's (which must run the FP64 factor/solve) beside it
-    report = [{"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "launches": main_counts[name],
-               "narrow_path_launches": narrow[name], "df64_probe_launches": probe[name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-              for name, (err, ms, plain_ms) in measured.items()]
+    main_run = phase_main_path(smi)
+    form, facsol = phase_fused_paths(smi, main_run["status"])
+    sweep_counts = phase_sweep(smi)
+    phase_metrics()
+    # launches: each kernel's count on the full main path that runs it (the
+    # default set's, or the fused set's for the fused kernels); the narrow
+    # path's, the df64 probe's (which must run the FP64 factor/solve) and
+    # the sweep's beside it
+    path_of = {"fused_factor_bl": ("fused-form path", form), "facsol_bl": ("facsol path", facsol)}
+    report = []
+    for name, (err, ms, plain_ms) in measured.items():
+        path, run = path_of.get(name, ("main path", main_run))
+        report.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                       "replaces": REPLACES[name], "launches": run["total"][name], "path": path,
+                       "narrow_path_launches": narrow[name], "df64_probe_launches": probe[name],
+                       "sweep_launches": sweep_counts[name],
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

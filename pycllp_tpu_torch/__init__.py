@@ -9,11 +9,15 @@ and names module for module (``models/``, ``io/``, ``ops/``, ``solvers/``,
 Ported so far: the batched HSD solve of the default bench configuration —
 the narrow f32 phase (Ruiz scaling, the Mehrotra start, the KKT-refined
 predictor-corrector, the chunked cap/compact/warm-resume scan) on
-hand-written CUDA Cholesky and solve kernels (``csrc/batchlast.cu``), and
+hand-written CUDA Cholesky and solve kernels (``csrc/batchlast.cu``, with
+the fused-form and fused factor-solve kernels behind
+``BATCHLAST_FUSED_KERNELS`` / ``BatchLastKernels(fuse_facsol=True)``), and
 the wide f64 finish (vertex crossover on the mixed engine, the drain
 tiers, a wide IPM finish) on hand-written FP64 factor/solve kernels and
-the Ozaki slicing kernel (``csrc/df64.cu``).  The other solvers are not
-ported yet (ROADMAP.md).
+the Ozaki slicing kernel (``csrc/df64.cu``); the checkpointed scenario
+sweep (``utils/sweep.py``) and per-iteration metrics
+(``utils/logging.py``).  The other solvers are not ported yet
+(ROADMAP.md).
 
 The device is explicit: solvers take ``device=`` (default ``"cuda"``),
 and a CUDA request without a card raises.  Pass ``device="cpu"`` to run

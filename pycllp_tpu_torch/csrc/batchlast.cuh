@@ -23,7 +23,9 @@
 //   barrier, then each owner applies the trailing update to its own
 //   rows, reading column k from shared memory; a second barrier closes
 //   the step.  The update touches only the lower triangle, half the
-//   bytes of the reference's full-square update.
+//   bytes of the reference's full-square update.  The pivot loop is one
+//   routine, chol_pivots, which the fused kernels of batchlast.cu
+//   (fused_factor_bl, facsol_bl) run too.
 // * solve_bl_kernel: one thread per (lane, right-hand side), walking the
 //   reference's loops for its own instance: the forward pass
 //   left-looking (a dot with row L[i, :i]), the backward pass
@@ -65,66 +67,116 @@ __device__ __forceinline__ double quiet_nan<double>() {
 __device__ __forceinline__ float root(float v) { return sqrtf(v); }
 __device__ __forceinline__ double root(double v) { return sqrt(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(kCholLanes * kCholRowWarps)
-chol_bl_kernel(const T* __restrict__ M, const T* __restrict__ reg,
-               T* __restrict__ L, T* __restrict__ dinv, int m, int B) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* col = reinterpret_cast<T*>(smem_raw);  // (m, kCholLanes): column k, scaled
+// The block's lane and row-warp coordinates, shared by the factor kernels.
+struct BlockLanes {
+  int lane;   // threadIdx.x: the lane within the block's 32
+  int w;      // threadIdx.y: the row warp
+  int b;      // the instance (global lane)
+  bool live;  // b < B: threads past B stay in the loops (they meet every
+              // barrier) but touch no device memory
+};
+
+__device__ __forceinline__ BlockLanes block_lanes(int B) {
+  BlockLanes t;
+  t.lane = threadIdx.x;
+  t.w = threadIdx.y;
+  t.b = blockIdx.x * kCholLanes + t.lane;
+  t.live = t.b < B;
+  return t;
+}
+
+// first row > k owned by warp w (rows are owned by warp i mod kCholRowWarps)
+__device__ __forceinline__ int first_owned(int k, int w) {
   constexpr int R = kCholRowWarps;
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int b = blockIdx.x * kCholLanes + lane;
-  // threads past B stay in the loop (they meet every barrier) but touch
-  // no device memory
-  const bool live = b < B;
+  return k + 1 + ((w - (k + 1)) % R + R) % R;
+}
+
+// A pivot hook that does nothing: the plain factor.
+struct NoPivotHook {
+  template <typename T>
+  __device__ __forceinline__ void pivot(int, T) const {}
+  template <typename T>
+  __device__ __forceinline__ void update(int, int, const T*) const {}
+};
+
+// The pivot loop of the batch-last Cholesky, the counterpart of the
+// reference's shared _chol_body: chol_bl, fused_factor_bl and facsol_bl
+// all run this one routine over a lower triangle already in L.
+//
+// Per pivot k every warp reads the pivot, the owners scale column k and
+// park it in `col` (shared, m x kCholLanes), one barrier, then each owner
+// applies the trailing update to its own rows, reading column k from
+// shared memory; a second barrier closes the step.  The hook lets a
+// caller ride the same sweep: hook.pivot(k, inv) runs before the first
+// barrier (every warp, with the pivot's reciprocal), hook.update(k, first,
+// col) after it (column k complete in `col`; `first` = this warp's first
+// row below k).
+template <typename T, typename Hook>
+__device__ __forceinline__ void chol_pivots(T* __restrict__ L, T* __restrict__ dinv,
+                                            T* __restrict__ col, T r, const BlockLanes& t,
+                                            int m, int B, Hook& hook) {
+  constexpr int R = kCholRowWarps;
   const size_t sB = static_cast<size_t>(B);
   const size_t sm = static_cast<size_t>(m);
-
-  // L := M (whole square: the upper triangle keeps M's values)
-  if (live) {
-    for (int i = w; i < m; i += R) {
-      for (int j = 0; j < m; ++j) L[(i * sm + j) * sB + b] = M[(i * sm + j) * sB + b];
-    }
-  }
-  __syncthreads();
-
-  const T r = live ? reg[b] : T(0);
+  const int lane = t.lane;
   const T nan = quiet_nan<T>();
   for (int k = 0; k < m; ++k) {
-    const size_t kk = (k * sm + k) * sB + b;
-    const T akk = live ? L[kk] + r : T(1);
+    const size_t kk = (k * sm + k) * sB + t.b;
+    const T akk = t.live ? L[kk] + r : T(1);
     const bool pos = akk > T(0);
     const T sq = root(pos ? akk : T(1));
     const T inv = pos ? T(1) / sq : nan;
-    // first row > k owned by this warp
-    const int first = k + 1 + ((w - (k + 1)) % R + R) % R;
+    const int first = first_owned(k, t.w);
     // column k below the diagonal: L[i, k] *= 1 / L[k, k]
     for (int i = first; i < m; i += R) {
       T v = T(0);
-      if (live) {
-        v = L[(i * sm + k) * sB + b] * inv;
-        L[(i * sm + k) * sB + b] = v;
+      if (t.live) {
+        v = L[(i * sm + k) * sB + t.b] * inv;
+        L[(i * sm + k) * sB + t.b] = v;
       }
       col[i * kCholLanes + lane] = v;
     }
+    hook.pivot(k, inv);
     __syncthreads();  // column k is complete and every warp has read the pivot
-    if (live && w == k % R) {
+    if (t.live && t.w == k % R) {
       L[kk] = pos ? sq : nan;
-      dinv[k * sB + b] = inv;
+      dinv[k * sB + t.b] = inv;
     }
+    hook.update(k, first, static_cast<const T*>(col));
     // trailing update of the owned rows, lower triangle:
     // L[i, j] -= L[i, k] * L[j, k]
-    if (live) {
+    if (t.live) {
       for (int i = first; i < m; i += R) {
         const T lik = col[i * kCholLanes + lane];
-        T* Li = L + i * sm * sB + b;
+        T* Li = L + i * sm * sB + t.b;
 #pragma unroll 4
         for (int j = k + 1; j <= i; ++j) Li[j * sB] -= lik * col[j * kCholLanes + lane];
       }
     }
     __syncthreads();  // the next pivot is updated and column k may be overwritten
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCholLanes * kCholRowWarps)
+chol_bl_kernel(const T* __restrict__ M, const T* __restrict__ reg,
+               T* __restrict__ L, T* __restrict__ dinv, int m, int B) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* col = reinterpret_cast<T*>(smem_raw);  // (m, kCholLanes): column k, scaled
+  const BlockLanes t = block_lanes(B);
+  const size_t sB = static_cast<size_t>(B);
+  const size_t sm = static_cast<size_t>(m);
+
+  // L := M (whole square: the upper triangle keeps M's values)
+  if (t.live) {
+    for (int i = t.w; i < m; i += kCholRowWarps) {
+      for (int j = 0; j < m; ++j) L[(i * sm + j) * sB + t.b] = M[(i * sm + j) * sB + t.b];
+    }
+  }
+  __syncthreads();
+
+  NoPivotHook hook;
+  chol_pivots(L, dinv, col, t.live ? reg[t.b] : T(0), t, m, B, hook);
 }
 
 template <typename T>

@@ -43,6 +43,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "pycllp_chol_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
     "pycllp_solve_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_fused_factor_bl_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_facsol_bl_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "pycllp_chol_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
     "pycllp_solve_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),

@@ -10,13 +10,20 @@ LAST axis, as in the reference:
   plain ``torch.matmul`` (the reference leaves it to XLA too).
 * The Cholesky and the triangular solves are the hand-written CUDA
   kernels in ``csrc/batchlast.cu`` (:func:`chol_bl`, :func:`solve_bl`),
-  one thread per instance, coalesced over the lane axis.
+  coalesced over the lane axis.
+* The reference's fused variants are hand-written CUDA kernels in the
+  same file: :func:`fused_factor_bl` forms M = W @ dᵀ inside the factor
+  kernel, so M never goes through device memory (``fuse_form=True``,
+  :data:`BATCHLAST_FUSED_KERNELS`), and :func:`facsol_bl` factors and
+  solves the first right-hand sides in one launch (``fuse_facsol=True``).
 
 Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
-:func:`_solve_bl_plain`) that runs the same loop order on tensors.  The
+:func:`_solve_bl_plain`, :func:`_fused_factor_bl_plain`,
+:func:`_facsol_bl_plain`) that runs the same loop order on tensors.  The
 wrappers take the plain version only for tensors on the CPU; for a CUDA
 tensor they launch the kernel or raise.  Each launch adds one to
-``CHOL_LAUNCHES`` / ``SOLVE_LAUNCHES``.
+``CHOL_LAUNCHES``, ``SOLVE_LAUNCHES``, ``FUSED_FACTOR_LAUNCHES`` or
+``FACSOL_LAUNCHES``.
 
 f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
 (dtype dispatch: this set's kernels are float32).  The wide finish phase
@@ -27,6 +34,7 @@ mixed engine of :mod:`pycllp_tpu_torch.ops.mixed`).
 
 from __future__ import annotations
 
+import math
 import typing
 
 import torch
@@ -42,15 +50,23 @@ from pycllp_tpu_torch.ops.reference import (
 __all__ = [
     "BatchLastKernels",
     "BATCHLAST_KERNELS",
+    "BATCHLAST_FUSED_KERNELS",
     "BLFactor",
     "PreparedBL",
     "chol_bl",
     "solve_bl",
+    "fused_factor_bl",
+    "facsol_bl",
 ]
 
 # launch counters: one per kernel launch, nowhere else
 CHOL_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
+FUSED_FACTOR_LAUNCHES = 0
+FACSOL_LAUNCHES = 0
+
+# shared memory a block may use on the H100 (sm_90), in bytes
+_SMEM_LIMIT = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +119,47 @@ def _solve_bl_plain(L, dinv, R):
         if i > 0:
             V[:, :i] -= L[i, :i][None] * vi[:, None]
     return V
+
+
+def _fused_factor_bl_plain(W, dT, reg):
+    """W (m², n), dT (n, B), reg (B,) → (L, dinv): :func:`_chol_bl_plain`
+    of M = (W @ dT).reshape(m, m, B), as ``_fused_factor_kernel``."""
+    m = math.isqrt(W.shape[0])
+    return _chol_bl_plain((W @ dT).reshape(m, m, dT.shape[1]), reg)
+
+
+def _facsol_bl_plain(M, reg, R):
+    """Factor M + reg·I and solve L Lᵀ v = r for k stacked RHS, as
+    ``_facsol_kernel``: the forward substitution rides the pivot loop,
+    the backward pass is right-looking.
+
+    M (m, m, B), reg (B,), R (k, m, B) → (L, dinv, V).  M is factored in
+    place (L is M, as the reference aliases them) and V is a clone of R.
+    """
+    m = M.shape[0]
+    L = M
+    V = R.clone()
+    dinv = torch.empty(M.shape[1:], dtype=M.dtype, device=M.device)
+    for k in range(m):
+        akk = L[k, k] + reg
+        pos = akk > 0
+        sq = torch.sqrt(torch.where(pos, akk, 1.0))
+        inv = torch.where(pos, 1.0 / sq, torch.nan)
+        L[k, k] = torch.where(pos, sq, torch.nan)
+        dinv[k] = inv
+        wk = V[:, k] * inv
+        V[:, k] = wk
+        if k + 1 < m:
+            col = L[k + 1 :, k] * inv
+            L[k + 1 :, k] = col
+            L[k + 1 :, k + 1 :] -= col[:, None, :] * col[None, :, :]
+            V[:, k + 1 :] -= col[None, :, :] * wk[:, None, :]
+    for i in reversed(range(m)):
+        vi = V[:, i] * dinv[i]
+        V[:, i] = vi
+        if i > 0:
+            V[:, :i] -= L[i, :i][None] * vi[:, None]
+    return L, dinv, V
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +244,78 @@ def _solve_bl_cuda(L, dinv, R):
     return V
 
 
+def _fused_smem(m: int, n: int) -> int:
+    """Shared memory of one fused_factor_bl block (csrc/batchlast.cu):
+    column k and a dT tile of up to 256 rows, 32 lanes each, plus each
+    warp's 32 x 4 W tile."""
+    return (m + min(n, 256)) * 32 * 4 + 8 * 32 * 16
+
+
+def _facsol_smem(m: int, k: int) -> int:
+    """Shared memory of one facsol_bl block: column k, dinv and the
+    (k, m) V tile, 32 lanes each."""
+    return (2 + k) * m * 32 * 4
+
+
+def _fused_factor_bl_cuda(W, dT, reg):
+    global FUSED_FACTOR_LAUNCHES
+    _require(W.dim() == 2 and dT.dim() == 2, "W must be (m², n) and dT (n, B)")
+    m = math.isqrt(W.shape[0])
+    n, B = dT.shape
+    _require(m * m == W.shape[0], f"W must have m² rows, got {W.shape[0]}")
+    _check_cuda("W", W, (m * m, n))
+    _check_cuda("dT", dT, (n, B))
+    _check_cuda("reg", reg, (B,))
+    _require(W.device == dT.device == reg.device, "W, dT and reg must be on the same device")
+    smem = _fused_smem(m, n)
+    _require(smem <= _SMEM_LIMIT,
+             f"fused_factor_bl at m={m}, n={n} needs {smem} bytes of shared memory "
+             f"(> {_SMEM_LIMIT})")
+    L = torch.empty((m, m, B), dtype=dT.dtype, device=dT.device)
+    dinv = torch.empty((m, B), dtype=dT.dtype, device=dT.device)
+    if B == 0:
+        return L, dinv
+    lib = _build.load()
+    with torch.cuda.device(dT.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_fused_factor_bl_f32(
+            W.data_ptr(), dT.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(),
+            m, n, B, stream,
+        )
+    _raise_on_error("pycllp_fused_factor_bl_f32", err)
+    FUSED_FACTOR_LAUNCHES += 1
+    return L, dinv
+
+
+def _facsol_bl_cuda(M, reg, R):
+    global FACSOL_LAUNCHES
+    _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
+    _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
+    m, B = M.shape[0], M.shape[2]
+    k = R.shape[0]
+    _check_cuda("M", M, (m, m, B))
+    _check_cuda("reg", reg, (B,))
+    _check_cuda("R", R, (k, m, B))
+    _require(M.device == reg.device == R.device, "M, reg and R must be on the same device")
+    smem = _facsol_smem(m, k)
+    _require(smem <= _SMEM_LIMIT,
+             f"facsol_bl at m={m}, k={k} needs {smem} bytes of shared memory (> {_SMEM_LIMIT})")
+    dinv = torch.empty((m, B), dtype=M.dtype, device=M.device)
+    V = torch.empty_like(R)
+    if B == 0 or k == 0:
+        return M, dinv, V
+    lib = _build.load()
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_facsol_bl_f32(
+            M.data_ptr(), reg.data_ptr(), R.data_ptr(), dinv.data_ptr(), V.data_ptr(),
+            m, B, k, stream,
+        )
+    _raise_on_error("pycllp_facsol_bl_f32", err)
+    FACSOL_LAUNCHES += 1
+    return M, dinv, V
+
+
 def chol_bl(M, reg):
     """M (m, m, B), reg (B,) → (L, dinv): factor M + reg·I per lane.
 
@@ -207,6 +336,32 @@ def solve_bl(L, dinv, R):
     if L.device.type == "cpu":
         return _solve_bl_plain(L, dinv, R)
     return _solve_bl_cuda(L, dinv, R)
+
+
+def fused_factor_bl(W, dT, reg):
+    """W (m², n), dT (n, B), reg (B,) → (L, dinv): factor
+    (W @ dT).reshape(m, m, B) + reg·I per lane, the product formed inside
+    the kernel.
+
+    CUDA tensors launch the hand-written kernel (float32, contiguous, or
+    raise); CPU tensors run :func:`_fused_factor_bl_plain`.
+    """
+    if dT.device.type == "cpu":
+        return _fused_factor_bl_plain(W, dT, reg)
+    return _fused_factor_bl_cuda(W, dT, reg)
+
+
+def facsol_bl(M, reg, R):
+    """M (m, m, B), reg (B,), R (k, m, B) → (L, dinv, V): factor M + reg·I
+    and solve L Lᵀ v = r in one launch.  M is consumed: it is factored in
+    place and returned as L.
+
+    CUDA tensors launch the hand-written kernel (float32, contiguous, or
+    raise); CPU tensors run :func:`_facsol_bl_plain`.
+    """
+    if M.device.type == "cpu":
+        return _facsol_bl_plain(M, reg, R)
+    return _facsol_bl_cuda(M, reg, R)
 
 
 # ---------------------------------------------------------------------------
@@ -238,19 +393,23 @@ class BatchLastKernels(KernelSet):
     Shared 2-D A forms ``M = (W @ dᵀ).reshape(m, m, B)`` with one matmul;
     per-instance (3-D) A forms M per instance, emitted batch-last.  Both
     factor with :func:`chol_bl` and solve with :func:`solve_bl`.  f64
-    routes to the reference set.  The reference's fused variants
-    (``fuse_form``, ``fuse_facsol``) have no ported kernels yet.
+    routes to the reference set.
+
+    ``fuse_form=True`` factors shared-A f32 systems with
+    :func:`fused_factor_bl` (M formed inside the kernel, never in device
+    memory).  ``fuse_facsol=True`` makes :meth:`factor_and_solve` one
+    :func:`facsol_bl` launch (M still formed by a matmul, as the
+    reference forms it with XLA).  With both, ``factor_and_solve`` takes
+    facsol and ``factor`` alone the fused form, as in the reference.
     """
 
     name = "cuda_batchlast"
 
     def __init__(self, fuse_form: bool = False, fuse_facsol: bool = False):
+        self.fuse_form = fuse_form
+        self.fuse_facsol = fuse_facsol
         if fuse_form or fuse_facsol:
-            raise NotImplementedError(
-                "fuse_form / fuse_facsol need the fused kernels "
-                "(_fused_factor_bl, _facsol_bl), which are not ported yet "
-                "(ROADMAP.md §2)"
-            )
+            self.name = f"cuda_batchlast{'_form' if fuse_form else ''}{'_facsol' if fuse_facsol else ''}"
 
     def prepare(self, A):
         if A.dim() != 2:
@@ -278,11 +437,28 @@ class BatchLastKernels(KernelSet):
             # lay it out batch-last for the same kernel
             A = ctx.A
             M_bl = ((A * d[:, None, :]) @ A.mT).permute(1, 2, 0).contiguous()
+            L, dinv = chol_bl(M_bl, reg)
+        elif self.fuse_form:
+            L, dinv = fused_factor_bl(ctx.W, d.T.contiguous(), reg)
         else:
             m = ctx.A.shape[0]
-            M_bl = (ctx.W @ d.T).reshape(m, m, d.shape[0])
-        L, dinv = chol_bl(M_bl, reg)
+            L, dinv = chol_bl((ctx.W @ d.T).reshape(m, m, d.shape[0]), reg)
         return BLFactor(ctx=ctx, L=L, dinv_diag=dinv, d=d, reg=reg)
+
+    def factor_and_solve(self, ctx, d, reg_eps, rs):
+        """With ``fuse_facsol``, shared 2-D A and float32: the factor and
+        the first solve in one :func:`facsol_bl` launch; otherwise
+        :meth:`factor`, then :meth:`solve`."""
+        if not self.fuse_facsol or not isinstance(ctx, PreparedBL) or d.dtype == torch.float64:
+            fac = self.factor(ctx, d, reg_eps)
+            return fac, self.solve(fac, rs)
+        m = ctx.A.shape[0]
+        reg = (reg_eps * _mv(ctx.Asq, d).amax(dim=-1)).to(d.dtype)
+        M = (ctx.W @ d.T).reshape(m, m, d.shape[0])
+        R = torch.stack([r.T for r in rs], dim=0)  # (k, m, B), contiguous
+        L, dinv, V = facsol_bl(M, reg, R)
+        fac = BLFactor(ctx=ctx, L=L, dinv_diag=dinv, d=d, reg=reg)
+        return fac, tuple(V[i].T for i in range(len(rs)))
 
     def solve(self, fac, rs):
         if not isinstance(fac, BLFactor):
@@ -327,3 +503,4 @@ class BatchLastKernels(KernelSet):
 
 
 BATCHLAST_KERNELS = BatchLastKernels()
+BATCHLAST_FUSED_KERNELS = BatchLastKernels(fuse_form=True)

@@ -22,8 +22,9 @@ What differs from the reference, and why:
 * The reference's environment knobs are arguments: ``truncate`` of
   :func:`_hsd_scan_finish_core` (``PYCLLP_FINISH_TRUNCATE``) and
   ``stage_sync`` of :func:`hsd_solve_scan` (``PYCLLP_SCAN_SYNC``).
-* ``log_every`` (per-iteration metrics) is not ported and raises
-  ``NotImplementedError``.
+* ``log_every`` records (:mod:`pycllp_tpu_torch.utils.logging`) are
+  reduced on the device and read back only on the iterations that emit
+  one, where the reference calls back from inside its loop.
 
 Problem form: ``min cᵀx  s.t.  Ax = b, x ≥ 0`` (EqualityLP).  HSD
 embedding variables: x ≥ 0, y free, z ≥ 0, τ ≥ 0, κ ≥ 0; residuals
@@ -46,6 +47,7 @@ import torch
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.solvers.options import SolverOptions, Status
 from pycllp_tpu_torch.utils.device import resolve_device
+from pycllp_tpu_torch.utils.logging import iteration_record
 from pycllp_tpu_torch.utils.scaling import ruiz_equilibrate, scale_problem, unscale_solution
 
 __all__ = ["HSDState", "hsd_solve_batched", "hsd_solve", "hsd_solve_scan"]
@@ -367,6 +369,9 @@ def _run_phase(
         status = torch.where(stalled, _STALLED, status)
         active = status == _RUNNING
 
+        if opts.log_every and s.k % opts.log_every == 0:
+            _log_iteration(s, ind, mu, active)
+
         xn, yn, zn, taun, kappan = step(s.x, s.y, s.z, s.tau, s.kappa, rp, rd, rg, mu)
 
         # numerical guard: a lane whose step went non-finite keeps its old
@@ -411,6 +416,22 @@ def _run_phase(
         s = body(s)
         HOST_STEPS += 1
     return s
+
+
+def _log_iteration(s: HSDState, ind: _Indicators, mu, active) -> None:
+    """Emit the reference's per-iteration record: the phase (dtype name),
+    k, the active-lane count, the max ρ_p / ρ_d / ρ_gap over the active
+    lanes and their mean μ."""
+    nact = active.sum()
+
+    def mx(v):
+        return torch.where(active, v, 0.0).amax()
+
+    iteration_record(
+        str(s.x.dtype).removeprefix("torch."), s.k, nact,
+        mx(ind.rho_p), mx(ind.rho_d), mx(ind.rho_g),
+        torch.where(active, mu, 0.0).sum() / nact.clamp(min=1),
+    )
 
 
 def _run_narrow_phase(
@@ -860,10 +881,6 @@ def _require_ported(opts: SolverOptions, dtype) -> None:
         from pycllp_tpu_torch.ops.df64 import FASTFORM_NOT_PORTED
 
         raise NotImplementedError(FASTFORM_NOT_PORTED)
-    if opts.log_every:
-        raise NotImplementedError(
-            "log_every: per-iteration metrics (utils/logging.py) are not ported yet"
-        )
 
 
 def _to(v, dtype, dev):

@@ -3,10 +3,10 @@
 Counterpart of :mod:`pycllp_tpu.solvers.options`: the same fields with
 the same defaults, so a reference configuration carries over field for
 field (:func:`pycllp_tpu_torch.interop.options_from_reference`).  The
-few options whose code paths are not ported (``log_every``, and
-``finish_kset="df64_fastform"``, a negative result of the reference) are
+one option value whose code path is not ported
+(``finish_kset="df64_fastform"``, a negative result of the reference) is
 kept so that configurations stay comparable; the solvers raise
-``NotImplementedError`` when one of them is switched on.
+``NotImplementedError`` when it is switched on.
 """
 
 from __future__ import annotations
@@ -114,7 +114,8 @@ class SolverOptions:
     finish_kkt_refine: int | None = None
     finish_gondzio: int = 0
     # ---------------------------------------------------------------------
-    log_every: int = 0  # per-iteration metrics; not ported yet (must be 0)
+    log_every: int = 0  # emit structured per-iteration metrics every k
+    # iterations (0 = off; see pycllp_tpu_torch.utils.logging)
     init_point: str = "ones"  # "ones" (blind HSD start) or "mehrotra"
     # (least-squares start: one extra factorization)
     warm_start: bool = False  # registry-level: reuse the previous solve's

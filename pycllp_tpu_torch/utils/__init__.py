@@ -1,4 +1,6 @@
-"""Utilities: scaling and device selection."""
+"""Utilities: scaling and device selection here; the checkpointed
+scenario sweep (:mod:`pycllp_tpu_torch.utils.sweep`) and per-iteration
+metrics (:mod:`pycllp_tpu_torch.utils.logging`) in their modules."""
 
 from pycllp_tpu_torch.utils.device import resolve_device
 from pycllp_tpu_torch.utils.scaling import (

@@ -52,10 +52,9 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
         bl._solve_bl_cuda(L, dinv, torch.ones(1, 4, 8))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(capsys):
     A, b, c = random_equality_lp(4, 9, nlp=3, seed=0)
-    unported = (dict(finish_dtype="float64", dtype="float32", finish_kset="df64_fastform"),
-                dict(log_every=1))
+    unported = (dict(finish_dtype="float64", dtype="float32", finish_kset="df64_fastform"),)
     for kw in unported:
         with pytest.raises(NotImplementedError):
             hsd_solve_batched(A, b, c, port_pkg.SolverOptions(**kw), device="cpu")
@@ -63,6 +62,9 @@ def test_unported_options_raise():
     out = hsd_solve_batched(A, b, c, port_pkg.SolverOptions(finish_dtype="float64", dtype="float32"),
                             device="cpu")
     assert out["x"].dtype == torch.float64
+    # so is log_every: with no sink installed, its records go to stderr
+    hsd_solve_batched(A, b, c, port_pkg.SolverOptions(log_every=1), device="cpu")
+    assert '"event": "ipm_iteration"' in capsys.readouterr().err
 
 
 def test_readme_quickstart_runs_on_cpu():

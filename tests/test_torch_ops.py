@@ -137,10 +137,16 @@ def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        bl.BatchLastKernels(fuse_form=True)
-    with pytest.raises(NotImplementedError):
-        bl.BatchLastKernels(fuse_facsol=True)
+    # the fused sets are ported: they construct, named as the reference names them
+    from pycllp_tpu.ops.batchlast import BatchLastKernels as RefBatchLastKernels
+
+    for kw in (dict(fuse_form=True), dict(fuse_facsol=True), dict(fuse_form=True, fuse_facsol=True)):
+        kset = bl.BatchLastKernels(**kw)
+        assert (kset.fuse_form, kset.fuse_facsol) == (kw.get("fuse_form", False),
+                                                      kw.get("fuse_facsol", False))
+        assert kset.name == RefBatchLastKernels(**kw).name.replace("pallas_", "cuda_")
+    assert bl.BATCHLAST_FUSED_KERNELS.name == "cuda_batchlast_form"
+    assert BATCHLAST_KERNELS.name == "cuda_batchlast"
     assert BATCHLAST_KERNELS.finish_kernels("reference") is REFERENCE_KERNELS
     # every finish set is ported but the reference's recorded negative result
     with pytest.raises(NotImplementedError):
