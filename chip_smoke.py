@@ -26,7 +26,19 @@ PyTorch version on the card, and drives the port's paths:
    set, interrupted after its first window, resumed, and compared with
    an uninterrupted sweep;
 8. per-iteration metrics (``log_every=1``) of a 4,096-lane solve through
-   ``metrics_to_jsonl``.
+   ``metrics_to_jsonl``;
+9. every kernel against its plain version at the netlib shapes (m = 27,
+   50, 56; B = 1, 300, 8,192; a per-instance M), timed at m = 56, B = 8,192;
+10. config 4 (``bench.py``'s ``run_netlib``) at 8,192 replicas per fixture:
+    one shared-A solve per bucket, then the padded heterogeneous batch
+    (24,576 per-instance 56×153 lanes), audited and compared lane by lane;
+11. config 2 (batch32) at 65,536 lanes on the main path;
+12. config 1 through ``hsd_pallas``, every registry backend on its batch,
+    and ``dense_path`` in f32 on the batch-last kernels vs the reference set;
+13. ``hsd_solve_two_pass``: the per-instance ladder (4,096 lanes) and the
+    shared-A delegation (bitwise equal to ``hsd_solve_scan``);
+14. the CLI as a subprocess (``python -m pycllp_tpu_torch solve`` on an
+    MPS file, and ``info``); ``checked_solve`` on a clean batch.
 
 Usage (from the repository root, one CUDA card):
 
@@ -56,13 +68,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from pycllp_tpu_torch import SolverOptions, Status, get_solver  # noqa: E402
+from pycllp_tpu_torch import SolverOptions, Status, available_solvers, get_solver  # noqa: E402
+from pycllp_tpu_torch.io import netlib  # noqa: E402
 from pycllp_tpu_torch.io.generate import random_standard_lp  # noqa: E402
+from pycllp_tpu_torch.io.mps import write_mps  # noqa: E402
 from pycllp_tpu_torch.ops import _build  # noqa: E402
 from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.solvers import hsd as hsd_mod  # noqa: E402
+from pycllp_tpu_torch.solvers.dense_path import dense_path_solve_batched  # noqa: E402
+from pycllp_tpu_torch.solvers.twopass import hsd_solve_two_pass  # noqa: E402
+from pycllp_tpu_torch.utils.debug import checked_solve  # noqa: E402
 from pycllp_tpu_torch.utils.logging import metrics_to_jsonl  # noqa: E402
 from pycllp_tpu_torch.utils.sweep import scenario_sweep  # noqa: E402
 
@@ -121,6 +138,23 @@ SWEEP_N = 131072
 SWEEP_KW = dict(chunk=16384, compact_cap=12, compact_bucket=5120, window_chunks=4,
                 finish_cap=3, finish_bucket=1024)
 SWEEP_OBJ_RTOL = 1e-9  # resumed vs uninterrupted sweep: same kernels, same inputs
+# config 4: replicas per netlib fixture (VERDICT "Next round" 3: >= 8K per
+# bucket), and the lane counts the kernels are held at on its shapes
+NETLIB_REPS = 8192
+NETLIB_B = (1, 300, 8192)
+TWOPASS_N = 4096  # per-instance lanes of the twopass ladder
+TWOPASS_CAP = 6  # its pass-1 cap: below the lanes' 7-15 iterations, so pass 2 runs
+CARD = torch.device("cuda", 0)
+# the shapes the main path's phases hold each kernel at (phases 2 and 6)
+MAIN_SHAPES = {
+    "chol_bl": ["m=64, n=128, B=256/300/16384"],
+    "solve_bl": ["m=64, B=256/300/16384, k=1/2"],
+    "fused_factor_bl": ["m=64, n=128, B=256/300/16384"],
+    "facsol_bl": ["m=64, B=256/300/16384, k=1/2"],
+    "df_chol_bl": ["m=64, n=128, B=256/300"],
+    "df_solve_bl": ["m=64, B=256/300, k=1/2"],
+    "slice_rounds_bl": ["r=128, B=16384; r=64, B=300"],
+}
 
 
 def say(phase: str, msg: str) -> None:
@@ -249,6 +283,44 @@ def _lower(L):
     return torch.tril(L.permute(2, 0, 1))
 
 
+def _nan_lane_f32(A, d, R, phase: str, label: str) -> None:
+    """Lane 2 with negated d is indefinite: chol_bl (then solve_bl),
+    fused_factor_bl and facsol_bl NaN it and leave every other lane finite."""
+    d = d.clone()
+    d[2] = -d[2]
+    W = bl.BATCHLAST_KERNELS.prepare(A).W
+    M_bl, reg = _formed(A, d, 0.0)
+    L, dinv = bl._chol_bl_cuda(M_bl, reg)
+    V = bl._solve_bl_cuda(L, dinv, R[:1].contiguous())
+    Lf, dinv_f = bl._fused_factor_bl_cuda(W, d.T.contiguous(), reg)
+    Vf = bl._solve_bl_cuda(Lf, dinv_f, R[:1].contiguous())
+    _, dinv_c, Vc = bl._facsol_bl_cuda(M_bl.clone(), reg, R.contiguous())
+    torch.cuda.synchronize()
+    for name, dv, VV in (("chol_bl", dinv, V), ("fused_factor_bl", dinv_f, Vf),
+                         ("facsol_bl", dinv_c, Vc)):
+        check(bool(torch.isnan(dv[:, 2]).any()) and bool(torch.isnan(VV[:, :, 2]).any()),
+              f"{name} NaN lane at {label}: lane 2 is not NaN")
+        others = torch.cat([VV[:, :, :2], VV[:, :, 3:]], dim=2)
+        check(bool(torch.isfinite(others).all()), f"{name} NaN lane at {label}: another lane")
+    say(phase, f"{label}: negated-d lane 2 is NaN in chol_bl (+ solve_bl), fused_factor_bl and "
+        "facsol_bl, every other lane finite")
+
+
+def _nan_lane_f64(A, d, R, phase: str, label: str) -> None:
+    """The same for df_chol_bl (then df_solve_bl), in f64."""
+    d = d.clone()
+    d[2] = -d[2]
+    M_bl, reg = _formed64(A, d, 0.0)
+    L, dinv = df64._df_chol_bl_cuda(M_bl, reg)
+    V = df64._df_solve_bl_cuda(L, dinv, R[:1].contiguous())
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(V[0, :, 2]).any()), f"df NaN lane at {label}: lane 2 is not NaN")
+    others = torch.cat([V[0, :, :2], V[0, :, 3:]], dim=1)
+    check(bool(torch.isfinite(others).all()), f"df NaN lane at {label}: another lane is not finite")
+    say(phase, f"{label}: negated-d lane 2 is NaN in df_chol_bl (+ df_solve_bl), every other "
+        "lane finite")
+
+
 def phase_kernels(dev) -> dict:
     """chol_bl / solve_bl (f32) against their plain versions; returns
     {name: (max_abs_err, ms, plain_ms)}."""
@@ -280,17 +352,7 @@ def phase_kernels(dev) -> dict:
             line.append(f"solve k={k} rel {e_plain:.1e} (vs reference set {e_ref:.1e})")
         say("kernel parity", "; ".join(line))
 
-    # a lane with negated d is indefinite: NaN there, finite elsewhere
-    A, d, R = _inputs(256, seed=9, dev=dev)
-    d[2] = -d[2]
-    M_bl, reg = _formed(A, d, 0.0)
-    L_k, dinv_k = bl._chol_bl_cuda(M_bl, reg)
-    V_k = bl._solve_bl_cuda(L_k, dinv_k, R[:1].contiguous())
-    torch.cuda.synchronize()
-    check(bool(torch.isnan(V_k[0, :, 2]).any()), "NaN lane: lane 2 is not NaN")
-    others = torch.cat([V_k[0, :, :2], V_k[0, :, 3:]], dim=1)
-    check(bool(torch.isfinite(others).all()), "NaN lane: another lane is not finite")
-    say("kernel parity", "chol_bl: negated-d lane 2 is NaN, the other 255 lanes finite")
+    _nan_lane_f32(*_inputs(256, seed=9, dev=dev), "kernel parity", "m=64, n=128, B=256")
 
     # times at the narrow path's shapes (m = 64, B = 16,384), in turns
     A, d, R = _inputs(16384, seed=1, dev=dev)
@@ -346,23 +408,6 @@ def phase_fused_kernels(dev) -> dict:
                                     abs_err(dinv_c, dinv_cp), abs_err(Vc, Vp))
             line.append(f"facsol k={k} rel {e_plain:.1e} (vs chol_bl + solve_bl {e_split:.1e})")
         say("kernel parity", "; ".join(line))
-
-    # a lane with negated d is indefinite: NaN there, finite elsewhere
-    A, d, R = _inputs(256, seed=9, dev=dev)
-    d[2] = -d[2]
-    W = bl.BATCHLAST_KERNELS.prepare(A).W
-    M_bl, reg = _formed(A, d, 0.0)
-    L_k, dinv_k = bl._fused_factor_bl_cuda(W, d.T.contiguous(), reg)
-    V_k = bl._solve_bl_cuda(L_k, dinv_k, R[:1].contiguous())
-    _, dinv_c, V_c = bl._facsol_bl_cuda(M_bl.clone(), reg, R.contiguous())
-    torch.cuda.synchronize()
-    for name, dinv, V in (("fused_factor_bl", dinv_k, V_k), ("facsol_bl", dinv_c, V_c)):
-        check(bool(torch.isnan(dinv[:, 2]).any()) and bool(torch.isnan(V[:, :, 2]).any()),
-              f"{name} NaN lane: lane 2 is not NaN")
-        others = torch.cat([V[:, :, :2], V[:, :, 3:]], dim=2)
-        check(bool(torch.isfinite(others).all()), f"{name} NaN lane: another lane is not finite")
-    say("kernel parity", "fused_factor_bl, facsol_bl: negated-d lane 2 is NaN, "
-        "the other 255 lanes finite")
 
     # times at the narrow stage's chunk (16,384) and the resume bucket
     # (5,120), m = 64, n = 128, in turns.  facsol_bl factors in place, so
@@ -423,6 +468,27 @@ def _wide_inputs(B: int, seed: int, dev, spread: float = 0.0):
             torch.from_numpy(R).to(dev))
 
 
+def _slicing_bit_identical(rng, r: int, B: int, n: int, dev) -> list:
+    """slice_rounds_bl on a normalised (r, B) operand spread over 1e±8, for
+    the Ozaki parameters of the matvecs and of the formation at width n:
+    bit-identical to its plain version, or raise.  Returns the (s,
+    n_slices) pairs held."""
+    X = rng.normal(size=(r, B)) * 10.0 ** rng.uniform(-8, 8, size=(r, B))
+    X = torch.from_numpy(X / np.abs(X).max(axis=0, keepdims=True)).to(dev)
+    Rh, Rl = df64._split_hi_lo(X)
+    held = []
+    for s, n_slices, _ in (df64.ozaki_mv_params(n), df64.ozaki_params(n)):
+        S_k = df64._slice_rounds_bl_cuda(Rh, Rl, s, n_slices)
+        S_p = df64._slice_rounds_bl_plain(Rh, Rl, s, n_slices)
+        torch.cuda.synchronize()
+        diff = abs_err(S_k, S_p)
+        same = bool(torch.equal(S_k.view(torch.int32), S_p.view(torch.int32)))
+        check(same and diff == 0.0, f"slice_rounds_bl ({r}, {B}) s={s} n={n_slices}: "
+              f"not bit-identical (max abs diff {diff:.3e})")
+        held.append((s, n_slices))
+    return held
+
+
 def _formed64(A, d, reg_eps):
     """f64 batch-last M = A·diag(d)·Aᵀ and reg = reg_eps·max(diag)."""
     m = A.shape[0]
@@ -458,34 +524,12 @@ def phase_wide_kernels(dev) -> dict:
             line.append(f"df_solve k={k} rel {e:.1e}")
         say("kernel parity", "; ".join(line))
 
-    # a lane with negated d is indefinite: NaN there, finite elsewhere
-    A, d, R = _wide_inputs(256, seed=9, dev=dev)
-    d[2] = -d[2]
-    M_bl, reg = _formed64(A, d, 0.0)
-    L_k, dinv_k = df64._df_chol_bl_cuda(M_bl, reg)
-    V_k = df64._df_solve_bl_cuda(L_k, dinv_k, R[:1].contiguous())
-    torch.cuda.synchronize()
-    check(bool(torch.isnan(V_k[0, :, 2]).any()), "df NaN lane: lane 2 is not NaN")
-    others = torch.cat([V_k[0, :, :2], V_k[0, :, 3:]], dim=1)
-    check(bool(torch.isfinite(others).all()), "df NaN lane: another lane is not finite")
-    say("kernel parity", "df_chol_bl: negated-d lane 2 is NaN, the other 255 lanes finite")
+    _nan_lane_f64(*_wide_inputs(256, seed=9, dev=dev), "kernel parity", "m=64, n=128, B=256")
 
     # slicing: bit-identical to the plain version
     rng = np.random.default_rng(7)
     for r, B in ((128, 16384), (64, 300)):
-        X = rng.normal(size=(r, B)) * 10.0 ** rng.uniform(-8, 8, size=(r, B))
-        X = torch.from_numpy(X / np.abs(X).max(axis=0, keepdims=True)).to(dev)
-        Rh, Rl = df64._split_hi_lo(X)
-        for params in (df64.ozaki_mv_params(128), df64.ozaki_params(128)):
-            s, n_slices, _ = params
-            S_k = df64._slice_rounds_bl_cuda(Rh, Rl, s, n_slices)
-            S_p = df64._slice_rounds_bl_plain(Rh, Rl, s, n_slices)
-            torch.cuda.synchronize()
-            diff = abs_err(S_k, S_p)
-            same = bool(torch.equal(S_k.view(torch.int32), S_p.view(torch.int32)))
-            check(same and diff == 0.0, f"slice_rounds_bl ({r}, {B}) s={s} n={n_slices}: "
-                  f"not bit-identical (max abs diff {diff:.3e})")
-            errs["slice_rounds_bl"] = max(errs["slice_rounds_bl"], diff)
+        _slicing_bit_identical(rng, r, B, 128, dev)
         say("kernel parity", f"slice_rounds_bl ({r}, {B}): bit-identical to plain for "
             f"(s, n_slices) = {df64.ozaki_mv_params(128)[:2]} and {df64.ozaki_params(128)[:2]}")
 
@@ -675,12 +719,12 @@ def phase_probes() -> dict:
     return counts
 
 
-def _bench_problem(nlp: int):
+def _bench_problem(nlp: int, m: int = M, n: int = N):
     """bench.py's LPs (seed 3) as the equality form: the StandardLP for the
     audit, A on the host, b and c staged on the card once."""
-    lp = random_standard_lp(M, N, nlp=nlp, seed=3, dtype=np.float32)
+    lp = random_standard_lp(m, n, nlp=nlp, seed=3, dtype=np.float32)
     eq = lp.to_equality_form()
-    dev = torch.device("cuda", 0)
+    dev = CARD
     b = torch.from_numpy(np.asarray(eq.b, np.float32)).to(dev)
     c = torch.from_numpy(np.asarray(eq.c, np.float32)).to(dev)
     return lp, np.asarray(eq.A, np.float32), b, c
@@ -704,13 +748,14 @@ def _audit_main(label: str, lp, obj, status) -> None:
             + ", ".join(f"{i} {Status(int(status[i])).name} {e:.2e}" for i, e in srels.items()))
 
 
-def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None) -> dict:
-    """bench.py's default configuration (65,536 LPs, ``hsd_solve_scan``,
+def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None, m: int = M,
+               n: int = N) -> dict:
+    """bench.py's default configuration (65,536 m×n LPs, ``hsd_solve_scan``,
     f64 crossover finish) on ``kset``: a first solve with a sync between
     the stages, its bounds, then ``reps`` more solves, timed.  Returns
     the launch counts of the first solve (``total``) and at the hand-over
     from the narrow stage to the finish (``narrow``), and its statuses."""
-    lp, A, b, c = _bench_problem(N_LP)
+    lp, A, b, c = _bench_problem(N_LP, m, n)
     opts = SolverOptions(**BENCH_OPTIONS)
 
     zero_counts()
@@ -746,7 +791,7 @@ def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None) -> dict
             f"; status agreement with the default set's main path "
             f"{(status2 == ref_status).mean():.4%}")
         say(label, f"{rep} solve {wall:.3f}s = {N_LP / wall:.1f} LP/s ({N_LP} LPs of "
-            f"{M}x{N}, f32 bulk + f64 crossover finish; status agreement with the first solve "
+            f"{m}x{n}, f32 bulk + f64 crossover finish; status agreement with the first solve "
             f"{(status2 == status).mean():.4%}{vs}) on {smi}")
     return {"total": counts, "narrow": narrow, "status": status}
 
@@ -900,6 +945,442 @@ def phase_metrics() -> None:
         f"last {records[-1]}")
 
 
+# ---------------------------------------------------------------------------
+# the netlib shapes, config 4, config 2, config 1 and the registry, twopass,
+# the CLI and checked_solve
+# ---------------------------------------------------------------------------
+
+
+def _netlib_eq(name: str):
+    """A fixture's standard form and its equality-form A (f64), the shapes
+    config 4 solves at: afiro 27×59, sc50a 50×98, adlittle 56×153."""
+    std = netlib.load_fixture(name).lp.to_standard_form()[0]
+    return std, np.asarray(std.to_equality_form().A, np.float64)
+
+
+def _shape_inputs(A64, B: int, seed: int, dev, dtype=np.float32, k: int = 2):
+    """A (the fixture's equality A / √n), d uniform in [0.5, 2], R (k, m, B)."""
+    rng = np.random.default_rng(seed)
+    m, n = A64.shape
+    A = (A64 / np.sqrt(n)).astype(dtype)
+    d = rng.uniform(0.5, 2.0, size=(B, n)).astype(dtype)
+    R = rng.normal(size=(k, m, B)).astype(dtype)
+    return (torch.from_numpy(A).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(R).to(dev))
+
+
+def _per_instance_M(A3, d, reg_eps):
+    """M and reg exactly as BatchLastKernels.factor forms them for a
+    per-instance (B, m, n) A (ops/batchlast.py), with TF32 off as in a solve."""
+    with hsd_mod._full_precision_matmuls():
+        reg = (reg_eps * torch.einsum("bmn,bn->bm", A3 * A3, d).amax(dim=-1)).to(d.dtype)
+        return ((A3 * d[:, None, :]) @ A3.mT).permute(1, 2, 0).contiguous(), reg
+
+
+def phase_netlib_kernels(dev, smi: str) -> dict:
+    """Every kernel against its plain version at the shapes the netlib
+    paths give it: the f32 four at m = 27/50/56 and B = 1/300/8,192,
+    chol_bl on a per-instance M (m = 56, B = 300), the FP64 pair and the
+    slicing at m = 27/56, B = 300; times at m = 56, B = 8,192.  Returns
+    {name: {"err": max abs err, "held_at": [...], "ms": t, "plain_ms": t}}."""
+    res = {k: {"err": 0.0, "held_at": []} for k in SOURCES}
+
+    def hold(name, err_abs, rel, bound, shape):
+        check(rel < bound, f"{name} vs plain at {shape}: rel {rel:.2e} (bound {bound})")
+        res[name]["err"] = max(res[name]["err"], err_abs)
+        if shape not in res[name]["held_at"]:
+            res[name]["held_at"].append(shape)
+
+    for fx in ("afiro", "sc50a", "adlittle"):
+        _, A64 = _netlib_eq(fx)
+        m, n = A64.shape
+        for B in NETLIB_B:
+            A, d, R = _shape_inputs(A64, B, seed=B + m, dev=dev)
+            shape = f"m={m}, n={n}, B={B}"
+            W = bl.BATCHLAST_KERNELS.prepare(A).W
+            dT = d.T.contiguous()
+            M_bl, reg = _formed(A, d, 1e-6)
+            L_k, dinv_k = bl._chol_bl_cuda(M_bl, reg)
+            L_p, dinv_p = bl._chol_bl_plain(M_bl, reg)
+            Lf_k, dinvf_k = bl._fused_factor_bl_cuda(W, dT, reg)
+            Lf_p, dinvf_p = bl._fused_factor_bl_plain(W, dT, reg)
+            torch.cuda.synchronize()
+            hold("chol_bl", max(abs_err(_lower(L_k), _lower(L_p)), abs_err(dinv_k, dinv_p)),
+                 max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p)), KERNEL_RTOL, shape)
+            hold("fused_factor_bl",
+                 max(abs_err(_lower(Lf_k), _lower(Lf_p)), abs_err(dinvf_k, dinvf_p)),
+                 max(rel_err(_lower(Lf_k), _lower(Lf_p)), rel_err(dinvf_k, dinvf_p)),
+                 KERNEL_RTOL, shape)
+            rels = []
+            for k in (1, 2):
+                Rk = R[:k].contiguous()
+                V_k = bl._solve_bl_cuda(L_k, dinv_k, Rk)
+                V_p = bl._solve_bl_plain(L_k, dinv_k, Rk)
+                Lc, dinv_c, Vc = bl._facsol_bl_cuda(M_bl.clone(), reg, Rk)
+                Lp, dinv_cp, Vp = bl._facsol_bl_plain(M_bl.clone(), reg, Rk)
+                torch.cuda.synchronize()
+                hold("solve_bl", abs_err(V_k, V_p), rel_err(V_k, V_p), KERNEL_RTOL, f"{shape}, k=1/2")
+                e_fs = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp), rel_err(Vc, Vp))
+                hold("facsol_bl", max(abs_err(_lower(Lc), _lower(Lp)), abs_err(dinv_c, dinv_cp),
+                                      abs_err(Vc, Vp)), e_fs, KERNEL_RTOL, f"{shape}, k=1/2")
+                rels.append(f"solve k={k} {rel_err(V_k, V_p):.1e}, facsol k={k} {e_fs:.1e}")
+            say("netlib kernels", f"{fx} {shape}: chol rel "
+                f"{max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p)):.1e}, "
+                f"fused_factor rel {rel_err(_lower(Lf_k), _lower(Lf_p)):.1e}, " + ", ".join(rels))
+            if B == 300:
+                _nan_lane_f32(A, d, R, "netlib kernels", f"{fx} {shape}")
+
+    # per-instance M: the padded netlib batch (three distinct 56×153 A)
+    stds = [_netlib_eq(fx)[0] for fx in netlib.fixture_names()]
+    A_pad, _, _, _, _ = netlib.pad_and_mask(stds, np.float64)
+    mp = A_pad.shape[1]
+    A_eq = np.concatenate([A_pad, np.broadcast_to(np.eye(mp), (len(stds), mp, mp))], axis=2)
+    B = 300
+    rng = np.random.default_rng(56)
+    A3 = torch.from_numpy(A_eq[np.arange(B) % len(stds)].astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.uniform(0.5, 2.0, size=(B, A_eq.shape[2])).astype(np.float32)).to(dev)
+    M_bl, reg = _per_instance_M(A3, d, 1e-6)
+    L_k, dinv_k = bl._chol_bl_cuda(M_bl, reg)
+    L_p, dinv_p = bl._chol_bl_plain(M_bl, reg)
+    torch.cuda.synchronize()
+    shape = f"per-instance M, m={mp}, n={A_eq.shape[2]}, B={B}"
+    e = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+    hold("chol_bl", max(abs_err(_lower(L_k), _lower(L_p)), abs_err(dinv_k, dinv_p)), e,
+         KERNEL_RTOL, shape)
+    say("netlib kernels", f"chol_bl on a {shape}: rel {e:.1e}")
+
+    # the FP64 pair and the slicing at m = 27 and 56
+    for fx in ("afiro", "adlittle"):
+        _, A64 = _netlib_eq(fx)
+        m, n = A64.shape
+        A, d, R = _shape_inputs(A64, 300, seed=m, dev=dev, dtype=np.float64)
+        shape = f"m={m}, n={n}, B=300"
+        M_bl, reg = _formed64(A, d, 1e-12)
+        L_k, dinv_k = df64._df_chol_bl_cuda(M_bl, reg)
+        L_p, dinv_p = df64._df_chol_bl_plain(M_bl, reg)
+        torch.cuda.synchronize()
+        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+        hold("df_chol_bl", max(abs_err(_lower(L_k), _lower(L_p)), abs_err(dinv_k, dinv_p)),
+             e_chol, F64_RTOL, shape)
+        line = [f"{fx} {shape}: df_chol rel {e_chol:.1e}"]
+        for k in (1, 2):
+            Rk = R[:k].contiguous()
+            V_k = df64._df_solve_bl_cuda(L_k, dinv_k, Rk)
+            V_p = df64._df_solve_bl_plain(L_k, dinv_k, Rk)
+            torch.cuda.synchronize()
+            hold("df_solve_bl", abs_err(V_k, V_p), rel_err(V_k, V_p), F64_RTOL, f"{shape}, k=1/2")
+            line.append(f"df_solve k={k} rel {rel_err(V_k, V_p):.1e}")
+        _nan_lane_f64(A, d, R, "netlib kernels", f"{fx} {shape}")
+        # slicing: bit-identical, at r = 2·m (an Ozaki matvec operand pair)
+        r = 2 * m
+        for s_, n_slices in _slicing_bit_identical(np.random.default_rng(r), r, 300, n, dev):
+            hold("slice_rounds_bl", 0.0, 0.0, 1.0, f"r={r}, B=300, s={s_}, n_slices={n_slices}")
+        line.append(f"slice_rounds_bl ({r}, 300) bit-identical")
+        say("netlib kernels", "; ".join(line))
+
+    # times at m = 56 (adlittle), B = 8,192, in turns
+    _, A64 = _netlib_eq("adlittle")
+    B = NETLIB_B[-1]
+    A, d, R = _shape_inputs(A64, B, seed=1, dev=dev)
+    m, n = A64.shape
+    W = bl.BATCHLAST_KERNELS.prepare(A).W
+    dT = d.T.contiguous()
+    M_bl, reg = _formed(A, d, 1e-6)
+    L, dinv = bl._chol_bl_cuda(M_bl, reg)
+    R1, R2 = R[:1].contiguous(), R.contiguous()
+    Mw = torch.empty_like(M_bl)
+
+    def facsol():
+        Mw.copy_(M_bl)
+        return bl._facsol_bl_cuda(Mw, reg, R2)
+
+    def facsol_plain():
+        Mw.copy_(M_bl)
+        return bl._facsol_bl_plain(Mw, reg, R2)
+
+    at = f"m={m}, n={n}, B={B}"
+    times = {
+        "chol_bl": in_turns(f"chol_bl at {at}", lambda: bl._chol_bl_cuda(M_bl, reg),
+                            lambda: bl._chol_bl_plain(M_bl, reg)),
+        "solve_bl": in_turns(f"solve_bl k=1 at {at}", lambda: bl._solve_bl_cuda(L, dinv, R1),
+                             lambda: bl._solve_bl_plain(L, dinv, R1)),
+        "fused_factor_bl": in_turns(f"fused_factor_bl at {at}",
+                                    lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                                    lambda: bl._fused_factor_bl_plain(W, dT, reg)),
+        "facsol_bl": in_turns(f"facsol_bl k=2 (with the copy of M) at {at}", facsol, facsol_plain),
+    }
+    in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at {at}",
+             lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+             lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
+    for name, (ms, plain_ms) in times.items():
+        res[name]["ms"], res[name]["plain_ms"] = ms, plain_ms
+    say("netlib kernels", f"the times above at {at} on {smi}")
+    return res
+
+
+def audit_eq(A, b, c, objective, lanes) -> dict:
+    """scipy highs on equality-form lanes (A shared or per lane):
+    {lane: relative objective error}."""
+    from scipy.optimize import linprog
+
+    rels = {}
+    for i in lanes:
+        Ai = np.asarray(A[i] if A.ndim == 3 else A, np.float64)
+        res = linprog(np.asarray(c[i], np.float64), A_eq=Ai, b_eq=np.asarray(b[i], np.float64),
+                      bounds=(0, None), method="highs")
+        check(res.status == 0, f"scipy could not solve lane {i}: {res.message}")
+        rels[int(i)] = abs(float(objective[i]) - res.fun) / max(1.0, abs(res.fun))
+    return rels
+
+
+def _audit_netlib(label: str, A, b, c, obj, status) -> None:
+    """64 evenly spaced lanes (≤ 1e-6 each where OPTIMAL) and up to 64
+    non-OPTIMAL lanes (reported)."""
+    opt = status == int(Status.OPTIMAL)
+    lanes = np.linspace(0, len(obj) - 1, 64, dtype=int)
+    rels = audit_eq(A, b, c, obj, lanes)
+    bounded = {i: e for i, e in rels.items() if opt[i]}
+    worst = max(bounded, key=bounded.get)
+    say(label, f"audit: scipy highs on 64 evenly spaced lanes ({len(bounded)} OPTIMAL), max "
+        f"relative objective error {bounded[worst]:.4e} at lane {worst} (limit {CONTRACT})")
+    check(bounded[worst] <= CONTRACT, f"{label}: audit max {bounded[worst]:.3e} > {CONTRACT}")
+    stragglers = np.flatnonzero(~opt)[:64]
+    if len(stragglers):
+        srels = audit_eq(A, b, c, obj, stragglers)
+        say(label, f"{len(stragglers)} non-OPTIMAL lanes (reported, not bounded): "
+            + ", ".join(f"{i} {Status(int(status[i])).name} {e:.2e}" for i, e in srels.items()))
+
+
+def _timed_solve(A, b, c, opts, dev):
+    """hsd_solve_batched on BATCHLAST_KERNELS twice; the second is timed
+    (ended by the pull of the statuses) and counted."""
+    hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device=dev)["status"].cpu()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device=dev)
+    status = out["status"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    return out["objective"].cpu().numpy(), status, wall, read_counts()
+
+
+def phase_netlib(smi: str, dev) -> dict:
+    """Config 4 as bench.py's run_netlib builds it, at 8,192 replicas per
+    fixture: one shared-A solve per bucket, then the padded heterogeneous
+    batch (per-instance A) of the same replicas."""
+    opts = SolverOptions(**BENCH_OPTIONS)
+    names = netlib.fixture_names()
+    stds = [_netlib_eq(nm)[0] for nm in names]
+    rng = np.random.default_rng(7)
+    buckets = sorted(netlib.bucket_problems(stds).items())
+    say("netlib", f"buckets { {k: [names[i] for i in v] for k, v in buckets} }")
+    counts = {k: 0 for k in SOURCES}
+    bucketed, walls, order, scales = [], [], [], []
+    for _, idxs in buckets:
+        check(len(idxs) == 1, "a netlib bucket holds more than one structure")
+        i = idxs[0]
+        eq = stds[i].to_equality_form()
+        scale = (1.0 + 0.1 * rng.random((NETLIB_REPS, 1))).astype(np.float32)
+        A = np.asarray(eq.A, np.float32)
+        b = np.asarray(eq.b, np.float32).reshape(1, -1) * scale
+        c = np.ascontiguousarray(np.broadcast_to(np.asarray(eq.c, np.float32).reshape(1, -1),
+                                                 (NETLIB_REPS, eq.c.shape[-1])))
+        obj, status, wall, cnt = _timed_solve(A, torch.from_numpy(b).to(dev),
+                                              torch.from_numpy(c).to(dev), opts, dev)
+        check(cnt["chol_bl"] > 0 and cnt["solve_bl"] > 0,
+              f"netlib {names[i]}: chol_bl / solve_bl were never launched")
+        for k in SOURCES:
+            counts[k] += cnt[k]
+        say("netlib", f"{names[i]} ({A.shape[0]}x{A.shape[1]}, shared A, {NETLIB_REPS} replicas): "
+            f"status mix {status_mix(status)}; second solve {wall:.3f}s = "
+            f"{NETLIB_REPS / wall:.1f} LP/s; launches {cnt} on {smi}")
+        check((status == int(Status.OPTIMAL)).mean() >= MAIN_OPTIMAL,
+              f"netlib {names[i]}: OPTIMAL share {(status == 0).mean():.4f}")
+        _audit_netlib(f"netlib {names[i]}", A, b, c, obj, status)
+        bucketed.append((obj, status))
+        walls.append(wall)
+        order.append(i)
+        scales.append(scale[:, 0])
+    total = NETLIB_REPS * len(order)
+    say("netlib", f"bucketed batch: {total} LPs over {len(order)} buckets in {sum(walls):.3f}s = "
+        f"{total / sum(walls):.1f} LP/s on {smi}")
+
+    # the padded heterogeneous batch of the same replicas: per-instance A
+    A_pad, b_pad, c_pad, _, _ = netlib.pad_and_mask([stds[i] for i in order], np.float32)
+    mp = A_pad.shape[1]
+    eye = np.broadcast_to(np.eye(mp, dtype=np.float32), (len(order), mp, mp))
+    A_eq = np.concatenate([A_pad, eye], axis=2)
+    c_eq = np.concatenate([-c_pad, np.zeros((len(order), mp), np.float32)], axis=1)
+    lane_of = np.repeat(np.arange(len(order)), NETLIB_REPS)
+    A3 = np.ascontiguousarray(A_eq[lane_of])
+    b3 = b_pad[lane_of].copy()
+    for k, i in enumerate(order):
+        b3[k * NETLIB_REPS:(k + 1) * NETLIB_REPS, :stds[i].nrows] *= scales[k][:, None]
+    c3 = np.ascontiguousarray(c_eq[lane_of])
+    say("netlib padded", f"{A3.shape[0]} lanes, per-instance A {A3.shape[1]}x{A3.shape[2]} "
+        f"({A3.nbytes / 2**30:.2f} GiB in f32)")
+    obj, status, wall, cnt = _timed_solve(torch.from_numpy(A3).to(dev), torch.from_numpy(b3).to(dev),
+                                          torch.from_numpy(c3).to(dev), opts, dev)
+    check(cnt["chol_bl"] > 0 and cnt["solve_bl"] > 0, "netlib padded: chol_bl / solve_bl never launched")
+    for k in SOURCES:
+        counts[k] += cnt[k]
+    say("netlib padded", f"status mix {status_mix(status)}; second solve {wall:.3f}s = "
+        f"{A3.shape[0] / wall:.1f} LP/s; launches {cnt} on {smi}")
+    ref_obj = np.concatenate([o for o, _ in bucketed])
+    ref_st = np.concatenate([s for _, s in bucketed])
+    both = (status == int(Status.OPTIMAL)) & (ref_st == int(Status.OPTIMAL))
+    rel = np.abs(obj - ref_obj) / np.maximum(1.0, np.abs(ref_obj))
+    say("netlib padded", f"vs bucketed: {both.sum()}/{len(both)} lanes OPTIMAL in both, max "
+        f"relative objective difference {rel[both].max():.3e} (limit {CONTRACT}); padded/bucketed "
+        f"cost ratio {wall / sum(walls):.3f} ({wall:.3f}s vs {sum(walls):.3f}s)")
+    check(both.mean() >= MAIN_OPTIMAL, f"netlib padded: OPTIMAL in both on {both.mean():.4f}")
+    check(rel[both].max() <= CONTRACT, f"netlib padded vs bucketed: {rel[both].max():.3e}")
+    _audit_netlib("netlib padded", A3, b3, c3, obj, status)
+    return counts
+
+
+def phase_config2(smi: str) -> dict:
+    """Config 2 (batch32) at 65,536 lanes: 32×32 LPs on the main path."""
+    run = _scan_path(smi, bl.BATCHLAST_KERNELS, "config 2 (32x32)", ("second",), m=32, n=32)
+    check(run["total"]["chol_bl"] > 0, "config 2: chol_bl was never launched")
+    return run["total"]
+
+
+def phase_config1(smi: str) -> dict:
+    """Config 1 (bench.py run_correctness) through hsd_pallas on the card,
+    every registry backend on the same batch, and dense_path in f32 on
+    BATCHLAST_KERNELS against the reference set."""
+    lp = random_standard_lp(30, 50, nlp=64, seed=1)
+
+    def max_rel(obj):
+        return max(audit(lp, obj, range(64)).values())
+
+    zero_counts()
+    s = get_solver("hsd_pallas", device="cuda", tol=1e-7, dtype="float32", finish_dtype="float64")
+    s.init(lp)
+    sol = s.solve()
+    counts = read_counts()
+    e = max_rel(sol.objective)
+    say("config 1", f"hsd_pallas f32 + f64 finish on 64 LPs of 30x50: status mix "
+        f"{status_mix(sol.status)}; max rel vs scipy {e:.3e} (limit {CONTRACT}); launches {counts} "
+        f"on {smi}")
+    check(e <= CONTRACT, f"config 1: max rel {e:.3e}")
+    check(counts["chol_bl"] > 0, "config 1: chol_bl was never launched")
+
+    names = available_solvers()
+    check(names == ["cpp_hsd", "dense_path", "hsd", "hsd_pallas", "scipy"],
+          f"available_solvers() = {names}")
+    line = []
+    for name in names:
+        s = get_solver(name, tol=1e-8, device="cuda")
+        s.init(lp)
+        sol = s.solve()
+        e = max_rel(sol.objective)
+        check((np.asarray(sol.status) == int(Status.OPTIMAL)).all(), f"registry {name}: not all OPTIMAL")
+        check(e <= CONTRACT, f"registry {name}: max rel vs scipy {e:.3e}")
+        line.append(f"{name} {e:.2e}")
+    say("registry", "every backend on config 1's batch, max rel vs scipy: " + ", ".join(line))
+
+    # dense_path in f32: the batch-last kernels vs the reference set, both on
+    # the card; bounds from the CPU run (96.9-98.4% agreement, 3.9e-6-8.3e-6)
+    eq = lp.to_equality_form()
+    A, b, c = (np.asarray(v, np.float32) for v in (eq.A, eq.b, eq.c))
+    o32 = SolverOptions(tol=1e-4, maxiter=40, dtype="float32")
+    zero_counts()
+    out = dense_path_solve_batched(A, b, c, o32, bl.BATCHLAST_KERNELS, device="cuda")
+    st = out["status"].cpu().numpy()
+    dcounts = read_counts()
+    ref_out = dense_path_solve_batched(A, b, c, o32, REFERENCE_KERNELS, device="cuda")
+    rst = ref_out["status"].cpu().numpy()
+    both = (st == int(Status.OPTIMAL)) & (rst == int(Status.OPTIMAL))
+    o, ro = out["objective"].cpu().numpy(), ref_out["objective"].cpu().numpy()
+    rel = np.abs(o - ro) / np.maximum(1.0, np.abs(ro))
+    agree = float((st == rst).mean())
+    say("dense_path f32", f"BATCHLAST_KERNELS {status_mix(st)} vs reference set {status_mix(rst)}: "
+        f"status agreement {agree:.4%} (limit 90%), {both.sum()} lanes OPTIMAL in both, max rel "
+        f"{rel[both].max() if both.any() else float('nan'):.3e} (limit 1e-4); launches {dcounts} "
+        f"on {smi}")
+    check(dcounts["chol_bl"] > 0 and dcounts["solve_bl"] > 0, "dense_path f32: kernels not launched")
+    check(agree >= 0.9, f"dense_path f32: status agreement {agree:.4f}")
+    check(both.any() and rel[both].max() <= 1e-4, "dense_path f32: objectives disagree")
+    return counts
+
+
+def phase_twopass(smi: str) -> dict:
+    """hsd_solve_two_pass: the per-instance ladder on 4,096 lanes, and the
+    shared-A delegation against hsd_solve_scan, on BATCHLAST_KERNELS."""
+    kw = {k: v for k, v in SOLVER_KW.items() if k not in ("chunk", "compact_cap", "compact_bucket")}
+    opts = SolverOptions(**kw)
+    lp = random_standard_lp(32, 32, nlp=TWOPASS_N, seed=11, dtype=np.float32, shared_A=False)
+    eq = lp.to_equality_form()
+    A, b, c = (torch.from_numpy(np.asarray(v, np.float32)).to(CARD) for v in (eq.A, eq.b, eq.c))
+    keys = ("objective", "status", "iterations")
+    zero_counts()
+    t0 = time.perf_counter()
+    two = hsd_solve_two_pass(A, b, c, opts, bl.BATCHLAST_KERNELS, pass1_maxiter=TWOPASS_CAP,
+                             min_bucket=1024, keys=keys, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    full = hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda")
+    agree = float((two["status"] == full["status"].cpu().numpy()).mean())
+    remnant = int((two["iterations"] > TWOPASS_CAP).sum())
+    say("twopass", f"{TWOPASS_N} per-instance 32x64 lanes: {wall:.3f}s; status mix "
+        f"{status_mix(two['status'])}; lanes re-solved in pass 2 past the cap of {TWOPASS_CAP} "
+        f"{remnant}; status agreement with one full-budget solve {agree:.4%} (limit 99%); "
+        f"launches {counts} on {smi}")
+    check(counts["chol_bl"] > 0, "twopass: chol_bl was never launched")
+    check(remnant > 0, "twopass: no lane reached pass 2")
+    check(agree >= 0.99, f"twopass: status agreement {agree:.4f}")
+
+    N2 = 2 * TWOPASS_N
+    _, A2, b2, c2 = _bench_problem(N2)
+    two = hsd_solve_two_pass(A2, b2, c2, opts, bl.BATCHLAST_KERNELS, chunk=TWOPASS_N,
+                             pass1_maxiter=12, keys=keys, device="cuda")
+    scan = hsd_mod.hsd_solve_scan(A2, b2, c2, opts, bl.BATCHLAST_KERNELS, chunk=TWOPASS_N,
+                                  keys=keys, compact_cap=12, compact_bucket=N2, device="cuda")
+    same = all(np.array_equal(two[k], scan[k].cpu().numpy()) for k in keys)
+    say("twopass", f"shared A ({N2} 64x128 lanes, chunks of {TWOPASS_N}): delegation bitwise "
+        f"equal to hsd_solve_scan {same}")
+    check(same, "twopass shared-A delegation differs from hsd_solve_scan")
+    return counts
+
+
+def phase_cli(kind: str, smi: str) -> None:
+    """The CLI as a subprocess on the card: afiro from an MPS file, and info."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli-", dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "afiro.mps")
+        with open(path, "w") as f:
+            f.write(write_mps(netlib.load_fixture("afiro").lp, name="AFIRO"))
+        cmd = [sys.executable, "-m", "pycllp_tpu_torch", "solve", path, "--solver", "hsd_pallas",
+               "--dtype", "float32", "--finish-dtype", "float64"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"CLI solve exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    ref = netlib.FIXTURE_OBJECTIVES["afiro"]
+    e = abs(out["objective"] - ref) / max(1.0, abs(ref))
+    say("cli", f"python -m pycllp_tpu_torch solve afiro.mps --solver hsd_pallas --dtype float32 "
+        f"--finish-dtype float64: {json.dumps(out)} in {wall:.2f}s (process start included); "
+        f"rel vs FIXTURE_OBJECTIVES {e:.2e} (limit {CONTRACT}) on {smi}")
+    check(out["status"] == "OPTIMAL" and e <= CONTRACT, "CLI solve: wrong answer")
+    info = subprocess.run([sys.executable, "-m", "pycllp_tpu_torch", "info"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600, check=True).stdout
+    say("cli", "info: " + " | ".join(info.strip().splitlines()))
+    check(kind in info, f"CLI info does not name the card {kind!r}")
+
+
+def phase_checked_solve(smi: str) -> None:
+    """checked_solve on a clean narrow batch of TWOPASS_N lanes: an empty report."""
+    kw = {k: v for k, v in SOLVER_KW.items() if k not in ("chunk", "compact_cap", "compact_bucket")}
+    _, A, b, c = _bench_problem(TWOPASS_N)
+    out, report = checked_solve(A, b, c, SolverOptions(**kw), bl.BATCHLAST_KERNELS, device="cuda")
+    st = out["status"].cpu().numpy()
+    say("checked_solve", f"{TWOPASS_N} lanes: status mix {status_mix(st)}; report {report} on {smi}")
+    check(report == [] and not (st == int(Status.NUMERICAL)).any(), "checked_solve: not clean")
+
+
 def main() -> None:
     kind, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -913,6 +1394,13 @@ def main() -> None:
     form, facsol = phase_fused_paths(smi, main_run["status"])
     sweep_counts = phase_sweep(smi)
     phase_metrics()
+    held = phase_netlib_kernels(dev, smi)
+    netlib_counts = phase_netlib(smi, dev)
+    config2 = phase_config2(smi)
+    config1 = phase_config1(smi)
+    twopass = phase_twopass(smi)
+    phase_cli(kind, smi)
+    phase_checked_solve(smi)
     # launches: each kernel's count on the full main path that runs it (the
     # default set's, or the fused set's for the fused kernels); the narrow
     # path's, the df64 probe's (which must run the FP64 factor/solve) and
@@ -925,7 +1413,12 @@ def main() -> None:
                        "replaces": REPLACES[name], "launches": run["total"][name], "path": path,
                        "narrow_path_launches": narrow[name], "df64_probe_launches": probe[name],
                        "sweep_launches": sweep_counts[name],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                       "netlib_launches": netlib_counts[name], "config2_launches": config2[name],
+                       "config1_launches": config1[name], "twopass_launches": twopass[name],
+                       "max_abs_err": max(err, held[name]["err"]), "ms": ms, "plain_ms": plain_ms,
+                       "netlib_ms": held[name].get("ms"),
+                       "netlib_plain_ms": held[name].get("plain_ms"),
+                       "held_at": MAIN_SHAPES[name] + held[name]["held_at"]})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,13 @@ the wide f64 finish (vertex crossover on the mixed engine, the drain
 tiers, a wide IPM finish) on hand-written FP64 factor/solve kernels and
 the Ozaki slicing kernel (``csrc/df64.cu``); the checkpointed scenario
 sweep (``utils/sweep.py``) and per-iteration metrics
-(``utils/logging.py``).  The other solvers are not ported yet
+(``utils/logging.py``); the MPS reader/writer and the netlib fixtures
+(``io/mps.py``, ``io/netlib.py``); the other single-device solvers —
+``dense_path`` (on the same kernel sets), ``scipy`` (the oracle),
+``cpp_hsd`` (the reference's native C++ solver through ctypes) and the
+two-pass ladder (``solvers/twopass.py``); ``utils/profiling.py``,
+``utils/debug.py`` and the CLI (``python -m pycllp_tpu_torch``).  Not
+ported yet: the multi-device layer (``parallel/``) and the schur solver
 (ROADMAP.md).
 
 The device is explicit: solvers take ``device=`` (default ``"cuda"``),

@@ -19,7 +19,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, pycllp_tpu_torch, pycllp_tpu_torch.interop; assert 'jax' not in sys.modules"
+    mods = ", ".join(f"pycllp_tpu_torch.{m}" for m in (
+        "interop", "__main__", "io.mps", "io.netlib", "solvers.twopass", "solvers.dense_path",
+        "solvers.scipy_solver", "solvers.cpp", "utils.profiling", "utils.debug",
+    ))
+    code = f"import sys, pycllp_tpu_torch, {mods}; assert 'jax' not in sys.modules"
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
