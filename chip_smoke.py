@@ -5,9 +5,14 @@ Builds the hand-written CUDA kernels from the sources in this checkout
 PyTorch version on the card, and drives the port's paths:
 
 1. device and build;
-2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32), the fused
-   ``fused_factor_bl``/``facsol_bl`` (f32, also against the split path
-   they replace), the FP64 ``df_chol_bl``/``df_solve_bl`` and the Ozaki
+2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32) and the FP64
+   ``df_chol_bl``/``df_solve_bl`` on both designs (the lane-group kernels
+   of ``csrc/batchlast_smem.cuh``, the default, and the streaming kernels
+   of ``csrc/batchlast.cuh``), timed in turns against each other and the
+   plain version, with a sweep over the lane-group size, each kernel's
+   bound and the one PyTorch call that computes its function
+   (``library_ms``); the fused ``fused_factor_bl``/``facsol_bl`` (f32,
+   also against the split path they replace) and the Ozaki
    ``slice_rounds_bl``, plus the df64 and Ozaki accuracy contracts of
    ``tests_tpu/smoke.py``;
 3. the narrow main path — 65,536 dense 64×64 LPs through
@@ -17,7 +22,9 @@ PyTorch version on the card, and drives the port's paths:
    mixed-engine crossover finish), each audited against scipy;
 5. the full main path — ``bench.py``'s default configuration: the same
    65,536 LPs through ``hsd_solve_scan`` with the wide f64 crossover
-   finish and its drain tiers — audited to the 1e-6 contract;
+   finish and its drain tiers — audited to the 1e-6 contract, then one
+   more solve under ``torch.profiler`` (device time by kernel and the busy
+   share of each stage);
 6. the same configuration on the fused-form set
    (``BATCHLAST_FUSED_KERNELS``) and on the ``fuse_facsol`` set, each
    audited and with its kernel's launches tied to the narrow iterations;
@@ -45,8 +52,10 @@ Usage (from the repository root, one CUDA card):
     python3 chip_smoke.py
 
 Every phase prints lines; any failure raises and the script exits
-non-zero (there is no CPU fallback).  The line before the last is the
-kernel report as JSON, the last line is
+non-zero (there is no CPU fallback).  Every path phase checks, by the
+``*_SMEM_LAUNCHES`` counters, that each of its factors and solves ran the
+lane-group design.  The line before the last is the kernel report as
+JSON, the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -147,12 +156,16 @@ TWOPASS_CAP = 6  # its pass-1 cap: below the lanes' 7-15 iterations, so pass 2 r
 CARD = torch.device("cuda", 0)
 # the shapes the main path's phases hold each kernel at (phases 2 and 6)
 MAIN_SHAPES = {
-    "chol_bl": ["m=64, n=128, B=256/300/16384"],
-    "solve_bl": ["m=64, B=256/300/16384, k=1/2"],
+    "chol_bl": ["m=64, n=128, B=256/300/16384 (lane-group and streaming)",
+                "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming)"],
+    "solve_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)",
+                 "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming), k=1/2/3"],
     "fused_factor_bl": ["m=64, n=128, B=256/300/16384"],
     "facsol_bl": ["m=64, B=256/300/16384, k=1/2"],
-    "df_chol_bl": ["m=64, n=128, B=256/300"],
-    "df_solve_bl": ["m=64, B=256/300, k=1/2"],
+    "df_chol_bl": ["m=64, n=128, B=256/300 (lane-group and streaming)",
+                   "m=100, B=300; m=200, B=40 (lane-group); m=241, B=40 (streaming)"],
+    "df_solve_bl": ["m=64, B=256/300, k=1/2/3 (lane-group and streaming)",
+                    "m=100, B=300; m=200, B=40 (lane-group); m=241, B=40 (streaming), k=1/2/3"],
     "slice_rounds_bl": ["r=128, B=16384; r=64, B=300"],
 }
 
@@ -198,10 +211,117 @@ def in_turns(label: str, kern, plain, reps_k: int = 10, reps_p: int = 5) -> tupl
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def designs_in_turns(label: str, new, stream, plain, reps: int = 20) -> dict:
+    """A two-design kernel timed in turns (plain, streaming, lane-group,
+    lane-group, streaming, plain); returns the mean ms of each as ``ms``
+    (the lane-group design, the default), ``stream_ms`` and ``plain_ms``."""
+    p1 = time_ms(plain, 5)
+    s1 = time_ms(stream, reps)
+    n1 = time_ms(new, reps)
+    n2 = time_ms(new, reps)
+    s2 = time_ms(stream, reps)
+    p2 = time_ms(plain, 5)
+    say("kernel time", f"{label}: lane-group {n1:.4f}/{n2:.4f} ms, streaming {s1:.4f}/{s2:.4f} "
+        f"ms ({(s1 + s2) / (n1 + n2):.2f}x), plain {p1:.4f}/{p2:.4f} ms")
+    return {"ms": (n1 + n2) / 2, "stream_ms": (s1 + s2) / 2, "plain_ms": (p1 + p2) / 2}
+
+
+def lane_sweep(label: str, launch, dtype, reps: int = 20) -> dict:
+    """The lane-group kernel at every built G (``launch(G)``), timed one
+    after another (the label names the planned G).  Returns {G: ms}."""
+    sizes = bl._LANE_GROUPS[dtype.itemsize]
+    ms = {G: time_ms(lambda: launch(G), reps) for G in sizes}
+    say("lane sweep", f"{label}: " + ", ".join(f"G={G} {t:.4f} ms" for G, t in ms.items()))
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# bounds and library yardsticks
+# ---------------------------------------------------------------------------
+
+# NVIDIA's H100 SXM data sheet: HBM rate, and the FP32 / FP64 rates outside
+# the tensor cores (the kernels use neither TF32 nor DMMA)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: (67e12, "fp32"), torch.float64: (34e12, "fp64")}
+
+
+def _tri(m: int) -> int:
+    """Entries of an m×m lower triangle, diagonal included."""
+    return m * (m + 1) // 2
+
+
+def chol_flops(m: int) -> int:
+    """Operations of one lane's factor: m square roots and reciprocals, the
+    column scalings, and an FMA (2 operations) per trailing update."""
+    return 2 * m + m * (m - 1) // 2 + 2 * sum(_tri(t) for t in range(1, m))
+
+
+def solve_flops(m: int, k: int) -> int:
+    """Operations of one lane's k-RHS solve: an FMA per L entry below the
+    diagonal and a scaling per row, in each pass."""
+    return k * (2 * m * (m - 1) + 2 * m)
+
+
+def bound(nbytes: int, flops: int, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of their type."""
+    peak, unit = PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    by_bytes = t_bytes >= t_ops
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if by_bytes else "operations",
+            "bound_unit": "hbm" if by_bytes else unit, "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def chol_bound(m: int, B: int, dtype) -> dict:
+    """M's lower triangle and reg read, L's lower triangle and dinv written
+    (only those carry meaning)."""
+    size = dtype.itemsize
+    return bound((2 * _tri(m) + m + 1) * B * size, chol_flops(m) * B, dtype)
+
+
+def solve_bound(m: int, B: int, k: int, dtype) -> dict:
+    """L's lower triangle, dinv and R read, V written."""
+    size = dtype.itemsize
+    return bound((_tri(m) + m + 2 * k * m) * B * size, solve_flops(m, k) * B, dtype)
+
+
+def library_chol(M_bl, reg) -> dict:
+    """torch.linalg.cholesky_ex on a batch-first contiguous copy of M + reg·I
+    (the one PyTorch call computing chol_bl's function; the port never calls
+    it), and the permute that makes the copy, timed apart."""
+    m = M_bl.shape[0]
+    eye = torch.eye(m, dtype=M_bl.dtype, device=M_bl.device)
+    permute_ms = time_ms(lambda: M_bl.permute(2, 0, 1).contiguous(), 10)
+    Mbf = M_bl.permute(2, 0, 1).contiguous() + reg[:, None, None] * eye
+    ms = time_ms(lambda: torch.linalg.cholesky_ex(Mbf), 10)
+    return {"library_ms": ms, "library_permute_ms": permute_ms,
+            "library_call": "torch.linalg.cholesky_ex"}
+
+
+def library_solve(L_bl, R) -> dict:
+    """torch.cholesky_solve on batch-first copies of L's lower triangle and
+    R, and the permutes that make them, timed apart."""
+    permute_ms = time_ms(lambda: (torch.tril(L_bl.permute(2, 0, 1)),
+                                  R.permute(2, 1, 0).contiguous()), 10)
+    Lbf = torch.tril(L_bl.permute(2, 0, 1))
+    Rbf = R.permute(2, 1, 0).contiguous()  # (B, m, k)
+    ms = time_ms(lambda: torch.cholesky_solve(Rbf, Lbf), 10)
+    return {"library_ms": ms, "library_permute_ms": permute_ms,
+            "library_call": "torch.cholesky_solve"}
+
+
+def no_library(why: str) -> dict:
+    return {"library_ms": None, "library_permute_ms": None, "library_call": None,
+            "library_none": why}
+
+
 def zero_counts() -> None:
     bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = 0
+    bl.CHOL_SMEM_LAUNCHES = bl.SOLVE_SMEM_LAUNCHES = 0
     bl.FUSED_FACTOR_LAUNCHES = bl.FACSOL_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
+    df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
 
 
@@ -209,7 +329,31 @@ def read_counts() -> dict:
     return {"chol_bl": bl.CHOL_LAUNCHES, "solve_bl": bl.SOLVE_LAUNCHES,
             "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
-            "slice_rounds_bl": df64.SLICE_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS}
+            "slice_rounds_bl": df64.SLICE_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
+            "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
+            "df_chol_bl_smem": df64.DF_CHOL_SMEM_LAUNCHES,
+            "df_solve_bl_smem": df64.DF_SOLVE_SMEM_LAUNCHES}
+
+
+# each kernel's name in the profiler's device events (_kernel_group)
+PROFILE_NAMES = {"chol_bl": "chol_bl_smem_kernel", "solve_bl": "solve_bl_smem_kernel",
+                 "df_chol_bl": "chol_bl_smem_kernel<double>",
+                 "df_solve_bl": "solve_bl_smem_kernel<double>",
+                 "slice_rounds_bl": "slice_rounds_kernel",
+                 "fused_factor_bl": "fused_factor_bl_kernel", "facsol_bl": "facsol_bl_kernel"}
+
+
+# the kernels with two designs: each launch counts in both counters when it
+# ran the lane-group design (csrc/batchlast_smem.cuh)
+TWO_DESIGNS = ("chol_bl", "solve_bl", "df_chol_bl", "df_solve_bl")
+
+
+def check_smem_route(label: str, counts: dict) -> None:
+    """Every factor and solve of a path at m <= 237 ran the lane-group design."""
+    for name in TWO_DESIGNS:
+        check(counts[f"{name}_smem"] == counts[name],
+              f"{label}: {name} launched {counts[name]} times, {counts[f'{name}_smem']} of them "
+              "on the lane-group design")
 
 
 @contextlib.contextmanager
@@ -321,51 +465,143 @@ def _nan_lane_f64(A, d, R, phase: str, label: str) -> None:
         "lane finite")
 
 
+def _hold_designs(chol_cuda, solve_cuda, M_bl, reg, R, rtol, label: str) -> tuple[float, float,
+                                                                                    str]:
+    """The factor and the k = 1, 2, 3 solves on the default (lane-group)
+    and the streaming design against the plain versions: the lower
+    triangle, dinv and V to ``rtol`` (k = 3 runs the lane-group solve's
+    right-hand sides in two turns).  Returns (factor max abs err, solve max
+    abs err, a summary)."""
+    L_p, dinv_p = bl._chol_bl_plain(M_bl, reg)
+    R = torch.cat([R, 2 * R[:1]])  # a third right-hand side
+    e_abs = [0.0, 0.0]
+    line = []
+    for design in (None, "stream"):
+        L_k, dinv_k = chol_cuda(M_bl, reg, design=design)
+        torch.cuda.synchronize()
+        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+        name = design or "lane-group"
+        check(e_chol < rtol, f"factor ({name}) vs plain at {label}: rel {e_chol:.2e}")
+        e_abs[0] = max(e_abs[0], abs_err(_lower(L_k), _lower(L_p)), abs_err(dinv_k, dinv_p))
+        e_solve = []
+        for k in (1, 2, 3):
+            Rk = R[:k].contiguous()
+            V_k = solve_cuda(L_p, dinv_p, Rk, design=design)
+            V_p = bl._solve_bl_plain(L_p, dinv_p, Rk)
+            torch.cuda.synchronize()
+            e = rel_err(V_k, V_p)
+            check(e < rtol, f"solve k={k} ({name}) vs plain at {label}: rel {e:.2e}")
+            e_abs[1] = max(e_abs[1], abs_err(V_k, V_p))
+            e_solve.append(f"{e:.1e}")
+        line.append(f"{name}: chol rel {e_chol:.1e}, solve k=1/2/3 rel {'/'.join(e_solve)}")
+    return e_abs[0], e_abs[1], "; ".join(line)
+
+
+def _hold_large_m(dev, dtype, rtol: float) -> None:
+    """The factor and the k = 1, 2, 3 solves through the default route at m
+    past 64 (the lane-group kernels' 2-row-pair / 4-row and 6-pair /
+    11-row instantiations) and just past the lane-group limit (the
+    streaming kernels), against the plain versions, on a random SPD M."""
+    chol, solve = ((bl._chol_bl_cuda, bl._solve_bl_cuda) if dtype == torch.float32
+                   else (df64._df_chol_bl_cuda, df64._df_solve_bl_cuda))
+    limit = max(m for m in range(1, 400) if bl.uses_smem(m, dtype))
+    line = []
+    for m, B in ((100, 300), (limit - 40, 40), (limit + 1, 40)):
+        rng = np.random.default_rng(m)
+        A = torch.from_numpy(rng.normal(size=(B, m, m + 16))).to(dev, dtype)
+        M = (A @ A.mT / (m + 16)).permute(1, 2, 0).contiguous()
+        M += torch.eye(m, device=dev, dtype=dtype)[:, :, None]
+        reg = torch.full((B,), 1e-6, device=dev, dtype=dtype)
+        R = torch.from_numpy(rng.normal(size=(3, m, B))).to(dev, dtype)
+        zero_counts()
+        L_k, dinv_k = chol(M, reg)
+        L_p, dinv_p = bl._chol_bl_plain(M, reg)
+        e = [max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))]
+        for k in (1, 2, 3):
+            V_k = solve(L_p, dinv_p, R[:k].contiguous())
+            e.append(rel_err(V_k, bl._solve_bl_plain(L_p, dinv_p, R[:k].contiguous())))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        name = "chol_bl" if dtype == torch.float32 else "df_chol_bl"
+        design = "lane-group" if counts[f"{name}_smem"] else "streaming"
+        check(design == ("lane-group" if m <= limit else "streaming"),
+              f"{name} at m={m} ran the {design} design")
+        check(max(e) < rtol, f"{name} / solve at m={m}, B={B}: rel {max(e):.2e}")
+        line.append(f"m={m}, B={B} ({design}): chol {e[0]:.1e}, solve k=1/2/3 "
+                    f"{'/'.join(f'{x:.1e}' for x in e[1:])}")
+    say("kernel parity", f"{dtype} large m: " + "; ".join(line))
+
+
 def phase_kernels(dev) -> dict:
-    """chol_bl / solve_bl (f32) against their plain versions; returns
-    {name: (max_abs_err, ms, plain_ms)}."""
+    """chol_bl / solve_bl (f32), both designs, against their plain versions
+    and the f32 reference set; returns {name: {err, ms, stream_ms,
+    plain_ms, bound, library}}."""
     errs = {"chol_bl": 0.0, "solve_bl": 0.0}
     for B in (256, 300, 16384):
         A, d, R = _inputs(B, seed=B, dev=dev)
         M_bl, reg = _formed(A, d, 1e-6)
+        e_c, e_s, line = _hold_designs(bl._chol_bl_cuda, bl._solve_bl_cuda, M_bl, reg, R,
+                                       KERNEL_RTOL, f"m=64, B={B}")
+        errs["chol_bl"] = max(errs["chol_bl"], e_c)
+        errs["solve_bl"] = max(errs["solve_bl"], e_s)
+        # the kernels' factor and solve against the f32 reference set (torch.linalg)
         L_k, dinv_k = bl._chol_bl_cuda(M_bl, reg)
-        L_p, dinv_p = bl._chol_bl_plain(M_bl, reg)
-        torch.cuda.synchronize()
-        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
-        check(e_chol < KERNEL_RTOL, f"chol_bl vs plain at B={B}: rel {e_chol:.2e}")
-        errs["chol_bl"] = max(errs["chol_bl"], abs_err(_lower(L_k), _lower(L_p)),
-                              abs_err(dinv_k, dinv_p))
-        # f32 reference set (torch.linalg) on the same data
         fac_r = REFERENCE_KERNELS.factor(PreparedA(A, A * A), d, 1e-6)
-        line = [f"B={B}: chol rel {e_chol:.1e}"]
         for k in (1, 2):
             Rk = R[:k].contiguous()
             V_k = bl._solve_bl_cuda(L_k, dinv_k, Rk)
-            V_p = bl._solve_bl_plain(L_k, dinv_k, Rk)
             V_r = torch.stack(REFERENCE_KERNELS.solve(fac_r, tuple(Rk[i].T for i in range(k))))
             torch.cuda.synchronize()
-            e_plain = rel_err(V_k, V_p)
             e_ref = rel_err(V_k.transpose(1, 2), V_r)
-            check(e_plain < KERNEL_RTOL, f"solve_bl k={k} vs plain at B={B}: rel {e_plain:.2e}")
-            check(e_ref < KERNEL_RTOL, f"solve_bl k={k} vs reference at B={B}: rel {e_ref:.2e}")
-            errs["solve_bl"] = max(errs["solve_bl"], abs_err(V_k, V_p))
-            line.append(f"solve k={k} rel {e_plain:.1e} (vs reference set {e_ref:.1e})")
-        say("kernel parity", "; ".join(line))
+            check(e_ref < KERNEL_RTOL, f"chol_bl + solve_bl k={k} vs reference at B={B}: "
+                  f"rel {e_ref:.2e}")
+            line += f"; k={k} vs reference set {e_ref:.1e}"
+        say("kernel parity", f"B={B}: {line}")
 
     _nan_lane_f32(*_inputs(256, seed=9, dev=dev), "kernel parity", "m=64, n=128, B=256")
+    _hold_large_m(dev, torch.float32, KERNEL_RTOL)
 
-    # times at the narrow path's shapes (m = 64, B = 16,384), in turns
-    A, d, R = _inputs(16384, seed=1, dev=dev)
-    M_bl, reg = _formed(A, d, 1e-6)
-    L, dinv = bl._chol_bl_cuda(M_bl, reg)
-    R1, R2 = R[:1].contiguous(), R.contiguous()
-    t_chol = in_turns("chol_bl at m=64, B=16384", lambda: bl._chol_bl_cuda(M_bl, reg),
-                      lambda: bl._chol_bl_plain(M_bl, reg))
-    t_solve = in_turns("solve_bl k=1 at m=64, B=16384", lambda: bl._solve_bl_cuda(L, dinv, R1),
-                       lambda: bl._solve_bl_plain(L, dinv, R1))
-    in_turns("solve_bl k=2 at m=64, B=16384", lambda: bl._solve_bl_cuda(L, dinv, R2),
-             lambda: bl._solve_bl_plain(L, dinv, R2))
-    return {"chol_bl": (errs["chol_bl"], *t_chol), "solve_bl": (errs["solve_bl"], *t_solve)}
+    # times at the narrow path's shapes (m = 64; the chunk B = 16,384 and
+    # the resume bucket B = 5,120), in turns, and the lane-group sweep
+    out, sweeps = {}, {}
+    for B in (16384, 5120):
+        A, d, R = _inputs(B, seed=1, dev=dev)
+        M_bl, reg = _formed(A, d, 1e-6)
+        L, dinv = bl._chol_bl_cuda(M_bl, reg)
+        R1, R2 = R[:1].contiguous(), R.contiguous()
+        t_chol = designs_in_turns(f"chol_bl at m=64, B={B}", lambda: bl._chol_bl_cuda(M_bl, reg),
+                                  lambda: bl._chol_bl_cuda(M_bl, reg, design="stream"),
+                                  lambda: bl._chol_bl_plain(M_bl, reg))
+        t_solve = designs_in_turns(f"solve_bl k=1 at m=64, B={B}",
+                                   lambda: bl._solve_bl_cuda(L, dinv, R1),
+                                   lambda: bl._solve_bl_cuda(L, dinv, R1, design="stream"),
+                                   lambda: bl._solve_bl_plain(L, dinv, R1))
+        designs_in_turns(f"solve_bl k=2 at m=64, B={B}", lambda: bl._solve_bl_cuda(L, dinv, R2),
+                         lambda: bl._solve_bl_cuda(L, dinv, R2, design="stream"),
+                         lambda: bl._solve_bl_plain(L, dinv, R2))
+        sweeps[f"chol_bl m=64 B={B}"] = lane_sweep(
+            f"chol_bl at m=64, B={B} (planned G={bl.lane_plan('chol', 64, B, torch.float32).lanes})",
+            lambda G: bl._chol_bl_cuda(M_bl, reg, design="smem", lanes=G), torch.float32)
+        sweeps[f"solve_bl k=1 m=64 B={B}"] = lane_sweep(
+            f"solve_bl k=1 at m=64, B={B} (planned G="
+            f"{bl.lane_plan('solve', 64, B, torch.float32).lanes})",
+            lambda G: bl._solve_bl_cuda(L, dinv, R1, design="smem", lanes=G), torch.float32)
+        if B == 16384:
+            out = {"chol_bl": {"err": errs["chol_bl"], **t_chol,
+                               **chol_bound(64, B, torch.float32), **library_chol(M_bl, reg)},
+                   "solve_bl": {"err": errs["solve_bl"], **t_solve,
+                                **solve_bound(64, B, 1, torch.float32), **library_solve(L, R1)}}
+        else:
+            out["chol_bl"]["resume_bucket"] = {"B": B, **t_chol, **chol_bound(64, B, torch.float32)}
+            out["solve_bl"]["resume_bucket"] = {"B": B, **t_solve,
+                                                **solve_bound(64, B, 1, torch.float32)}
+    for name, r in out.items():
+        r["lane_sweep_ms"] = {k: v for k, v in sweeps.items() if k.startswith(name)}
+        say("kernel bound", f"{name} at m=64, B=16384: {r['ms']:.4f} ms (streaming "
+            f"{r['stream_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_unit']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it), {r['library_call']} {r['library_ms']:.4f} ms "
+            f"(+ permute {r['library_permute_ms']:.4f} ms)")
+    return out
 
 
 def phase_fused_kernels(dev) -> dict:
@@ -451,7 +687,21 @@ def phase_fused_kernels(dev) -> dict:
         say("kernel time", f"at B={B}, alone: the copy of M {copy_ms:.4f} ms, chol_bl "
             f"{chol_ms:.4f} ms, the GEMM forming M {gemm_ms:.4f} ms")
         times.setdefault("facsol_bl", t)
-    return {k: (errs[k], *times[k]) for k in errs}
+    m, n, B = 64, 128, 16384
+    size = 4
+    # fused_factor_bl: W's lower-triangle rows, dT and reg read; L's lower
+    # triangle and dinv written; the formation's FMAs and the factor's
+    fused = bound((_tri(m) * n + n * B + B + (_tri(m) + m) * B) * size,
+                  (2 * _tri(m) * n + chol_flops(m)) * B, torch.float32)
+    # facsol_bl (k = 2): chol_bl's bytes plus R read and V written
+    facsol = bound((2 * _tri(m) + m + 1 + 2 * 2 * m) * B * size,
+                   (chol_flops(m) + solve_flops(m, 2)) * B, torch.float32)
+    no_call = "no single PyTorch call computes it; the split path is its yardstick"
+    return {"fused_factor_bl": {"err": errs["fused_factor_bl"], "ms": times["fused_factor_bl"][0],
+                                "plain_ms": times["fused_factor_bl"][1], **fused,
+                                **no_library(no_call)},
+            "facsol_bl": {"err": errs["facsol_bl"], "ms": times["facsol_bl"][0],
+                          "plain_ms": times["facsol_bl"][1], **facsol, **no_library(no_call)}}
 
 
 def _wide_inputs(B: int, seed: int, dev, spread: float = 0.0):
@@ -505,26 +755,14 @@ def phase_wide_kernels(dev) -> dict:
     for B in (256, 300):
         A, d, R = _wide_inputs(B, seed=100 + B, dev=dev)
         M_bl, reg = _formed64(A, d, 1e-12)
-        L_k, dinv_k = df64._df_chol_bl_cuda(M_bl, reg)
-        L_p, dinv_p = df64._df_chol_bl_plain(M_bl, reg)
-        torch.cuda.synchronize()
-        e_chol = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
-        check(e_chol < F64_RTOL, f"df_chol_bl vs plain at B={B}: rel {e_chol:.2e}")
-        errs["df_chol_bl"] = max(errs["df_chol_bl"], abs_err(_lower(L_k), _lower(L_p)),
-                                 abs_err(dinv_k, dinv_p))
-        line = [f"B={B}: df_chol rel {e_chol:.1e}"]
-        for k in (1, 2):
-            Rk = R[:k].contiguous()
-            V_k = df64._df_solve_bl_cuda(L_k, dinv_k, Rk)
-            V_p = df64._df_solve_bl_plain(L_k, dinv_k, Rk)
-            torch.cuda.synchronize()
-            e = rel_err(V_k, V_p)
-            check(e < F64_RTOL, f"df_solve_bl k={k} vs plain at B={B}: rel {e:.2e}")
-            errs["df_solve_bl"] = max(errs["df_solve_bl"], abs_err(V_k, V_p))
-            line.append(f"df_solve k={k} rel {e:.1e}")
-        say("kernel parity", "; ".join(line))
+        e_c, e_s, line = _hold_designs(df64._df_chol_bl_cuda, df64._df_solve_bl_cuda, M_bl, reg,
+                                       R, F64_RTOL, f"f64 m=64, B={B}")
+        errs["df_chol_bl"] = max(errs["df_chol_bl"], e_c)
+        errs["df_solve_bl"] = max(errs["df_solve_bl"], e_s)
+        say("kernel parity", f"f64 B={B}: {line}")
 
     _nan_lane_f64(*_wide_inputs(256, seed=9, dev=dev), "kernel parity", "m=64, n=128, B=256")
+    _hold_large_m(dev, torch.float64, F64_RTOL)
 
     # slicing: bit-identical to the plain version
     rng = np.random.default_rng(7)
@@ -569,22 +807,57 @@ def phase_wide_kernels(dev) -> dict:
         "at a 1e±30 spread")
 
     # times, in turns, at the wide path's shapes
-    times = {}
+    # times at the drain tiers' widths (tier 1: 1,024 lanes, tier 2: 256),
+    # in turns, and the lane-group sweep
+    out, sweeps = {}, {}
     for B in (1024, 256):
         A, d, R = _wide_inputs(B, seed=5, dev=dev)
         M_bl, reg = _formed64(A, d, 1e-12)
-        t = in_turns(f"df_chol_bl at m=64, B={B}", lambda: df64._df_chol_bl_cuda(M_bl, reg),
-                     lambda: df64._df_chol_bl_plain(M_bl, reg))
-        times.setdefault("df_chol_bl", t)
+        L, dinv = df64._df_chol_bl_cuda(M_bl, reg)
+        R1, R2 = R[:1].contiguous(), R.contiguous()
+        t_chol = designs_in_turns(f"df_chol_bl at m=64, B={B}",
+                                  lambda: df64._df_chol_bl_cuda(M_bl, reg),
+                                  lambda: df64._df_chol_bl_cuda(M_bl, reg, design="stream"),
+                                  lambda: df64._df_chol_bl_plain(M_bl, reg))
+        t_solve = designs_in_turns(f"df_solve_bl k=1 at m=64, B={B}",
+                                   lambda: df64._df_solve_bl_cuda(L, dinv, R1),
+                                   lambda: df64._df_solve_bl_cuda(L, dinv, R1, design="stream"),
+                                   lambda: df64._df_solve_bl_plain(L, dinv, R1))
+        designs_in_turns(f"df_solve_bl k=2 at m=64, B={B}",
+                         lambda: df64._df_solve_bl_cuda(L, dinv, R2),
+                         lambda: df64._df_solve_bl_cuda(L, dinv, R2, design="stream"),
+                         lambda: df64._df_solve_bl_plain(L, dinv, R2))
+        sweeps[f"df_chol_bl m=64 B={B}"] = lane_sweep(
+            f"df_chol_bl at m=64, B={B} (planned G="
+            f"{bl.lane_plan('chol', 64, B, torch.float64).lanes})",
+            lambda G: df64._df_chol_bl_cuda(M_bl, reg, design="smem", lanes=G), torch.float64)
+        sweeps[f"df_solve_bl k=1 m=64 B={B}"] = lane_sweep(
+            f"df_solve_bl k=1 at m=64, B={B} (planned G="
+            f"{bl.lane_plan('solve', 64, B, torch.float64).lanes})",
+            lambda G: df64._df_solve_bl_cuda(L, dinv, R1, design="smem", lanes=G), torch.float64)
         if B == 1024:
-            L, dinv = df64._df_chol_bl_cuda(M_bl, reg)
-            R1, R2 = R[:1].contiguous(), R.contiguous()
-            times["df_solve_bl"] = in_turns(
-                "df_solve_bl k=1 at m=64, B=1024", lambda: df64._df_solve_bl_cuda(L, dinv, R1),
-                lambda: df64._df_solve_bl_plain(L, dinv, R1))
-            in_turns("df_solve_bl k=2 at m=64, B=1024", lambda: df64._df_solve_bl_cuda(L, dinv, R2),
-                     lambda: df64._df_solve_bl_plain(L, dinv, R2))
+            out["df_chol_bl"] = {"err": errs["df_chol_bl"], **t_chol,
+                                 **chol_bound(64, B, torch.float64), **library_chol(M_bl, reg)}
+            out["df_solve_bl"] = {"err": errs["df_solve_bl"], **t_solve,
+                                  **solve_bound(64, B, 1, torch.float64), **library_solve(L, R1)}
+        else:
+            out["df_chol_bl"]["tier2"] = {"B": B, **t_chol, **chol_bound(64, B, torch.float64),
+                                          **library_chol(M_bl, reg)}
+            out["df_solve_bl"]["tier2"] = {"B": B, **t_solve,
+                                           **solve_bound(64, B, 1, torch.float64),
+                                           **library_solve(L, R1)}
+    for name in ("df_chol_bl", "df_solve_bl"):
+        r = out[name]
+        r["lane_sweep_ms"] = {k: v for k, v in sweeps.items() if k.startswith(name)}
+        say("kernel bound", f"{name} at m=64, B=1024: {r['ms']:.4f} ms (streaming "
+            f"{r['stream_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_unit']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of it), {r['library_call']} {r['library_ms']:.4f} ms "
+            f"(+ permute {r['library_permute_ms']:.4f} ms); at B=256 {r['tier2']['ms']:.4f} ms "
+            f"(streaming {r['tier2']['stream_ms']:.4f}, {r['library_call']} "
+            f"{r['tier2']['library_ms']:.4f} ms)")
+
     s, n_slices, _ = df64.ozaki_mv_params(128)
+    times = {}
     for B in (16384, 32768):
         X = torch.rand((128, B), dtype=torch.float64, device=dev) * 2 - 1
         Rh, Rl = df64._split_hi_lo(X)
@@ -592,7 +865,14 @@ def phase_wide_kernels(dev) -> dict:
                      lambda: df64._slice_rounds_bl_cuda(Rh, Rl, s, n_slices),
                      lambda: df64._slice_rounds_bl_plain(Rh, Rl, s, n_slices))
         times.setdefault("slice_rounds_bl", t)
-    return {k: (errs[k], *times[k]) for k in errs}
+    # slicing: the (hi, lo) pair read, n_slices f32 bands written; per slice
+    # a scaling, a rounding, a scaling and the 9 f32 additions of the two-sum
+    out["slice_rounds_bl"] = {
+        "err": errs["slice_rounds_bl"], "ms": times["slice_rounds_bl"][0],
+        "plain_ms": times["slice_rounds_bl"][1],
+        **bound((8 + 4 * n_slices) * 128 * 16384, 12 * n_slices * 128 * 16384, torch.float32),
+        **no_library("no single PyTorch call cuts the Ozaki slices")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +916,7 @@ def phase_narrow_path(smi: str) -> dict:
     first_s = time.perf_counter() - t0
     counts, steps = read_counts(), hsd_mod.HOST_STEPS
     chol, solves = counts["chol_bl"], counts["solve_bl"]
+    check_smem_route("narrow path", counts)
     say("narrow path", f"first solve {first_s:.3f}s; launches {counts}; "
         f"host-loop iterations={steps}, Mehrotra starts={n_chunks}")
     check(chol > 0 and solves > 0, "a kernel of the narrow path was never launched")
@@ -693,6 +974,7 @@ def _probe(name: str, seed: int, opts: SolverOptions) -> dict:
     obj = -out["objective"].cpu().numpy()  # the equality form minimises −cᵀx
     secs = time.perf_counter() - t0
     counts = read_counts()
+    check_smem_route(name, counts)
     rels = audit(lp, obj, np.linspace(0, B - 1, 64, dtype=int))
     worst = max(rels.values())
     say(name, f"{secs:.3f}s; status mix {status_mix(st)}; launches {counts}; host-loop "
@@ -767,6 +1049,7 @@ def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None, m: int 
     status = out["status"].cpu().numpy()
     first_s = time.perf_counter() - t0
     counts = read_counts()
+    check_smem_route(label, counts)
     say(label, f"{kset.name}: first solve (stage_sync) {first_s:.3f}s; launches {counts}; "
         f"at the narrow stage's end {narrow}")
     for ln in err.getvalue().splitlines():
@@ -801,6 +1084,83 @@ def phase_main_path(smi: str) -> dict:
     for name in ("chol_bl", "solve_bl", "slice_rounds_bl"):
         check(run["total"][name] > 0, f"{name} was never launched on the main path")
     return run
+
+
+def _kernel_group(name: str) -> str:
+    """A short name for a device kernel: this repository's kernels by their
+    function name, the library's by what they do."""
+    for ours in ("chol_bl_smem_kernel", "solve_bl_smem_kernel", "chol_bl_kernel",
+                 "solve_bl_kernel", "slice_rounds_kernel", "fused_factor_bl_kernel",
+                 "facsol_bl_kernel"):
+        if ours in name:
+            return ours + ("<double>" if "double" in name else "")
+    low = name.lower()
+    for kind in ("gemm", "gemv", "reduce", "elementwise", "copy", "scan", "sort", "index"):
+        if kind in low:
+            return kind
+    return "other"
+
+
+def phase_profile(smi: str) -> dict:
+    """One more solve of the main path under torch.profiler, with a sync
+    between the stages: device time by kernel in the narrow stage and in
+    the finish, and each stage's busy share (device time over the span from
+    its first kernel to its last)."""
+    _, A, b, c = _bench_problem(N_LP)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    finish_core = hsd_mod._hsd_scan_finish_core
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function("finish stage"):
+            return finish_core(*args, **kwargs)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    hsd_mod._hsd_scan_finish_core = marked
+    try:
+        torch.cuda.synchronize()
+        with contextlib.redirect_stderr(io.StringIO()), \
+                torch.profiler.profile(activities=acts) as prof:
+            out = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
+                                         stage_sync=True, **SCAN_KW)
+            out["status"].cpu()
+    finally:
+        hsd_mod._hsd_scan_finish_core = finish_core
+    events = prof.events()
+    finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # kernels only: copies and fills run on the copy engines, not the SMs,
+    # and the stage's own annotation is mirrored on the device timeline
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset")) and e.name != "finish stage"]
+    check(len(kernels) > 0, "the profiler saw no device kernel")
+    stages = {}
+    for stage, sel in (("narrow", lambda e: e.time_range.start < finish_at),
+                       ("finish", lambda e: e.time_range.start >= finish_at)):
+        ks = sorted((e for e in kernels if sel(e)), key=lambda e: e.time_range.start)
+        # busy: the union of the kernels' intervals (they may overlap)
+        busy_us, reach = 0.0, float("-inf")
+        for e in ks:
+            start, end = max(e.time_range.start, reach), e.time_range.end
+            busy_us += max(0.0, end - start)
+            reach = max(reach, end)
+        busy = busy_us / 1e3
+        span = (reach - ks[0].time_range.start) / 1e3
+        by = {}
+        for e in ks:
+            g = by.setdefault(_kernel_group(e.name), [0.0, 0])
+            g[0] += e.time_range.elapsed_us() / 1e3
+            g[1] += 1
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])
+        others = sorted({e.name[:60] for e in ks if _kernel_group(e.name) == "other"})[:3]
+        stages[stage] = {"device_ms": busy, "span_ms": span, "idle": 1 - busy / span,
+                         "launches": len(ks),
+                         "by_kernel_ms": {k: round(v[0], 3) for k, v in top},
+                         "by_kernel_launches": {k: v[1] for k, v in top}}
+        say("profile", f"{stage} stage: device busy {busy:.1f} of {span:.1f} ms (idle "
+            f"{1 - busy / span:.1%}), {len(ks)} kernels; " + ", ".join(
+                f"{k} {v[0]:.1f} ms/{v[1]}" for k, v in top[:9]) + f"; 'other' is e.g. {others}"
+            f" on {smi}")
+    return stages
 
 
 def phase_fused_paths(smi: str, ref_status) -> tuple[dict, dict]:
@@ -885,6 +1245,7 @@ def phase_sweep(smi: str) -> dict:
         resumed = scenario_sweep(A, b, c, opts, out_dir=out_dir, **kw)
         resume_s = time.perf_counter() - t0
         counts = read_counts()
+        check_smem_route("sweep", counts)
         check(resumed.n_resumed == first_window,
               f"the resumed sweep skipped {resumed.n_resumed} chunks, not {first_window}")
         check(counts["fused_factor_bl"] > 0, "fused_factor_bl was never launched in the sweep")
@@ -938,6 +1299,7 @@ def phase_metrics() -> None:
     finally:
         os.remove(path)
     steps = hsd_mod.HOST_STEPS
+    check_smem_route("metrics", read_counts())
     check(len(records) == steps, f"{len(records)} metric records for {steps} host iterations")
     check(records[0]["active"] == B and records[0]["iter"] == 0 and records[0]["phase"] == "float32",
           f"first record {records[0]}")
@@ -1099,11 +1461,16 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
         return bl._facsol_bl_plain(Mw, reg, R2)
 
     at = f"m={m}, n={n}, B={B}"
+    two = {
+        "chol_bl": designs_in_turns(f"chol_bl at {at}", lambda: bl._chol_bl_cuda(M_bl, reg),
+                                    lambda: bl._chol_bl_cuda(M_bl, reg, design="stream"),
+                                    lambda: bl._chol_bl_plain(M_bl, reg)),
+        "solve_bl": designs_in_turns(f"solve_bl k=1 at {at}",
+                                     lambda: bl._solve_bl_cuda(L, dinv, R1),
+                                     lambda: bl._solve_bl_cuda(L, dinv, R1, design="stream"),
+                                     lambda: bl._solve_bl_plain(L, dinv, R1)),
+    }
     times = {
-        "chol_bl": in_turns(f"chol_bl at {at}", lambda: bl._chol_bl_cuda(M_bl, reg),
-                            lambda: bl._chol_bl_plain(M_bl, reg)),
-        "solve_bl": in_turns(f"solve_bl k=1 at {at}", lambda: bl._solve_bl_cuda(L, dinv, R1),
-                             lambda: bl._solve_bl_plain(L, dinv, R1)),
         "fused_factor_bl": in_turns(f"fused_factor_bl at {at}",
                                     lambda: bl._fused_factor_bl_cuda(W, dT, reg),
                                     lambda: bl._fused_factor_bl_plain(W, dT, reg)),
@@ -1112,6 +1479,10 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
     in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at {at}",
              lambda: bl._fused_factor_bl_cuda(W, dT, reg),
              lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
+    for name, t in two.items():
+        res[name].update(t)
+        res[name]["bound_ms"] = (chol_bound(m, B, torch.float32) if name == "chol_bl"
+                                 else solve_bound(m, B, 1, torch.float32))["bound_ms"]
     for name, (ms, plain_ms) in times.items():
         res[name]["ms"], res[name]["plain_ms"] = ms, plain_ms
     say("netlib kernels", f"the times above at {at} on {smi}")
@@ -1161,7 +1532,9 @@ def _timed_solve(A, b, c, opts, dev):
     out = hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device=dev)
     status = out["status"].cpu().numpy()
     wall = time.perf_counter() - t0
-    return out["objective"].cpu().numpy(), status, wall, read_counts()
+    counts = read_counts()
+    check_smem_route("netlib", counts)
+    return out["objective"].cpu().numpy(), status, wall, counts
 
 
 def phase_netlib(smi: str, dev) -> dict:
@@ -1260,6 +1633,7 @@ def phase_config1(smi: str) -> dict:
     s.init(lp)
     sol = s.solve()
     counts = read_counts()
+    check_smem_route("config 1", counts)
     e = max_rel(sol.objective)
     say("config 1", f"hsd_pallas f32 + f64 finish on 64 LPs of 30x50: status mix "
         f"{status_mix(sol.status)}; max rel vs scipy {e:.3e} (limit {CONTRACT}); launches {counts} "
@@ -1290,6 +1664,7 @@ def phase_config1(smi: str) -> dict:
     out = dense_path_solve_batched(A, b, c, o32, bl.BATCHLAST_KERNELS, device="cuda")
     st = out["status"].cpu().numpy()
     dcounts = read_counts()
+    check_smem_route("dense_path f32", dcounts)
     ref_out = dense_path_solve_batched(A, b, c, o32, REFERENCE_KERNELS, device="cuda")
     rst = ref_out["status"].cpu().numpy()
     both = (st == int(Status.OPTIMAL)) & (rst == int(Status.OPTIMAL))
@@ -1321,6 +1696,7 @@ def phase_twopass(smi: str) -> dict:
                              min_bucket=1024, keys=keys, device="cuda")
     wall = time.perf_counter() - t0
     counts = read_counts()
+    check_smem_route("twopass", counts)
     full = hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda")
     agree = float((two["status"] == full["status"].cpu().numpy()).mean())
     remnant = int((two["iterations"] > TWOPASS_CAP).sum())
@@ -1391,6 +1767,7 @@ def main() -> None:
     narrow = phase_narrow_path(smi)
     probe = phase_probes()
     main_run = phase_main_path(smi)
+    profile = phase_profile(smi)
     form, facsol = phase_fused_paths(smi, main_run["status"])
     sweep_counts = phase_sweep(smi)
     phase_metrics()
@@ -1407,7 +1784,7 @@ def main() -> None:
     # the sweep's beside it
     path_of = {"fused_factor_bl": ("fused-form path", form), "facsol_bl": ("facsol path", facsol)}
     report = []
-    for name, (err, ms, plain_ms) in measured.items():
+    for name, r in measured.items():
         path, run = path_of.get(name, ("main path", main_run))
         report.append({"name": name, "route": "cuda", "source": SOURCES[name],
                        "replaces": REPLACES[name], "launches": run["total"][name], "path": path,
@@ -1415,10 +1792,30 @@ def main() -> None:
                        "sweep_launches": sweep_counts[name],
                        "netlib_launches": netlib_counts[name], "config2_launches": config2[name],
                        "config1_launches": config1[name], "twopass_launches": twopass[name],
-                       "max_abs_err": max(err, held[name]["err"]), "ms": ms, "plain_ms": plain_ms,
+                       "max_abs_err": max(r["err"], held[name]["err"]), "ms": r["ms"],
+                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"], "bound_unit": r["bound_unit"],
+                       "library_ms": r["library_ms"],
+                       "library_permute_ms": r["library_permute_ms"],
+                       "library_call": r["library_call"], "library_none": r.get("library_none"),
                        "netlib_ms": held[name].get("ms"),
                        "netlib_plain_ms": held[name].get("plain_ms"),
                        "held_at": MAIN_SHAPES[name] + held[name]["held_at"]})
+        if name in TWO_DESIGNS:
+            # the lane-group design's launches on the same path (all of them),
+            # the streaming design's time in the same turns, the other widths
+            report[-1].update({
+                "source": "pycllp_tpu_torch/csrc/batchlast_smem.cuh",
+                "instantiated_in": SOURCES[name],
+                "smem_launches": run["total"][f"{name}_smem"], "stream_ms": r["stream_ms"],
+                "netlib_stream_ms": held[name].get("stream_ms"),
+                "netlib_bound_ms": held[name].get("bound_ms"),
+                "lane_sweep_ms": r["lane_sweep_ms"],
+                "other_width": r.get("resume_bucket") or r.get("tier2")})
+        # device time of the kernel in the profiled main-path solve, by stage
+        group = PROFILE_NAMES.get(name)
+        report[-1].update({f"{stage}_device_ms": profile[stage]["by_kernel_ms"].get(group, 0.0)
+                           for stage in ("narrow", "finish")})
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)

@@ -6,23 +6,20 @@
 //   fused_factor_bl <- _fused_factor_bl (_fused_factor_kernel -> _chol_body)
 //   facsol_bl       <- _facsol_bl       (_facsol_kernel)
 //
-// chol_bl and solve_bl are the float instantiations of the templates in
-// batchlast.cuh, which holds the layout, the design and the semantics.
-// The two fused kernels run the same pivot loop (chol_pivots).
-//
-// What bounds chol_bl / solve_bl on the H100: memory traffic and latency,
-// not arithmetic.  The factor does ~m^3/6 read-modify-writes per lane; a
-// 16,384-lane chunk at m = 64 is a 268 MB M, larger than the 50 MB L2,
-// so the trailing updates stream through HBM (~5.7 GB per factor).  One
-// thread per lane would leave only B threads in flight (~6% of the
-// card's thread slots at B = 16,384) and was measured 4.6x slower;
-// splitting the rows over 8 warps puts 8x as many loads in flight.  The
-// solve reads the lower triangle of L twice (268 MB at B = 16,384) with
-// only k * B threads in flight, so it is latency-bound too: its loads of
-// L are independent of each other, unrolled 4 deep (the best of 1, 4, 8
-// and 16 as measured on the H100; a working vector in shared memory
-// measured slower than V in L1).  Keeping M in shared memory (one CTA
-// per lane, 16 KB at m = 64) and wgmma/TMA are later work.
+// chol_bl and solve_bl are the float instantiations of two designs:
+// * the lane-group kernels of batchlast_smem.cuh (chol_bl_smem,
+//   solve_bl_smem), which keep each lane's triangle in shared memory: the
+//   default at every m whose one-lane triangle fits (m <= 340 in float);
+//   the source note there says what bounds them and what the design does
+//   about it;
+// * the streaming kernels of batchlast.cuh (chol_bl_kernel,
+//   solve_bl_kernel), which hold the triangle in device memory, for the
+//   larger m.  The streaming factor does ~m^3/6 read-modify-writes per
+//   lane in device memory (~5.7 GB per factor at m = 64, B = 16,384) with
+//   its rows split over 8 warps; the streaming solve runs one thread per
+//   (lane, right-hand side) and reads L twice.
+// The host chooses between them by (m, dtype) alone (ops/batchlast.py).
+// The two fused kernels run the streaming pivot loop (chol_pivots).
 //
 // fused_factor_bl(W, dT, reg) -> (L, dinv).  W is (m*m, n) with
 // W[i*m + j, q] = A[i, q] * A[j, q], dT is (n, B).  The kernel forms
@@ -42,7 +39,8 @@
 // bounds the formation: m(m+1)/2 * n FMAs per lane, ~266K at m = 64,
 // n = 128, ~4.4 G FMAs for a 16,384-lane chunk, against the split
 // path's 268 MB write and re-read of M; the pivot loop that follows is
-// chol_bl's, bound as above.  wgmma/TMA for the formation is later work.
+// the streaming factor's (chol_pivots).  wgmma/TMA for the formation is
+// later work.
 //
 // facsol_bl(M, reg, R) -> (L, dinv, V).  The factor and the k-RHS solve
 // in one launch.  M is factored IN PLACE (L is M's storage; the
@@ -59,13 +57,14 @@
 // The shared tile keeps w_i until the final write, which stores
 // w_i * dinv[i], the same product the backward pass used.  A pivot <= 0
 // NaNs that lane's diagonal, dinv and V, and no other lane.  It is bound
-// as chol_bl is; what it saves is solve_bl's re-read of L for the
-// forward pass and one launch.
+// as the streaming factor is; what it saves is the streaming solve's
+// re-read of L for the forward pass and one launch.
 //
 // C interface: each function launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
 #include "batchlast.cuh"
+#include "batchlast_smem.cuh"
 
 namespace {
 
@@ -233,6 +232,16 @@ int pycllp_chol_bl_f32(const void* M, const void* reg, void* L, void* dinv,
 int pycllp_solve_bl_f32(const void* L, const void* dinv, const void* R, void* V,
                         int m, int B, int k_rhs, void* stream) {
   return launch_solve_bl<float>(L, dinv, R, V, m, B, k_rhs, stream);
+}
+
+int pycllp_chol_bl_smem_f32(const void* M, const void* reg, void* L, void* dinv,
+                            int m, int B, int G, void* stream) {
+  return launch_chol_bl_smem<float>(M, reg, L, dinv, m, B, G, stream);
+}
+
+int pycllp_solve_bl_smem_f32(const void* L, const void* dinv, const void* R, void* V,
+                             int m, int B, int k_rhs, int G, void* stream) {
+  return launch_solve_bl_smem<float>(L, dinv, R, V, m, B, k_rhs, G, stream);
 }
 
 int pycllp_fused_factor_bl_f32(const void* W, const void* dT, const void* reg, void* L,

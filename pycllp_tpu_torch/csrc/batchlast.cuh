@@ -1,9 +1,15 @@
-// Batch-last Cholesky factor and k-RHS solve, templated on the element type.
+// Batch-last Cholesky factor and k-RHS solve, templated on the element
+// type: the streaming design, which keeps the triangle in device memory.
 //
 // Shared by csrc/batchlast.cu (float: chol_bl, solve_bl) and csrc/df64.cu
 // (double: df_chol_bl, df_solve_bl).  Each .cu file includes this header
 // and instantiates the type it needs; the templates live in an unnamed
-// namespace, so every translation unit keeps its own copy.
+// namespace, so every translation unit keeps its own copy.  Since the
+// lane-group kernels of batchlast_smem.cuh, which keep each lane's
+// triangle in shared memory, became the default route, these kernels run
+// only where one lane's triangle does not fit in a block's shared memory
+// (m > 340 in float, m > 240 in double); their pivot loop, chol_pivots,
+// is also the one the fused kernels of batchlast.cu run.
 //
 // Layout: batch-LAST, exactly as the reference keeps it.  M and L are
 // (m, m, B), dinv is (m, B), R and V are (k, m, B), all C-contiguous, so

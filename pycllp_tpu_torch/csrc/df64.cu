@@ -10,25 +10,30 @@
 // and the k-RHS solve in double-single arithmetic (hi/lo f32 pairs, ~18
 // f32 operations per multiply-add) only because the TPU has no FP64.
 // The H100 has native FP64 at half its FP32 rate, so these are the
-// double instantiations of the batch-last templates in batchlast.cuh:
-// the same function, computed more accurately (a 53-bit unit instead of
-// the pair's ~49 bits), with none of the pair arithmetic.  The
-// reference's masked full-width product and tree sum in the solve was a
-// workaround for Mosaic's compile payload and is not carried over: the
-// loops are those of solve_bl.  Semantics kept from _df_chol_kernel: the
-// shift reg[b] is added at each pivot read (the caller rounds it to f32
-// first, as the reference adds (reg_f32, 0)), a pivot that is not > 0
-// or is NaN writes NaN to that diagonal and to dinv and poisons its lane
-// only, and only the lower triangle is factored, because the solve reads
-// only L[i, :i] and dinv.
+// double instantiations of the batch-last templates (batchlast_smem.cuh,
+// and batchlast.cuh for large m): the same function, computed more
+// accurately (a 53-bit unit instead of the pair's ~49 bits), with none of
+// the pair arithmetic.  The reference's masked full-width product and tree
+// sum in the solve was a workaround for Mosaic's compile payload and is
+// not carried over: the loops are those of solve_bl.  Semantics kept from
+// _df_chol_kernel: the shift reg[b] is added at each pivot read (the
+// caller rounds it to f32 first, as the reference adds (reg_f32, 0)), a
+// pivot that is not > 0 or is NaN writes NaN to that diagonal and to dinv
+// and poisons its lane only, and only the lower triangle is factored,
+// because the solve reads only L[i, :i] and dinv.
 //
-// What bounds them on this path: latency, at a few % occupancy.  The
-// df64 set factors at the drain-tier widths, 1,024 lanes in tier 1 and
-// 256 in tier 2, which at 32 lanes per block is only 32 or 8 blocks on
-// 132 SMs.  A 1,024-lane f64 M at m = 64 is 33.5 MB, so it fits in the
-// 50 MB L2 and the trailing updates mostly hit L2, not HBM.  A design
-// for narrow batches (fewer lanes per block, or one block per lane with
-// M in shared memory) is later work.
+// The df64 set factors at the drain-tier widths, 1,024 lanes in tier 1
+// and 256 in tier 2.  The streaming kernels of batchlast.cuh ran there at
+// a few % occupancy: 32 lanes per factor block is 32 or 8 blocks on 132
+// SMs, and the one-thread-per-(lane, RHS) solve is 8 or 2 blocks of 128
+// threads.  So the default route is the lane-group design of
+// batchlast_smem.cuh in double: each lane's triangle (16,640 B at m = 64)
+// in shared memory, a warp a lane, G lanes a block with G chosen on the
+// host so that the tier widths put a block on every SM (G = 4 at B =
+// 1,024, G = 1 at 256).  A 1,024-lane f64 factor reads and writes 34.6 MB
+// (0.010 ms of HBM); its ~89 MFLOP of FP64 are not the bound.  The
+// streaming kernels remain for m > 240, whose one-lane triangle does not
+// fit in shared memory.
 //
 // slice_rounds_bl.  Cuts a normalised operand, given as an f32 (hi, lo)
 // pair, into n_slices integer-valued s-bit bands for the exact group
@@ -48,6 +53,7 @@
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
 #include "batchlast.cuh"
+#include "batchlast_smem.cuh"
 
 namespace {
 
@@ -88,6 +94,16 @@ int pycllp_chol_bl_f64(const void* M, const void* reg, void* L, void* dinv,
 int pycllp_solve_bl_f64(const void* L, const void* dinv, const void* R, void* V,
                         int m, int B, int k_rhs, void* stream) {
   return launch_solve_bl<double>(L, dinv, R, V, m, B, k_rhs, stream);
+}
+
+int pycllp_chol_bl_smem_f64(const void* M, const void* reg, void* L, void* dinv,
+                            int m, int B, int G, void* stream) {
+  return launch_chol_bl_smem<double>(M, reg, L, dinv, m, B, G, stream);
+}
+
+int pycllp_solve_bl_smem_f64(const void* L, const void* dinv, const void* R, void* V,
+                             int m, int B, int k_rhs, int G, void* stream) {
+  return launch_solve_bl_smem<double>(L, dinv, R, V, m, B, k_rhs, G, stream);
 }
 
 int pycllp_slice_rounds_bl(const void* Rh, const void* Rl, void* S, int r, int B,

@@ -47,6 +47,11 @@ _SIGNATURES = {
     "pycllp_facsol_bl_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "pycllp_chol_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
     "pycllp_solve_bl_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    # the lane-group designs: ... m, B, [k_rhs,] G (lanes per block), stream
+    "pycllp_chol_bl_smem_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_solve_bl_smem_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "pycllp_chol_bl_smem_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
+    "pycllp_solve_bl_smem_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
 }
 

@@ -8,9 +8,15 @@ LAST axis, as in the reference:
   where ``W[(i,j), n] = A[i,n]·A[j,n]`` is precomputed once per
   structure.  The product lands in batch-last layout, so it stays a
   plain ``torch.matmul`` (the reference leaves it to XLA too).
-* The Cholesky and the triangular solves are the hand-written CUDA
-  kernels in ``csrc/batchlast.cu`` (:func:`chol_bl`, :func:`solve_bl`),
-  coalesced over the lane axis.
+* The Cholesky and the triangular solves are hand-written CUDA kernels
+  (:func:`chol_bl`, :func:`solve_bl`) with two designs.  The lane-group
+  kernels (``csrc/batchlast_smem.cuh``) copy each lane's triangle into
+  shared memory once and run there, one warp a lane, G lanes a block; they
+  are the route at every m whose one-lane triangle fits (m ≤ 340 in f32,
+  240 in f64).  The streaming kernels (``csrc/batchlast.cuh``), which keep
+  the triangle in device memory, take the larger m.  :func:`lane_plan`
+  makes the choice, by (m, dtype) alone, and picks G from (m, dtype, B,
+  SM count) so that every width puts a block on every SM.
 * The reference's fused variants are hand-written CUDA kernels in the
   same file: :func:`fused_factor_bl` forms M = W @ dᵀ inside the factor
   kernel, so M never goes through device memory (``fuse_form=True``,
@@ -23,7 +29,8 @@ Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
 wrappers take the plain version only for tensors on the CPU; for a CUDA
 tensor they launch the kernel or raise.  Each launch adds one to
 ``CHOL_LAUNCHES``, ``SOLVE_LAUNCHES``, ``FUSED_FACTOR_LAUNCHES`` or
-``FACSOL_LAUNCHES``.
+``FACSOL_LAUNCHES``; a factor or solve on the lane-group design also adds
+one to ``CHOL_SMEM_LAUNCHES`` or ``SOLVE_SMEM_LAUNCHES``.
 
 f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
 (dtype dispatch: this set's kernels are float32).  The wide finish phase
@@ -59,14 +66,101 @@ __all__ = [
     "facsol_bl",
 ]
 
-# launch counters: one per kernel launch, nowhere else
+# launch counters: one per kernel launch, nowhere else.  CHOL_LAUNCHES and
+# SOLVE_LAUNCHES count every launch of either design; the _SMEM counters
+# count the launches that ran the lane-group design.
 CHOL_LAUNCHES = 0
 SOLVE_LAUNCHES = 0
+CHOL_SMEM_LAUNCHES = 0
+SOLVE_SMEM_LAUNCHES = 0
 FUSED_FACTOR_LAUNCHES = 0
 FACSOL_LAUNCHES = 0
 
 # shared memory a block may use on the H100 (sm_90), in bytes
 _SMEM_LIMIT = 232448
+# the H100 SXM's SM count, for plans made without a card (the CPU tests)
+H100_SMS = 132
+
+
+# ---------------------------------------------------------------------------
+# launch plan of the factor and solve (csrc/batchlast_smem.cuh)
+# ---------------------------------------------------------------------------
+
+# lane-group sizes G the kernels are built for, largest first, per element
+# size: 8 float or 4 double lanes of an m = 64 triangle are ~67 KB, three
+# blocks to an SM
+_LANE_GROUPS = {4: (8, 4, 2, 1), 8: (4, 2, 1)}
+# the streaming kernels' blocks: 32 lanes a factor block, 128 threads
+# (one per lane and right-hand side) a solve block
+_STREAM_CHOL_LANES = 32
+_STREAM_SOLVE_THREADS = 128
+
+
+class LanePlan(typing.NamedTuple):
+    """How one factor or solve launch covers its B lanes."""
+
+    design: str  # "smem" (lane-group, triangle in shared memory) or "stream"
+    lanes: int  # lanes per block (G for "smem")
+    blocks: int  # blocks in the grid
+    smem: int  # dynamic shared memory of one block, bytes
+
+
+def smem_bytes(m: int, lanes: int, itemsize: int) -> int:
+    """Shared memory of one lane-group block, factor or solve
+    (tri_smem_bytes): per lane, the packed triangle rounded up to 32
+    entries plus 32 / G (the panel values, right-hand sides and dinv live
+    in registers)."""
+    return (-(-(m * (m + 1) // 2) // 32) * 32 + 32 // lanes) * lanes * itemsize
+
+
+def uses_smem(m: int, dtype) -> bool:
+    """The design choice, by (m, dtype) alone: the lane-group kernels
+    whenever one lane's triangle fits in a block's shared memory."""
+    return smem_bytes(m, 1, dtype.itemsize) <= _SMEM_LIMIT
+
+
+def lane_plan(kind: str, m: int, B: int, dtype, n_sm: int = H100_SMS, k: int = 1,
+              design: str | None = None, lanes: int | None = None) -> LanePlan:
+    """The plan of a ``kind`` ("chol" or "solve") launch on B lanes.
+
+    The lane-group size G is the largest built one, at most B, that fits
+    in shared memory and still gives at least min(n_sm, B) blocks, so
+    every width the solver uses puts a block on every SM where it has the
+    lanes.
+    ``design`` and ``lanes`` force a design or a G (for measurements);
+    a forced plan that cannot launch raises ``ValueError``.
+    """
+    size = dtype.itemsize
+    if design is None:
+        design = "smem" if uses_smem(m, dtype) else "stream"
+    if design == "stream":
+        _require(lanes is None, "the streaming kernels take no lane-group size")
+        if kind == "chol":
+            return LanePlan("stream", _STREAM_CHOL_LANES, -(-B // _STREAM_CHOL_LANES),
+                            m * _STREAM_CHOL_LANES * size)
+        return LanePlan("stream", 1, -(-(k * B) // _STREAM_SOLVE_THREADS), 0)
+    _require(design == "smem", f"unknown design {design!r}")
+    groups = _LANE_GROUPS[size]
+    if lanes is None:
+        want = min(n_sm, B)
+        fits = [g for g in groups if g <= B and smem_bytes(m, g, size) <= _SMEM_LIMIT]
+        lanes = next((g for g in fits if -(-B // g) >= want), groups[-1])
+    _require(lanes in groups, f"lane-group size {lanes} is not one of {groups} for {dtype}")
+    smem = smem_bytes(m, lanes, size)
+    _require(smem <= _SMEM_LIMIT,
+             f"{kind} at m={m} with {lanes} lanes a block needs {smem} bytes of shared "
+             f"memory (> {_SMEM_LIMIT})")
+    return LanePlan("smem", lanes, -(-B // lanes), smem)
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +278,14 @@ def _raise_on_error(fn: str, err: int) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
 
 
-def _launch_chol(M, reg, dtype, entry: str):
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _launch_chol(M, reg, dtype, design=None, lanes=None):
     """Check the operands and launch the batch-last Cholesky instantiated
-    for ``dtype`` (C entry point ``entry``); returns ``(L, dinv, launched)``."""
+    for ``dtype``, on the design :func:`lane_plan` picks (or the one
+    forced); returns ``(L, dinv, plan)``, ``plan`` None when nothing
+    launched (B = 0)."""
     _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
     m, B = M.shape[0], M.shape[2]
     _check_cuda("M", M, (m, m, B), dtype)
@@ -195,20 +294,24 @@ def _launch_chol(M, reg, dtype, entry: str):
     L = torch.empty_like(M)
     dinv = torch.empty((m, B), dtype=M.dtype, device=M.device)
     if B == 0:
-        return L, dinv, False
+        return L, dinv, None
+    plan = lane_plan("chol", m, B, dtype, _sm_count(M.device), design=design, lanes=lanes)
     lib = _build.load()
+    args = [M.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, B]
+    entry = f"pycllp_chol_bl_{_SUFFIX[dtype]}"
+    if plan.design == "smem":
+        entry = f"pycllp_chol_bl_smem_{_SUFFIX[dtype]}"
+        args.append(plan.lanes)
     with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            M.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, B, stream
-        )
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(entry, err)
-    return L, dinv, True
+    return L, dinv, plan
 
 
-def _launch_solve(L, dinv, R, dtype, entry: str):
+def _launch_solve(L, dinv, R, dtype, design=None, lanes=None):
     """Check the operands and launch the batch-last k-RHS solve instantiated
-    for ``dtype`` (C entry point ``entry``); returns ``(V, launched)``."""
+    for ``dtype``, on the design :func:`lane_plan` picks (or the one
+    forced); returns ``(V, plan)``, ``plan`` None when nothing launched."""
     _require(L.dim() == 3 and L.shape[0] == L.shape[1], f"L must be (m, m, B), got {tuple(L.shape)}")
     _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
     m, B = L.shape[0], L.shape[2]
@@ -219,28 +322,38 @@ def _launch_solve(L, dinv, R, dtype, entry: str):
     _require(L.device == dinv.device == R.device, "L, dinv and R must be on the same device")
     V = torch.empty_like(R)
     if B == 0 or k == 0:
-        return V, False
+        return V, None
+    plan = lane_plan("solve", m, B, dtype, _sm_count(L.device), k=k, design=design, lanes=lanes)
     lib = _build.load()
+    args = [L.data_ptr(), dinv.data_ptr(), R.data_ptr(), V.data_ptr(), m, B, k]
+    entry = f"pycllp_solve_bl_{_SUFFIX[dtype]}"
+    if plan.design == "smem":
+        entry = f"pycllp_solve_bl_smem_{_SUFFIX[dtype]}"
+        args.append(plan.lanes)
     with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            L.data_ptr(), dinv.data_ptr(), R.data_ptr(), V.data_ptr(), m, B, k, stream
-        )
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(entry, err)
-    return V, True
+    return V, plan
 
 
-def _chol_bl_cuda(M, reg):
-    global CHOL_LAUNCHES
-    L, dinv, launched = _launch_chol(M, reg, torch.float32, "pycllp_chol_bl_f32")
-    CHOL_LAUNCHES += launched
+def _chol_bl_cuda(M, reg, design=None, lanes=None):
+    """The f32 factor on the card; ``design="stream"`` (or ``"smem"``, and
+    ``lanes``) force a design for the on-card comparisons."""
+    global CHOL_LAUNCHES, CHOL_SMEM_LAUNCHES
+    L, dinv, plan = _launch_chol(M, reg, torch.float32, design, lanes)
+    if plan is not None:
+        CHOL_LAUNCHES += 1
+        CHOL_SMEM_LAUNCHES += plan.design == "smem"
     return L, dinv
 
 
-def _solve_bl_cuda(L, dinv, R):
-    global SOLVE_LAUNCHES
-    V, launched = _launch_solve(L, dinv, R, torch.float32, "pycllp_solve_bl_f32")
-    SOLVE_LAUNCHES += launched
+def _solve_bl_cuda(L, dinv, R, design=None, lanes=None):
+    """The f32 solve on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
+    global SOLVE_LAUNCHES, SOLVE_SMEM_LAUNCHES
+    V, plan = _launch_solve(L, dinv, R, torch.float32, design, lanes)
+    if plan is not None:
+        SOLVE_LAUNCHES += 1
+        SOLVE_SMEM_LAUNCHES += plan.design == "smem"
     return V
 
 

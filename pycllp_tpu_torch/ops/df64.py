@@ -10,7 +10,8 @@ native FP64, so here the card computes in FP64:
 * :func:`df_chol_bl` / :func:`df_solve_bl` are the hand-written CUDA
   kernels in ``csrc/df64.cu`` — the double instantiations of the
   batch-last templates behind :func:`~pycllp_tpu_torch.ops.batchlast.chol_bl`
-  and :func:`~pycllp_tpu_torch.ops.batchlast.solve_bl`.  They compute the
+  and :func:`~pycllp_tpu_torch.ops.batchlast.solve_bl`, on the same two
+  designs and the same launch plan.  They compute the
   same function as the reference's kernels, more accurately (the pair
   carries ~49 bits), and :class:`DoubleSingleKernels` hands them f64
   tensors without a hi/lo split.
@@ -25,7 +26,9 @@ Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`).  The wrappers
 take the plain version only for CPU tensors; for a CUDA tensor they
 launch the kernel or raise.  Each launch adds one to ``DF_CHOL_LAUNCHES``,
-``DF_SOLVE_LAUNCHES`` or ``SLICE_LAUNCHES``.
+``DF_SOLVE_LAUNCHES`` or ``SLICE_LAUNCHES``, and a factor or solve on the
+lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
+``DF_SOLVE_SMEM_LAUNCHES``.
 
 The reference's environment knobs ``PYCLLP_OZAKI_BITS`` and
 ``PYCLLP_OZAKI_MV_BITS`` are explicit ``bits=`` arguments here.
@@ -60,9 +63,12 @@ __all__ = [
     "ozaki_mv_params",
 ]
 
-# launch counters: one per kernel launch, nowhere else
+# launch counters: one per kernel launch, nowhere else; the _SMEM counters
+# count the factor and solve launches that ran the lane-group design
 DF_CHOL_LAUNCHES = 0
 DF_SOLVE_LAUNCHES = 0
+DF_CHOL_SMEM_LAUNCHES = 0
+DF_SOLVE_SMEM_LAUNCHES = 0
 SLICE_LAUNCHES = 0
 
 FASTFORM_NOT_PORTED = (
@@ -141,17 +147,24 @@ def _slice_rounds_bl_plain(Rh, Rl, s: int, n_slices: int):
 # ---------------------------------------------------------------------------
 
 
-def _df_chol_bl_cuda(M, reg):
-    global DF_CHOL_LAUNCHES
-    L, dinv, launched = _launch_chol(M, reg, torch.float64, "pycllp_chol_bl_f64")
-    DF_CHOL_LAUNCHES += launched
+def _df_chol_bl_cuda(M, reg, design=None, lanes=None):
+    """The FP64 factor on the card; ``design="stream"`` (or ``"smem"``, and
+    ``lanes``) force a design for the on-card comparisons."""
+    global DF_CHOL_LAUNCHES, DF_CHOL_SMEM_LAUNCHES
+    L, dinv, plan = _launch_chol(M, reg, torch.float64, design, lanes)
+    if plan is not None:
+        DF_CHOL_LAUNCHES += 1
+        DF_CHOL_SMEM_LAUNCHES += plan.design == "smem"
     return L, dinv
 
 
-def _df_solve_bl_cuda(L, dinv, R):
-    global DF_SOLVE_LAUNCHES
-    V, launched = _launch_solve(L, dinv, R, torch.float64, "pycllp_solve_bl_f64")
-    DF_SOLVE_LAUNCHES += launched
+def _df_solve_bl_cuda(L, dinv, R, design=None, lanes=None):
+    """The FP64 solve on the card; ``design``/``lanes`` as :func:`_df_chol_bl_cuda`."""
+    global DF_SOLVE_LAUNCHES, DF_SOLVE_SMEM_LAUNCHES
+    V, plan = _launch_solve(L, dinv, R, torch.float64, design, lanes)
+    if plan is not None:
+        DF_SOLVE_LAUNCHES += 1
+        DF_SOLVE_SMEM_LAUNCHES += plan.design == "smem"
     return V
 
 

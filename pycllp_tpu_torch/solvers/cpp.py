@@ -1,12 +1,13 @@
 """Native C++ HSD backend via ctypes.
 
-Counterpart of :mod:`pycllp_tpu.solvers.cpp`, on the reference's own
-source: ``pycllp_tpu/native/hsd_native.cpp`` (plain C++, OpenMP over
-instances) is compiled with g++ on first use — not copied — into the
-git-ignored ``build/native/`` beside the packages, named by a hash of the
-source and the flags.  Nothing is written next to the source.  The
-library is compiled under a temporary name and renamed into place, so
-processes that build at the same time never load a half-written file.
+Counterpart of :mod:`pycllp_tpu.solvers.cpp`.  The port keeps its own
+copy of the reference's C++ source, ``pycllp_tpu_torch/native/hsd_native.cpp``
+(plain C++, OpenMP over instances; byte-identical to the reference's, which
+a test pins), and compiles it with g++ on first use into the git-ignored
+``build/native/`` beside the packages, named by a hash of the source and
+the flags.  Nothing is written next to the source.  The library is
+compiled under a temporary name and renamed into place, so processes that
+build at the same time never load a half-written file.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from pycllp_tpu_torch.solvers.options import Solution
 
 __all__ = ["CppHSDSolver", "load_native", "native_path"]
 
-_ROOT = Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "pycllp_tpu" / "native" / "hsd_native.cpp"
-_BUILD_DIR = _ROOT / "build" / "native"
+_PKG = Path(__file__).resolve().parents[1]
+_SRC = _PKG / "native" / "hsd_native.cpp"
+_BUILD_DIR = _PKG.parent / "build" / "native"
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp")
 _lock = threading.Lock()
 _lib = None

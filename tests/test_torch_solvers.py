@@ -131,6 +131,72 @@ def test_cpp_builds_under_build_dir():
     assert not [p for p in path.parent.iterdir() if p.name.startswith("tmp")]
 
 
+def test_cpp_source_is_the_ports_own_copy():
+    """cpp_hsd compiles the port's copy of the C++ source, which lies in the
+    port and is byte-identical to the reference's."""
+    src = pathlib.Path(port_cpp._SRC).resolve()
+    assert src.is_relative_to(ROOT / "pycllp_tpu_torch")
+    assert src.read_bytes() == (ROOT / "pycllp_tpu" / "native" / "hsd_native.cpp").read_bytes()
+
+
+_PATH_CALLS = {"Path", "PurePath", "join", "joinpath", "open", "exists", "is_file", "isfile",
+               "isdir", "listdir", "glob", "read_text", "read_bytes", "CDLL", "import_module",
+               "__import__"}
+
+
+def _reference_paths(tree) -> list:
+    """(line, text) of every string constant that a path into the reference
+    package starts with, used as a path segment: an operand of ``/`` or an
+    argument of a path call.  Messages that merely cite a reference line
+    are neither, and ``pycllp_tpu_torch`` is not the reference."""
+    import ast
+    import re
+
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            operands = [node.left, node.right]
+        elif isinstance(node, ast.Call):
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+            if name not in _PATH_CALLS:
+                continue
+            operands = list(node.args)
+        else:
+            continue
+        for op in operands:
+            if (isinstance(op, ast.Constant) and isinstance(op.value, str)
+                    and re.match(r"pycllp_tpu(?!\w)", op.value)):
+                hits.append((node.lineno, op.value))
+    return hits
+
+
+def test_port_reads_nothing_of_the_reference_package():
+    """No .py file of the port (nor chip_smoke.py) imports the reference
+    package or builds a path into it."""
+    import ast
+
+    # the detector itself: a path segment is found, a cited line is not
+    assert _reference_paths(ast.parse('ROOT / "pycllp_tpu" / "native"')) == [(1, "pycllp_tpu")]
+    assert _reference_paths(ast.parse('open("pycllp_tpu/native/x.cpp")'))
+    assert not _reference_paths(ast.parse('raise E("see pycllp_tpu/ops/df64.py:72")'))
+    assert not _reference_paths(ast.parse('P / "pycllp_tpu_torch" / "csrc"'))
+    files = sorted((ROOT / "pycllp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        assert not _reference_paths(tree), (path, _reference_paths(tree))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in ("pycllp_tpu", "jax", "jaxlib"), (path, mod)
+
+
 def test_cross_backend_agreement():
     """Every available backend agrees on one batch (tests/test_hsd.py)."""
     names = port_pkg.available_solvers()
