@@ -5,19 +5,22 @@ Builds the hand-written CUDA kernels from the sources in this checkout
 PyTorch version on the card, and drives the port's paths:
 
 1. device and build;
-2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32) and the FP64
-   ``df_chol_bl``/``df_solve_bl`` on both designs (the lane-group kernels
-   of ``csrc/batchlast_smem.cuh``, the default, and the streaming kernels
-   of ``csrc/batchlast.cuh``), timed in turns against each other and the
+2. kernel parity and times: ``chol_bl``/``solve_bl`` (f32), the FP64
+   ``df_chol_bl``/``df_solve_bl`` and the fused ``fused_factor_bl``/
+   ``facsol_bl`` (f32, also against the split path they replace) on both
+   designs (the lane-group kernels of ``csrc/batchlast_smem.cuh``, the
+   default, and the streaming kernels of ``csrc/batchlast.cuh`` and
+   ``csrc/batchlast.cu``), timed in turns against each other and the
    plain version, with a sweep over the lane-group size, each kernel's
    bound and the one PyTorch call that computes its function
-   (``library_ms``); the fused ``fused_factor_bl``/``facsol_bl`` (f32,
-   also against the split path they replace) and the Ozaki
-   ``slice_rounds_bl``, plus the df64 and Ozaki accuracy contracts of
-   ``tests_tpu/smoke.py``;
+   (``library_ms``); the Ozaki ``slice_rounds_bl``, plus the df64 and
+   Ozaki accuracy contracts of ``tests_tpu/smoke.py``;
 3. the narrow main path — 65,536 dense 64×64 LPs through
    ``get_solver("hsd_pallas", device="cuda")`` at the ``BENCH_FINISH=0``
-   options;
+   options, its ITERATION_LIMIT count bounded around the JAX reference's;
+   then the same cell with the f32 solve forced to the streaming
+   (left-looking) design and on the two fused sets, their status mixes
+   side by side;
 4. two 256-lane probes with a wide finish (a df64 IPM finish, and a
    mixed-engine crossover finish), each audited against scipy;
 5. the full main path — ``bench.py``'s default configuration: the same
@@ -53,8 +56,8 @@ Usage (from the repository root, one CUDA card):
 
 Every phase prints lines; any failure raises and the script exits
 non-zero (there is no CPU fallback).  Every path phase checks, by the
-``*_SMEM_LAUNCHES`` counters, that each of its factors and solves ran the
-lane-group design.  The line before the last is the kernel report as
+``*_SMEM_LAUNCHES`` counters, that each of its factors, solves and fused
+launches ran the lane-group design.  The line before the last is the kernel report as
 JSON, the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -118,6 +121,13 @@ F64_RTOL = 1e-12  # FP64 kernels vs their plain versions
 # lands on the same lane at the same error), so 2e-3 would fail it.
 AUDIT_MAX = 3e-3
 OK_SHARE = 0.99  # narrow path: OPTIMAL + STALLED share of lanes
+# narrow path: ITERATION_LIMIT lanes (bucket overflow).  The JAX reference on
+# the CPU leaves 67 at this input; on the card the left-looking solve gives
+# 63 (the streaming design) and the column-oriented forward pass that the
+# lane-group solve had gave 20.  The band holds the solve to the reference's
+# loop order.
+NARROW_LIMIT_BAND = (40, 100)
+REF_NARROW_LIMIT = 67
 CONTRACT = 1e-6  # wide finish: audited relative objective error, per lane
 PROBE_OPTIMAL = 0.9  # probes: OPTIMAL share (tests_tpu/smoke.py's bound)
 MAIN_OPTIMAL = 0.99  # full main path: OPTIMAL share
@@ -154,14 +164,17 @@ NETLIB_B = (1, 300, 8192)
 TWOPASS_N = 4096  # per-instance lanes of the twopass ladder
 TWOPASS_CAP = 6  # its pass-1 cap: below the lanes' 7-15 iterations, so pass 2 runs
 CARD = torch.device("cuda", 0)
+# the lane-group solves' times before their forward pass became left-looking
+# (H100 80GB HBM3, 700 W; k = 1, m = 64; B = 16,384 f32, 1,024 f64)
+COLUMN_ORDER_SOLVE_MS = {"solve_bl": "0.198", "df_solve_bl": "0.039-0.072"}
 # the shapes the main path's phases hold each kernel at (phases 2 and 6)
 MAIN_SHAPES = {
     "chol_bl": ["m=64, n=128, B=256/300/16384 (lane-group and streaming)",
                 "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming)"],
     "solve_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)",
                  "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming), k=1/2/3"],
-    "fused_factor_bl": ["m=64, n=128, B=256/300/16384"],
-    "facsol_bl": ["m=64, B=256/300/16384, k=1/2"],
+    "fused_factor_bl": ["m=64, n=128, B=256/300/16384 (lane-group and streaming)"],
+    "facsol_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)"],
     "df_chol_bl": ["m=64, n=128, B=256/300 (lane-group and streaming)",
                    "m=100, B=300; m=200, B=40 (lane-group); m=241, B=40 (streaming)"],
     "df_solve_bl": ["m=64, B=256/300, k=1/2/3 (lane-group and streaming)",
@@ -226,10 +239,11 @@ def designs_in_turns(label: str, new, stream, plain, reps: int = 20) -> dict:
     return {"ms": (n1 + n2) / 2, "stream_ms": (s1 + s2) / 2, "plain_ms": (p1 + p2) / 2}
 
 
-def lane_sweep(label: str, launch, dtype, reps: int = 20) -> dict:
-    """The lane-group kernel at every built G (``launch(G)``), timed one
-    after another (the label names the planned G).  Returns {G: ms}."""
-    sizes = bl._LANE_GROUPS[dtype.itemsize]
+def lane_sweep(label: str, launch, dtype, reps: int = 20, sizes=None) -> dict:
+    """The lane-group kernel at every built G (``launch(G)``; ``sizes``, or
+    the factor's and solve's for ``dtype``), timed one after another (the
+    label names the planned G).  Returns {G: ms}."""
+    sizes = sizes or bl._LANE_GROUPS[dtype.itemsize]
     ms = {G: time_ms(lambda: launch(G), reps) for G in sizes}
     say("lane sweep", f"{label}: " + ", ".join(f"G={G} {t:.4f} ms" for G, t in ms.items()))
     return ms
@@ -320,6 +334,7 @@ def zero_counts() -> None:
     bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = 0
     bl.CHOL_SMEM_LAUNCHES = bl.SOLVE_SMEM_LAUNCHES = 0
     bl.FUSED_FACTOR_LAUNCHES = bl.FACSOL_LAUNCHES = 0
+    bl.FUSED_FACTOR_SMEM_LAUNCHES = bl.FACSOL_SMEM_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
@@ -331,6 +346,8 @@ def read_counts() -> dict:
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
             "slice_rounds_bl": df64.SLICE_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
             "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
+            "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
+            "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
             "df_chol_bl_smem": df64.DF_CHOL_SMEM_LAUNCHES,
             "df_solve_bl_smem": df64.DF_SOLVE_SMEM_LAUNCHES}
 
@@ -340,16 +357,18 @@ PROFILE_NAMES = {"chol_bl": "chol_bl_smem_kernel", "solve_bl": "solve_bl_smem_ke
                  "df_chol_bl": "chol_bl_smem_kernel<double>",
                  "df_solve_bl": "solve_bl_smem_kernel<double>",
                  "slice_rounds_bl": "slice_rounds_kernel",
-                 "fused_factor_bl": "fused_factor_bl_kernel", "facsol_bl": "facsol_bl_kernel"}
+                 "fused_factor_bl": "fused_factor_bl_smem_kernel",
+                 "facsol_bl": "facsol_bl_smem_kernel"}
 
 
 # the kernels with two designs: each launch counts in both counters when it
 # ran the lane-group design (csrc/batchlast_smem.cuh)
-TWO_DESIGNS = ("chol_bl", "solve_bl", "df_chol_bl", "df_solve_bl")
+TWO_DESIGNS = ("chol_bl", "solve_bl", "df_chol_bl", "df_solve_bl", "fused_factor_bl", "facsol_bl")
 
 
 def check_smem_route(label: str, counts: dict) -> None:
-    """Every factor and solve of a path at m <= 237 ran the lane-group design."""
+    """Every factor, solve and fused launch of a path at m <= 128 ran the
+    lane-group design."""
     for name in TWO_DESIGNS:
         check(counts[f"{name}_smem"] == counts[name],
               f"{label}: {name} launched {counts[name]} times, {counts[f'{name}_smem']} of them "
@@ -597,78 +616,117 @@ def phase_kernels(dev) -> dict:
                                                 **solve_bound(64, B, 1, torch.float32)}
     for name, r in out.items():
         r["lane_sweep_ms"] = {k: v for k, v in sweeps.items() if k.startswith(name)}
+        before = (f"; with the column-oriented forward pass: {COLUMN_ORDER_SOLVE_MS[name]} ms"
+                  if name in COLUMN_ORDER_SOLVE_MS else "")
         say("kernel bound", f"{name} at m=64, B=16384: {r['ms']:.4f} ms (streaming "
             f"{r['stream_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms ({r['bound_unit']}; "
             f"{r['bound_ms'] / r['ms']:.1%} of it), {r['library_call']} {r['library_ms']:.4f} ms "
-            f"(+ permute {r['library_permute_ms']:.4f} ms)")
+            f"(+ permute {r['library_permute_ms']:.4f} ms){before}")
     return out
 
 
+def _fused_bounds(m: int, n: int, B: int, k: int = 2) -> tuple[dict, dict]:
+    """The bounds of fused_factor_bl and facsol_bl (k right-hand sides)."""
+    size = 4
+    # fused_factor_bl: W's lower-triangle rows, dT and reg read; L's lower
+    # triangle and dinv written; the formation's FMAs and the factor's
+    fused = bound((_tri(m) * n + n * B + B + (_tri(m) + m) * B) * size,
+                  (2 * _tri(m) * n + chol_flops(m)) * B, torch.float32)
+    # facsol_bl: chol_bl's bytes plus R read and V written
+    facsol = bound((2 * _tri(m) + m + 1 + 2 * k * m) * B * size,
+                   (chol_flops(m) + solve_flops(m, k)) * B, torch.float32)
+    return fused, facsol
+
+
+def w_bytes_per_lane(m: int, n: int, lanes: int) -> float:
+    """Bytes of W a fused_factor_bl block reads from L2, per lane: every
+    block reads W's lower-triangle rows once for its lanes (32 on the
+    streaming design, G on the lane-group design)."""
+    return _tri(m) * n * 4 / lanes
+
+
 def phase_fused_kernels(dev) -> dict:
-    """fused_factor_bl / facsol_bl (f32) against their plain versions and
-    against the split path they replace (matmul + chol_bl; chol_bl +
-    solve_bl); returns {name: (max_abs_err, ms, plain_ms)}."""
+    """fused_factor_bl / facsol_bl (f32) on both designs against their
+    plain versions and against the split path they replace (matmul +
+    chol_bl; chol_bl + solve_bl), k = 1/2/3 for facsol (k = 3 runs the
+    lane-group kernel's right-hand sides in two turns); then times at the
+    narrow stage's widths: both designs and the plain version in turns,
+    the split path, the lane-group sizes.  Returns {name: {err, ms,
+    stream_ms, plain_ms, split_ms, bound, ...}}."""
     errs = {"fused_factor_bl": 0.0, "facsol_bl": 0.0}
     for B in (256, 300, 16384):
         A, d, R = _inputs(B, seed=B, dev=dev)
+        R = torch.cat([R, 2 * R[:1]])  # a third right-hand side
         W = bl.BATCHLAST_KERNELS.prepare(A).W
         dT = d.T.contiguous()
         M_bl, reg = _formed(A, d, 1e-6)
-        L_k, dinv_k = bl._fused_factor_bl_cuda(W, dT, reg)
         L_p, dinv_p = bl._fused_factor_bl_plain(W, dT, reg)
         L_s, dinv_s = bl._chol_bl_cuda(M_bl, reg)
-        torch.cuda.synchronize()
-        e_plain = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
-        e_split = max(rel_err(_lower(L_k), _lower(L_s)), rel_err(dinv_k, dinv_s))
-        check(e_plain < KERNEL_RTOL, f"fused_factor_bl vs plain at B={B}: rel {e_plain:.2e}")
-        check(e_split < KERNEL_RTOL, f"fused_factor_bl vs chol_bl at B={B}: rel {e_split:.2e}")
-        check(bool((torch.triu(L_k.permute(2, 0, 1), 1) == 0).all()),
-              f"fused_factor_bl at B={B}: the upper triangle is not zero")
-        errs["fused_factor_bl"] = max(errs["fused_factor_bl"], abs_err(_lower(L_k), _lower(L_p)),
-                                      abs_err(dinv_k, dinv_p))
-        line = [f"B={B}: fused_factor rel {e_plain:.1e} (vs chol_bl {e_split:.1e})"]
-        for k in (1, 2):
-            Rk = R[:k].contiguous()
-            Lc, dinv_c, Vc = bl._facsol_bl_cuda(M_bl.clone(), reg, Rk)
-            Lp, dinv_cp, Vp = bl._facsol_bl_plain(M_bl.clone(), reg, Rk)
-            V_s = bl._solve_bl_cuda(L_s, dinv_s, Rk)
+        line = [f"B={B}"]
+        for design in (None, "stream"):
+            name = design or "lane-group"
+            L_k, dinv_k = bl._fused_factor_bl_cuda(W, dT, reg, design=design)
             torch.cuda.synchronize()
-            e_plain = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp),
-                          rel_err(Vc, Vp))
-            e_split = max(rel_err(_lower(Lc), _lower(L_s)), rel_err(dinv_c, dinv_s),
-                          rel_err(Vc, V_s))
-            check(e_plain < KERNEL_RTOL, f"facsol_bl k={k} vs plain at B={B}: rel {e_plain:.2e}")
-            check(e_split < KERNEL_RTOL,
-                  f"facsol_bl k={k} vs chol_bl + solve_bl at B={B}: rel {e_split:.2e}")
-            errs["facsol_bl"] = max(errs["facsol_bl"], abs_err(_lower(Lc), _lower(Lp)),
-                                    abs_err(dinv_c, dinv_cp), abs_err(Vc, Vp))
-            line.append(f"facsol k={k} rel {e_plain:.1e} (vs chol_bl + solve_bl {e_split:.1e})")
+            e_plain = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+            e_split = max(rel_err(_lower(L_k), _lower(L_s)), rel_err(dinv_k, dinv_s))
+            check(e_plain < KERNEL_RTOL, f"fused_factor_bl ({name}) vs plain at B={B}: "
+                  f"rel {e_plain:.2e}")
+            check(e_split < KERNEL_RTOL, f"fused_factor_bl ({name}) vs chol_bl at B={B}: "
+                  f"rel {e_split:.2e}")
+            if design == "stream":  # the streaming kernel writes its upper triangle as zeros
+                check(bool((torch.triu(L_k.permute(2, 0, 1), 1) == 0).all()),
+                      f"streaming fused_factor_bl at B={B}: the upper triangle is not zero")
+            same = bool(torch.equal(_lower(L_k), _lower(L_s)) and torch.equal(dinv_k, dinv_s))
+            errs["fused_factor_bl"] = max(errs["fused_factor_bl"],
+                                          abs_err(_lower(L_k), _lower(L_p)),
+                                          abs_err(dinv_k, dinv_p))
+            line.append(f"{name}: fused_factor rel {e_plain:.1e} (vs chol_bl {e_split:.1e}, "
+                        f"bitwise equal {same})")
+            e_line = []
+            for k in (1, 2, 3):
+                Rk = R[:k].contiguous()
+                Lc, dinv_c, Vc = bl._facsol_bl_cuda(M_bl.clone(), reg, Rk, design=design)
+                Lp, dinv_cp, Vp = bl._facsol_bl_plain(M_bl.clone(), reg, Rk)
+                V_s = bl._solve_bl_cuda(L_s, dinv_s, Rk)
+                torch.cuda.synchronize()
+                e_plain = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp),
+                              rel_err(Vc, Vp))
+                e_split = max(rel_err(_lower(Lc), _lower(L_s)), rel_err(dinv_c, dinv_s),
+                              rel_err(Vc, V_s))
+                check(e_plain < KERNEL_RTOL,
+                      f"facsol_bl k={k} ({name}) vs plain at B={B}: rel {e_plain:.2e}")
+                check(e_split < KERNEL_RTOL,
+                      f"facsol_bl k={k} ({name}) vs chol_bl + solve_bl at B={B}: rel {e_split:.2e}")
+                errs["facsol_bl"] = max(errs["facsol_bl"], abs_err(_lower(Lc), _lower(Lp)),
+                                        abs_err(dinv_c, dinv_cp), abs_err(Vc, Vp))
+                e_line.append(f"{e_plain:.1e} ({e_split:.1e})")
+            line.append(f"{name}: facsol k=1/2/3 rel {'/'.join(e_line)} (vs chol_bl + solve_bl)")
         say("kernel parity", "; ".join(line))
 
     # times at the narrow stage's chunk (16,384) and the resume bucket
     # (5,120), m = 64, n = 128, in turns.  facsol_bl factors in place, so
     # each timed call (and each of the paths beside it) starts with a copy
     # of M into a work buffer.
-    times = {}
+    out = {}
     for B in (16384, 5120):
         A, d, R = _inputs(B, seed=1, dev=dev)
         W = bl.BATCHLAST_KERNELS.prepare(A).W
         dT = d.T.contiguous()
         M_bl, reg = _formed(A, d, 1e-6)
-        m = A.shape[0]
+        m, n = A.shape
         R2 = R.contiguous()
         Mw = torch.empty_like(M_bl)
-        t = in_turns(f"fused_factor_bl at m=64, n=128, B={B}",
-                     lambda: bl._fused_factor_bl_cuda(W, dT, reg),
-                     lambda: bl._fused_factor_bl_plain(W, dT, reg))
-        in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at B={B}",
-                 lambda: bl._fused_factor_bl_cuda(W, dT, reg),
-                 lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
-        times.setdefault("fused_factor_bl", t)
+        t_f = designs_in_turns(f"fused_factor_bl at m=64, n=128, B={B}",
+                               lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                               lambda: bl._fused_factor_bl_cuda(W, dT, reg, design="stream"),
+                               lambda: bl._fused_factor_bl_plain(W, dT, reg))
+        _, split_f = in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at B={B}",
+                              lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                              lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
 
-        def facsol():
+        def facsol(design=None, lanes=None):
             Mw.copy_(M_bl)
-            return bl._facsol_bl_cuda(Mw, reg, R2)
+            return bl._facsol_bl_cuda(Mw, reg, R2, design=design, lanes=lanes)
 
         def facsol_plain():
             Mw.copy_(M_bl)
@@ -679,29 +737,50 @@ def phase_fused_kernels(dev) -> dict:
             L, dinv = bl._chol_bl_cuda(Mw, reg)
             return bl._solve_bl_cuda(L, dinv, R2)
 
-        t = in_turns(f"facsol_bl k=2 (with the copy of M) at m=64, B={B}", facsol, facsol_plain)
-        in_turns(f"facsol_bl k=2 vs the split path (chol_bl + solve_bl k=2) at B={B}", facsol, split)
+        t_c = designs_in_turns(f"facsol_bl k=2 (with the copy of M) at m=64, B={B}", facsol,
+                               lambda: facsol("stream"), facsol_plain)
+        _, split_c = in_turns(f"facsol_bl k=2 vs the split path (chol_bl + solve_bl k=2) at "
+                              f"B={B}", facsol, split)
         copy_ms = time_ms(lambda: Mw.copy_(M_bl), 10)
         chol_ms = time_ms(lambda: bl._chol_bl_cuda(M_bl, reg), 10)
         gemm_ms = time_ms(lambda: W @ dT, 10)
         say("kernel time", f"at B={B}, alone: the copy of M {copy_ms:.4f} ms, chol_bl "
             f"{chol_ms:.4f} ms, the GEMM forming M {gemm_ms:.4f} ms")
-        times.setdefault("facsol_bl", t)
-    m, n, B = 64, 128, 16384
-    size = 4
-    # fused_factor_bl: W's lower-triangle rows, dT and reg read; L's lower
-    # triangle and dinv written; the formation's FMAs and the factor's
-    fused = bound((_tri(m) * n + n * B + B + (_tri(m) + m) * B) * size,
-                  (2 * _tri(m) * n + chol_flops(m)) * B, torch.float32)
-    # facsol_bl (k = 2): chol_bl's bytes plus R read and V written
-    facsol = bound((2 * _tri(m) + m + 1 + 2 * 2 * m) * B * size,
-                   (chol_flops(m) + solve_flops(m, 2)) * B, torch.float32)
-    no_call = "no single PyTorch call computes it; the split path is its yardstick"
-    return {"fused_factor_bl": {"err": errs["fused_factor_bl"], "ms": times["fused_factor_bl"][0],
-                                "plain_ms": times["fused_factor_bl"][1], **fused,
-                                **no_library(no_call)},
-            "facsol_bl": {"err": errs["facsol_bl"], "ms": times["facsol_bl"][0],
-                          "plain_ms": times["facsol_bl"][1], **facsol, **no_library(no_call)}}
+        plan_f = bl.lane_plan("fused", m, B, torch.float32, n=n)
+        sweep_f = lane_sweep(f"fused_factor_bl at m=64, n=128, B={B} (planned G={plan_f.lanes})",
+                             lambda G: bl._fused_factor_bl_cuda(W, dT, reg, design="smem",
+                                                                lanes=G),
+                             torch.float32, sizes=bl._FUSED_LANE_GROUPS)
+        sweep_c = lane_sweep(f"facsol_bl k=2 (with the copy of M) at m=64, B={B} (planned G="
+                             f"{bl.lane_plan('facsol', m, B, torch.float32, k=2).lanes})",
+                             lambda G: facsol("smem", G), torch.float32)
+        w_bytes = {G: w_bytes_per_lane(m, n, G) for G in bl._FUSED_LANE_GROUPS}
+        say("kernel time", f"fused_factor_bl W read from L2 per lane at B={B}: lane-group G="
+            f"{plan_f.lanes} {w_bytes[plan_f.lanes]:.0f} B (all G: " + ", ".join(
+                f"{G} {v:.0f}" for G, v in w_bytes.items()) + f"), streaming "
+            f"{w_bytes_per_lane(m, n, 32):.0f} B; in all {w_bytes[plan_f.lanes] * B / 1e9:.3f} GB")
+        fused, facsol_b = _fused_bounds(m, n, B)
+        no_call = "no single PyTorch call computes it; the split path is its yardstick"
+        entries = {
+            "fused_factor_bl": {**t_f, "split_ms": split_f, **fused, "lanes": plan_f.lanes,
+                                "w_l2_bytes_per_lane": w_bytes[plan_f.lanes],
+                                "stream_w_l2_bytes_per_lane": w_bytes_per_lane(m, n, 32),
+                                "lane_sweep_ms": sweep_f, **no_library(no_call)},
+            "facsol_bl": {**t_c, "split_ms": split_c, "copy_ms": copy_ms, **facsol_b,
+                          "lane_sweep_ms": sweep_c, **no_library(no_call)}}
+        for name, r in entries.items():
+            if B == 16384:
+                out[name] = {"err": errs[name], **r}
+            else:
+                out[name]["resume_bucket"] = {"B": B, **r}
+    for name, r in out.items():
+        say("kernel bound", f"{name} at m=64, B=16384: {r['ms']:.4f} ms (streaming "
+            f"{r['stream_ms']:.4f} ms, split path {r['split_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_unit']}; {r['bound_ms'] / r['ms']:.1%} of it); "
+            f"at B=5120 {r['resume_bucket']['ms']:.4f} ms (streaming "
+            f"{r['resume_bucket']['stream_ms']:.4f}, split {r['resume_bucket']['split_ms']:.4f}, "
+            f"bound {r['resume_bucket']['bound_ms']:.4f})")
+    return out
 
 
 def _wide_inputs(B: int, seed: int, dev, spread: float = 0.0):
@@ -854,7 +933,9 @@ def phase_wide_kernels(dev) -> dict:
             f"{r['bound_ms'] / r['ms']:.1%} of it), {r['library_call']} {r['library_ms']:.4f} ms "
             f"(+ permute {r['library_permute_ms']:.4f} ms); at B=256 {r['tier2']['ms']:.4f} ms "
             f"(streaming {r['tier2']['stream_ms']:.4f}, {r['library_call']} "
-            f"{r['tier2']['library_ms']:.4f} ms)")
+            f"{r['tier2']['library_ms']:.4f} ms)" + (
+                f"; with the column-oriented forward pass: {COLUMN_ORDER_SOLVE_MS[name]} ms"
+                if name in COLUMN_ORDER_SOLVE_MS else ""))
 
     s, n_slices, _ = df64.ozaki_mv_params(128)
     times = {}
@@ -936,6 +1017,12 @@ def phase_narrow_path(smi: str) -> dict:
         f"iterations min/mean/max {it.min()}/{it.mean():.2f}/{it.max()}, p50/p90/p99 "
         f"{'/'.join(str(int(v)) for v in np.percentile(it, [50, 90, 99]))}")
     check(ok.mean() >= OK_SHARE, f"OPTIMAL+STALLED share {ok.mean():.4f} < {OK_SHARE}")
+    n_limit = int((status == int(Status.ITERATION_LIMIT)).sum())
+    lo, hi = NARROW_LIMIT_BAND
+    say("narrow path", f"ITERATION_LIMIT {n_limit} (band {lo}-{hi} around the JAX reference's "
+        f"{REF_NARROW_LIMIT})")
+    check(lo <= n_limit <= hi, f"narrow ITERATION_LIMIT {n_limit} outside [{lo}, {hi}] (the JAX "
+          f"reference: {REF_NARROW_LIMIT})")
 
     stragglers = np.flatnonzero(status != int(Status.OPTIMAL))[:64]
     lanes = sorted(set(np.linspace(0, N_LP - 1, 64, dtype=int).tolist()) | set(stragglers.tolist()))
@@ -956,7 +1043,60 @@ def phase_narrow_path(smi: str) -> dict:
     say("narrow path", f"second solve {wall:.3f}s = {N_LP / wall:.1f} LP/s "
         f"({N_LP} LPs of {M}x{N}, narrow f32; status agreement with the first solve "
         f"{same:.4%}) on {smi}")
-    return counts
+    return counts, status
+
+
+def phase_narrow_mix(smi: str, default_status) -> dict:
+    """The narrow cell's status mix beside the default run's: (1) with the
+    factor on the lane-group design and every f32 solve forced to the
+    streaming design (left-looking forward pass, one thread a lane and
+    right-hand side), which shows whether the solve's loop order moves the
+    cell's ITERATION_LIMIT count; the design is forced by wrapping the
+    private wrapper for this run only; (2) on the fused-form set and (3)
+    on the fuse_facsol set, whose fused kernels must all run the lane-group
+    design."""
+    lp = random_standard_lp(M, N, nlp=N_LP, seed=3, dtype=np.float32)
+    solver = get_solver("hsd_pallas", device="cuda", **SOLVER_KW)
+    solver.init(lp)
+    solve_cuda = bl._solve_bl_cuda
+
+    def streaming_solve(L, dinv, R, design=None, lanes=None):
+        return solve_cuda(L, dinv, R, design="stream")
+
+    limit = int(Status.ITERATION_LIMIT)
+    mixes = {"default": status_mix(default_status),
+             "default_iteration_limit": int((default_status == limit).sum())}
+    for label, kset in (("streaming_solve", bl.BATCHLAST_KERNELS),
+                        ("fused_form", bl.BATCHLAST_FUSED_KERNELS),
+                        ("facsol", bl.BatchLastKernels(fuse_facsol=True))):
+        solver.kernels = kset
+        if label == "streaming_solve":
+            bl._solve_bl_cuda = streaming_solve
+        try:
+            zero_counts()
+            status = np.asarray(solver.solve().status)
+            counts = read_counts()
+        finally:
+            bl._solve_bl_cuda = solve_cuda
+        if label == "streaming_solve":
+            check(counts["solve_bl"] > 0 and counts["solve_bl_smem"] == 0,
+                  f"streaming-solve run: solve_bl {counts['solve_bl']}, {counts['solve_bl_smem']} "
+                  "of them on the lane-group design")
+            check(counts["chol_bl_smem"] == counts["chol_bl"] > 0,
+                  "streaming-solve run: the factor left the lane-group design")
+        else:
+            check_smem_route(f"narrow cell on {kset.name}", counts)
+        mixes[label] = status_mix(status)
+        mixes[f"{label}_iteration_limit"] = int((status == limit).sum())
+        mixes[f"{label}_agreement"] = float((status == default_status).mean())
+        say("narrow mix", f"{label} ({kset.name}): {mixes[label]}, ITERATION_LIMIT "
+            f"{mixes[label + '_iteration_limit']}; status agreement with the default run "
+            f"{mixes[label + '_agreement']:.4%}; launches {counts}")
+    say("narrow mix", f"default: {mixes['default']}, ITERATION_LIMIT "
+        f"{mixes['default_iteration_limit']}; the solve forced to the streaming (left-looking) "
+        f"design: ITERATION_LIMIT {mixes['streaming_solve_iteration_limit']}; JAX reference on "
+        f"the CPU: {REF_NARROW_LIMIT}; on {smi}")
+    return mixes
 
 
 def _probe(name: str, seed: int, opts: SolverOptions) -> dict:
@@ -1089,7 +1229,8 @@ def phase_main_path(smi: str) -> dict:
 def _kernel_group(name: str) -> str:
     """A short name for a device kernel: this repository's kernels by their
     function name, the library's by what they do."""
-    for ours in ("chol_bl_smem_kernel", "solve_bl_smem_kernel", "chol_bl_kernel",
+    for ours in ("fused_factor_bl_smem_kernel", "facsol_bl_smem_kernel", "chol_bl_smem_kernel",
+                 "solve_bl_smem_kernel", "chol_bl_kernel",
                  "solve_bl_kernel", "slice_rounds_kernel", "fused_factor_bl_kernel",
                  "facsol_bl_kernel"):
         if ours in name:
@@ -1109,13 +1250,21 @@ def phase_profile(smi: str) -> dict:
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     finish_core = hsd_mod._hsd_scan_finish_core
+    slice_cuda = df64._slice_rounds_bl_cuda
+    slice_shapes = []  # (r, B, n_slices) of each slicing launch, in launch order
 
     def marked(*args, **kwargs):
         with torch.profiler.record_function("finish stage"):
             return finish_core(*args, **kwargs)
 
+    def slice_logged(Rh, Rl, s, n_slices):
+        if Rh.numel():
+            slice_shapes.append((Rh.shape[0], Rh.shape[1], n_slices))
+        return slice_cuda(Rh, Rl, s, n_slices)
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     hsd_mod._hsd_scan_finish_core = marked
+    df64._slice_rounds_bl_cuda = slice_logged
     try:
         torch.cuda.synchronize()
         with contextlib.redirect_stderr(io.StringIO()), \
@@ -1125,6 +1274,7 @@ def phase_profile(smi: str) -> dict:
             out["status"].cpu()
     finally:
         hsd_mod._hsd_scan_finish_core = finish_core
+        df64._slice_rounds_bl_cuda = slice_cuda
     events = prof.events()
     finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1160,6 +1310,39 @@ def phase_profile(smi: str) -> dict:
             f"{1 - busy / span:.1%}), {len(ks)} kernels; " + ", ".join(
                 f"{k} {v[0]:.1f} ms/{v[1]}" for k, v in top[:9]) + f"; 'other' is e.g. {others}"
             f" on {smi}")
+    # device time per launch of the FP64 solve and of the slicing, the
+    # slicing by width (its launches are matched to the recorded shapes in
+    # launch order: one stream)
+    per_launch = {}
+    for group in ("solve_bl_smem_kernel<double>", "chol_bl_smem_kernel<double>",
+                  "solve_bl_smem_kernel", "chol_bl_smem_kernel"):
+        ks = [e for e in kernels if _kernel_group(e.name) == group]
+        if ks:
+            per_launch[group] = sum(e.time_range.elapsed_us() for e in ks) / len(ks)
+    say("profile", "device time per launch: " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in per_launch.items()))
+    slices = sorted((e for e in kernels if _kernel_group(e.name) == "slice_rounds_kernel"),
+                    key=lambda e: e.time_range.start)
+    if len(slices) != len(slice_shapes):  # a measurement, not a check: say so and go on
+        say("profile", f"{len(slices)} slicing kernels in the trace but {len(slice_shapes)} "
+            "launches recorded: no breakdown by shape")
+        slice_shapes = []
+    by_shape = {}
+    for e, shape in zip(slices, slice_shapes):
+        by_shape.setdefault(shape, []).append(e.time_range.elapsed_us())
+    slice_rows = []
+    for (r, B, n_slices), us in sorted(by_shape.items(), key=lambda kv: -len(kv[1])):
+        # the (hi, lo) pair read, n_slices f32 bands written; 12 f32 operations a slice
+        bd = bound((8 + 4 * n_slices) * r * B, 12 * n_slices * r * B, torch.float32)
+        mean_us = sum(us) / len(us)
+        slice_rows.append({"r": r, "B": B, "n_slices": n_slices, "launches": len(us),
+                           "mean_us": mean_us, "bound_us": bd["bound_ms"] * 1e3,
+                           "share": bd["bound_ms"] * 1e3 / mean_us})
+    say("profile", "slice_rounds_bl by shape (r, B, n_slices): " + "; ".join(
+        f"({x['r']}, {x['B']}, {x['n_slices']}) {x['launches']} launches, {x['mean_us']:.1f} us "
+        f"each, bound {x['bound_us']:.2f} us ({x['share']:.1%})" for x in slice_rows))
+    stages["per_launch_us"] = per_launch
+    stages["slice_rounds_by_shape"] = slice_rows
     return stages
 
 
@@ -1181,7 +1364,8 @@ def phase_fused_paths(smi: str, ref_status) -> tuple[dict, dict]:
     check(nar["solve_bl"] == 5 * steps + n_chunks,
           f"narrow solve_bl launches {nar['solve_bl']} != 5 x {steps} + {n_chunks}")
     say("fused-form path", f"narrow stage: fused_factor_bl {nar['fused_factor_bl']} = {steps} host "
-        f"iterations + {n_chunks} Mehrotra starts; finish: chol_bl {tot['chol_bl']}, solve_bl "
+        f"iterations + {n_chunks} Mehrotra starts, all {tot['fused_factor_bl_smem']} on the "
+        f"lane-group design; finish: chol_bl {tot['chol_bl']}, solve_bl "
         f"{tot['solve_bl'] - nar['solve_bl']}, {tot['host_steps'] - steps} host iterations")
 
     facsol = _scan_path(smi, bl.BatchLastKernels(fuse_facsol=True), "facsol path", ("second",),
@@ -1197,7 +1381,8 @@ def phase_fused_paths(smi: str, ref_status) -> tuple[dict, dict]:
     check(nar["solve_bl"] == 4 * steps,
           f"narrow solve_bl launches {nar['solve_bl']} != 4 x {steps}")
     say("facsol path", f"narrow stage: facsol_bl {nar['facsol_bl']} = {steps} host iterations + "
-        f"{n_chunks} Mehrotra starts, solve_bl {nar['solve_bl']} = 4 x {steps}; finish: chol_bl "
+        f"{n_chunks} Mehrotra starts, all {tot['facsol_bl_smem']} on the lane-group design, "
+        f"solve_bl {nar['solve_bl']} = 4 x {steps}; finish: chol_bl "
         f"{tot['chol_bl']}, solve_bl {tot['solve_bl'] - nar['solve_bl']}")
     return form, facsol
 
@@ -1346,6 +1531,7 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
     slicing at m = 27/56, B = 300; times at m = 56, B = 8,192.  Returns
     {name: {"err": max abs err, "held_at": [...], "ms": t, "plain_ms": t}}."""
     res = {k: {"err": 0.0, "held_at": []} for k in SOURCES}
+    zero_counts()
 
     def hold(name, err_abs, rel, bound, shape):
         check(rel < bound, f"{name} vs plain at {shape}: rel {rel:.2e} (bound {bound})")
@@ -1373,7 +1559,10 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
                  max(abs_err(_lower(Lf_k), _lower(Lf_p)), abs_err(dinvf_k, dinvf_p)),
                  max(rel_err(_lower(Lf_k), _lower(Lf_p)), rel_err(dinvf_k, dinvf_p)),
                  KERNEL_RTOL, shape)
-            rels = []
+            e_fsplit = max(rel_err(_lower(Lf_k), _lower(L_k)), rel_err(dinvf_k, dinv_k))
+            check(e_fsplit < KERNEL_RTOL,
+                  f"fused_factor_bl vs chol_bl at {shape}: rel {e_fsplit:.2e}")
+            rels = [f"fused_factor vs chol_bl {e_fsplit:.1e}"]
             for k in (1, 2):
                 Rk = R[:k].contiguous()
                 V_k = bl._solve_bl_cuda(L_k, dinv_k, Rk)
@@ -1385,7 +1574,12 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
                 e_fs = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp), rel_err(Vc, Vp))
                 hold("facsol_bl", max(abs_err(_lower(Lc), _lower(Lp)), abs_err(dinv_c, dinv_cp),
                                       abs_err(Vc, Vp)), e_fs, KERNEL_RTOL, f"{shape}, k=1/2")
-                rels.append(f"solve k={k} {rel_err(V_k, V_p):.1e}, facsol k={k} {e_fs:.1e}")
+                e_csplit = max(rel_err(_lower(Lc), _lower(L_k)), rel_err(dinv_c, dinv_k),
+                               rel_err(Vc, V_k))
+                check(e_csplit < KERNEL_RTOL,
+                      f"facsol_bl k={k} vs chol_bl + solve_bl at {shape}: rel {e_csplit:.2e}")
+                rels.append(f"solve k={k} {rel_err(V_k, V_p):.1e}, facsol k={k} {e_fs:.1e} (vs "
+                            f"chol_bl + solve_bl {e_csplit:.1e})")
             say("netlib kernels", f"{fx} {shape}: chol rel "
                 f"{max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p)):.1e}, "
                 f"fused_factor rel {rel_err(_lower(Lf_k), _lower(Lf_p)):.1e}, " + ", ".join(rels))
@@ -1452,13 +1646,26 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
     R1, R2 = R[:1].contiguous(), R.contiguous()
     Mw = torch.empty_like(M_bl)
 
-    def facsol():
+    counts = read_counts()
+    for name in ("fused_factor_bl", "facsol_bl"):
+        check(counts[f"{name}_smem"] == counts[name] > 0,
+              f"netlib kernels: {name} launched {counts[name]} times, {counts[name + '_smem']} of "
+              "them on the lane-group design")
+    say("netlib kernels", f"every fused_factor_bl ({counts['fused_factor_bl']}) and facsol_bl "
+        f"({counts['facsol_bl']}) launch at m = 27/50/56 ran the lane-group design")
+
+    def facsol(design=None):
         Mw.copy_(M_bl)
-        return bl._facsol_bl_cuda(Mw, reg, R2)
+        return bl._facsol_bl_cuda(Mw, reg, R2, design=design)
 
     def facsol_plain():
         Mw.copy_(M_bl)
         return bl._facsol_bl_plain(Mw, reg, R2)
+
+    def split():
+        Mw.copy_(M_bl)
+        Ls, dinv_s = bl._chol_bl_cuda(Mw, reg)
+        return bl._solve_bl_cuda(Ls, dinv_s, R2)
 
     at = f"m={m}, n={n}, B={B}"
     two = {
@@ -1469,22 +1676,26 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
                                      lambda: bl._solve_bl_cuda(L, dinv, R1),
                                      lambda: bl._solve_bl_cuda(L, dinv, R1, design="stream"),
                                      lambda: bl._solve_bl_plain(L, dinv, R1)),
+        "fused_factor_bl": designs_in_turns(
+            f"fused_factor_bl at {at}", lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+            lambda: bl._fused_factor_bl_cuda(W, dT, reg, design="stream"),
+            lambda: bl._fused_factor_bl_plain(W, dT, reg)),
+        "facsol_bl": designs_in_turns(f"facsol_bl k=2 (with the copy of M) at {at}", facsol,
+                                      lambda: facsol("stream"), facsol_plain),
     }
-    times = {
-        "fused_factor_bl": in_turns(f"fused_factor_bl at {at}",
-                                    lambda: bl._fused_factor_bl_cuda(W, dT, reg),
-                                    lambda: bl._fused_factor_bl_plain(W, dT, reg)),
-        "facsol_bl": in_turns(f"facsol_bl k=2 (with the copy of M) at {at}", facsol, facsol_plain),
-    }
-    in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at {at}",
-             lambda: bl._fused_factor_bl_cuda(W, dT, reg),
-             lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
+    _, two["fused_factor_bl"]["split_ms"] = in_turns(
+        f"fused_factor_bl vs the split path (matmul + chol_bl) at {at}",
+        lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+        lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
+    _, two["facsol_bl"]["split_ms"] = in_turns(
+        f"facsol_bl k=2 vs the split path (chol_bl + solve_bl k=2) at {at}", facsol, split)
+    fused, facsol_b = _fused_bounds(m, n, B)
+    bounds = {"chol_bl": chol_bound(m, B, torch.float32),
+              "solve_bl": solve_bound(m, B, 1, torch.float32),
+              "fused_factor_bl": fused, "facsol_bl": facsol_b}
     for name, t in two.items():
         res[name].update(t)
-        res[name]["bound_ms"] = (chol_bound(m, B, torch.float32) if name == "chol_bl"
-                                 else solve_bound(m, B, 1, torch.float32))["bound_ms"]
-    for name, (ms, plain_ms) in times.items():
-        res[name]["ms"], res[name]["plain_ms"] = ms, plain_ms
+        res[name]["bound_ms"] = bounds[name]["bound_ms"]
     say("netlib kernels", f"the times above at {at} on {smi}")
     return res
 
@@ -1764,7 +1975,8 @@ def main() -> None:
     measured = phase_kernels(dev)
     measured.update(phase_wide_kernels(dev))
     measured.update(phase_fused_kernels(dev))
-    narrow = phase_narrow_path(smi)
+    narrow, narrow_status = phase_narrow_path(smi)
+    phase_narrow_mix(smi, narrow_status)
     probe = phase_probes()
     main_run = phase_main_path(smi)
     profile = phase_profile(smi)
@@ -1812,6 +2024,9 @@ def main() -> None:
                 "netlib_bound_ms": held[name].get("bound_ms"),
                 "lane_sweep_ms": r["lane_sweep_ms"],
                 "other_width": r.get("resume_bucket") or r.get("tier2")})
+        if name in ("fused_factor_bl", "facsol_bl"):
+            report[-1].update({"split_ms": r["split_ms"], "netlib_split_ms": held[name]["split_ms"],
+                               "w_l2_bytes_per_lane": r.get("w_l2_bytes_per_lane")})
         # device time of the kernel in the profiled main-path solve, by stage
         group = PROFILE_NAMES.get(name)
         report[-1].update({f"{stage}_device_ms": profile[stage]["by_kernel_ms"].get(group, 0.0)

@@ -6,20 +6,24 @@
 //   fused_factor_bl <- _fused_factor_bl (_fused_factor_kernel -> _chol_body)
 //   facsol_bl       <- _facsol_bl       (_facsol_kernel)
 //
-// chol_bl and solve_bl are the float instantiations of two designs:
+// Each is the float instantiation of two designs:
 // * the lane-group kernels of batchlast_smem.cuh (chol_bl_smem,
-//   solve_bl_smem), which keep each lane's triangle in shared memory: the
-//   default at every m whose one-lane triangle fits (m <= 340 in float);
-//   the source note there says what bounds them and what the design does
-//   about it;
+//   solve_bl_smem, facsol_bl_smem, fused_factor_bl_smem), which keep each
+//   lane's triangle in shared memory and factor it with one routine
+//   (lane_factor): the default at every m whose one-lane triangle fits
+//   (m <= 340 in float; m <= 128 for the fused pair); the source note there
+//   says what bounds them and what the design does about it;
 // * the streaming kernels of batchlast.cuh (chol_bl_kernel,
-//   solve_bl_kernel), which hold the triangle in device memory, for the
+//   solve_bl_kernel) and of this file (fused_factor_bl_kernel,
+//   facsol_bl_kernel), which hold the triangle in device memory, for the
 //   larger m.  The streaming factor does ~m^3/6 read-modify-writes per
 //   lane in device memory (~5.7 GB per factor at m = 64, B = 16,384) with
 //   its rows split over 8 warps; the streaming solve runs one thread per
-//   (lane, right-hand side) and reads L twice.
-// The host chooses between them by (m, dtype) alone (ops/batchlast.py).
-// The two fused kernels run the streaming pivot loop (chol_pivots).
+//   (lane, right-hand side) and reads L twice.  The two streaming fused
+//   kernels below run that factor's pivot loop (chol_pivots).
+// The host chooses between them by shape alone (ops/batchlast.py).
+//
+// The streaming fused kernels, for m > 128 (and stream_ms):
 //
 // fused_factor_bl(W, dT, reg) -> (L, dinv).  W is (m*m, n) with
 // W[i*m + j, q] = A[i, q] * A[j, q], dT is (n, B).  The kernel forms
@@ -39,8 +43,7 @@
 // bounds the formation: m(m+1)/2 * n FMAs per lane, ~266K at m = 64,
 // n = 128, ~4.4 G FMAs for a 16,384-lane chunk, against the split
 // path's 268 MB write and re-read of M; the pivot loop that follows is
-// the streaming factor's (chol_pivots).  wgmma/TMA for the formation is
-// later work.
+// the streaming factor's (chol_pivots).
 //
 // facsol_bl(M, reg, R) -> (L, dinv, V).  The factor and the k-RHS solve
 // in one launch.  M is factored IN PLACE (L is M's storage; the
@@ -258,6 +261,17 @@ int pycllp_fused_factor_bl_f32(const void* W, const void* dT, const void* reg, v
       static_cast<const float*>(reg), static_cast<float*>(L), static_cast<float*>(dinv),
       m, n, B, n_tile);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Wp: W's lower-triangle rows, packed and transposed, (n, m(m+1)/2)
+int pycllp_fused_factor_bl_smem_f32(const void* Wp, const void* dT, const void* reg, void* L,
+                                    void* dinv, int m, int n, int B, int G, void* stream) {
+  return launch_fused_factor_bl_smem<float>(Wp, dT, reg, L, dinv, m, n, B, G, stream);
+}
+
+int pycllp_facsol_bl_smem_f32(void* L, const void* reg, const void* R, void* dinv, void* V,
+                              int m, int B, int k_rhs, int G, void* stream) {
+  return launch_facsol_bl_smem<float>(L, reg, R, dinv, V, m, B, k_rhs, G, stream);
 }
 
 int pycllp_facsol_bl_f32(void* L, const void* reg, const void* R, void* dinv, void* V,

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "pycllp_solve_bl_smem_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "pycllp_chol_bl_smem_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP),
     "pycllp_solve_bl_smem_f64": (_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "pycllp_fused_factor_bl_smem_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    "pycllp_facsol_bl_smem_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
 }
 

@@ -15,13 +15,16 @@ LAST axis, as in the reference:
   are the route at every m whose one-lane triangle fits (m ≤ 340 in f32,
   240 in f64).  The streaming kernels (``csrc/batchlast.cuh``), which keep
   the triangle in device memory, take the larger m.  :func:`lane_plan`
-  makes the choice, by (m, dtype) alone, and picks G from (m, dtype, B,
-  SM count) so that every width puts a block on every SM.
-* The reference's fused variants are hand-written CUDA kernels in the
-  same file: :func:`fused_factor_bl` forms M = W @ dᵀ inside the factor
-  kernel, so M never goes through device memory (``fuse_form=True``,
+  makes the choice, by shape alone, and picks G from (shape, B, SM count)
+  so that every width puts a block on every SM.
+* The reference's fused variants are hand-written CUDA kernels with the
+  same two designs: :func:`fused_factor_bl` forms M = W @ dᵀ inside the
+  factor kernel, so M never goes through device memory (``fuse_form=True``,
   :data:`BATCHLAST_FUSED_KERNELS`), and :func:`facsol_bl` factors and
   solves the first right-hand sides in one launch (``fuse_facsol=True``).
+  Their lane-group kernels run the factor's own device routine and are the
+  route up to m = 128 (where the triangle, and the fused kernel's staged
+  dT, fit); the streaming kernels take the larger m.
 
 Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
 :func:`_solve_bl_plain`, :func:`_fused_factor_bl_plain`,
@@ -29,8 +32,9 @@ Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
 wrappers take the plain version only for tensors on the CPU; for a CUDA
 tensor they launch the kernel or raise.  Each launch adds one to
 ``CHOL_LAUNCHES``, ``SOLVE_LAUNCHES``, ``FUSED_FACTOR_LAUNCHES`` or
-``FACSOL_LAUNCHES``; a factor or solve on the lane-group design also adds
-one to ``CHOL_SMEM_LAUNCHES`` or ``SOLVE_SMEM_LAUNCHES``.
+``FACSOL_LAUNCHES``; a launch on the lane-group design also adds one to
+``CHOL_SMEM_LAUNCHES``, ``SOLVE_SMEM_LAUNCHES``, ``FUSED_FACTOR_SMEM_LAUNCHES``
+or ``FACSOL_SMEM_LAUNCHES``.
 
 f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
 (dtype dispatch: this set's kernels are float32).  The wide finish phase
@@ -75,6 +79,8 @@ CHOL_SMEM_LAUNCHES = 0
 SOLVE_SMEM_LAUNCHES = 0
 FUSED_FACTOR_LAUNCHES = 0
 FACSOL_LAUNCHES = 0
+FUSED_FACTOR_SMEM_LAUNCHES = 0
+FACSOL_SMEM_LAUNCHES = 0
 
 # shared memory a block may use on the H100 (sm_90), in bytes
 _SMEM_LIMIT = 232448
@@ -90,6 +96,11 @@ H100_SMS = 132
 # size: 8 float or 4 double lanes of an m = 64 triangle are ~67 KB, three
 # blocks to an SM
 _LANE_GROUPS = {4: (8, 4, 2, 1), 8: (4, 2, 1)}
+# fused_factor_bl's lane-group sizes: past 8 for it alone, since a block
+# reads W once for its G lanes (two 12-lane blocks share an SM)
+_FUSED_LANE_GROUPS = (12, 8, 4, 2, 1)
+# the fused pair's lane-group kernels hold at most two row pairs a thread
+_FUSED_MAX_M = 128
 # the streaming kernels' blocks: 32 lanes a factor block, 128 threads
 # (one per lane and right-hand side) a solve block
 _STREAM_CHOL_LANES = 32
@@ -113,15 +124,47 @@ def smem_bytes(m: int, lanes: int, itemsize: int) -> int:
     return (-(-(m * (m + 1) // 2) // 32) * 32 + 32 // lanes) * lanes * itemsize
 
 
-def uses_smem(m: int, dtype) -> bool:
-    """The design choice, by (m, dtype) alone: the lane-group kernels
-    whenever one lane's triangle fits in a block's shared memory."""
-    return smem_bytes(m, 1, dtype.itemsize) <= _SMEM_LIMIT
+def fused_smem_bytes(m: int, n: int, lanes: int) -> int:
+    """Shared memory of one lane-group fused_factor_bl block
+    (fused_smem_bytes): the G float triangles, rounded up to 4 floats, then
+    dT's rows for the G lanes, n rounded up to 4 (fused_dt_rows)."""
+    tri = smem_bytes(m, lanes, 4) // 4
+    return (-(-tri // 4) * 4 + -(-n // 4) * 4 * lanes) * 4
+
+
+def _lane_smem(kind: str, m: int, lanes: int, size: int, n: int) -> int:
+    if kind == "fused":
+        return fused_smem_bytes(m, n, lanes)
+    return smem_bytes(m, lanes, size)
+
+
+def uses_smem(m: int, dtype, kind: str = "chol", n: int = 0) -> bool:
+    """The design choice, by shape alone: the lane-group kernels whenever
+    one lane's triangle (and, for "fused", its n rows of dT) fits in a
+    block's shared memory, and for the fused pair ("facsol", "fused") up to
+    m = 128."""
+    if kind in ("facsol", "fused") and m > _FUSED_MAX_M:
+        return False
+    return _lane_smem(kind, m, 1, dtype.itemsize, n) <= _SMEM_LIMIT
+
+
+def _fused_smem(m: int, n: int) -> int:
+    """Shared memory of one streaming fused_factor_bl block
+    (csrc/batchlast.cu): column k and a dT tile of up to 256 rows, 32
+    lanes each, plus each warp's 32 x 4 W tile."""
+    return (m + min(n, 256)) * 32 * 4 + 8 * 32 * 16
+
+
+def _facsol_smem(m: int, k: int) -> int:
+    """Shared memory of one streaming facsol_bl block: column k, dinv and
+    the (k, m) V tile, 32 lanes each."""
+    return (2 + k) * m * 32 * 4
 
 
 def lane_plan(kind: str, m: int, B: int, dtype, n_sm: int = H100_SMS, k: int = 1,
-              design: str | None = None, lanes: int | None = None) -> LanePlan:
-    """The plan of a ``kind`` ("chol" or "solve") launch on B lanes.
+              design: str | None = None, lanes: int | None = None, n: int = 0) -> LanePlan:
+    """The plan of a ``kind`` ("chol", "solve", "facsol" or "fused") launch
+    on B lanes (``k`` right-hand sides; ``n`` columns of W for "fused").
 
     The lane-group size G is the largest built one, at most B, that fits
     in shared memory and still gives at least min(n_sm, B) blocks, so
@@ -132,21 +175,27 @@ def lane_plan(kind: str, m: int, B: int, dtype, n_sm: int = H100_SMS, k: int = 1
     """
     size = dtype.itemsize
     if design is None:
-        design = "smem" if uses_smem(m, dtype) else "stream"
+        design = "smem" if uses_smem(m, dtype, kind, n) else "stream"
     if design == "stream":
         _require(lanes is None, "the streaming kernels take no lane-group size")
-        if kind == "chol":
-            return LanePlan("stream", _STREAM_CHOL_LANES, -(-B // _STREAM_CHOL_LANES),
-                            m * _STREAM_CHOL_LANES * size)
-        return LanePlan("stream", 1, -(-(k * B) // _STREAM_SOLVE_THREADS), 0)
+        if kind == "solve":
+            return LanePlan("stream", 1, -(-(k * B) // _STREAM_SOLVE_THREADS), 0)
+        smem = {"chol": m * _STREAM_CHOL_LANES * size, "facsol": _facsol_smem(m, k),
+                "fused": _fused_smem(m, n)}[kind]
+        _require(smem <= _SMEM_LIMIT,
+                 f"streaming {kind} at m={m}, n={n}, k={k} needs {smem} bytes of shared "
+                 f"memory (> {_SMEM_LIMIT})")
+        return LanePlan("stream", _STREAM_CHOL_LANES, -(-B // _STREAM_CHOL_LANES), smem)
     _require(design == "smem", f"unknown design {design!r}")
-    groups = _LANE_GROUPS[size]
+    _require(kind not in ("facsol", "fused") or m <= _FUSED_MAX_M,
+             f"the lane-group {kind} kernel takes m <= {_FUSED_MAX_M}, got m={m}")
+    groups = _FUSED_LANE_GROUPS if kind == "fused" else _LANE_GROUPS[size]
     if lanes is None:
         want = min(n_sm, B)
-        fits = [g for g in groups if g <= B and smem_bytes(m, g, size) <= _SMEM_LIMIT]
+        fits = [g for g in groups if g <= B and _lane_smem(kind, m, g, size, n) <= _SMEM_LIMIT]
         lanes = next((g for g in fits if -(-B // g) >= want), groups[-1])
     _require(lanes in groups, f"lane-group size {lanes} is not one of {groups} for {dtype}")
-    smem = smem_bytes(m, lanes, size)
+    smem = _lane_smem(kind, m, lanes, size, n)
     _require(smem <= _SMEM_LIMIT,
              f"{kind} at m={m} with {lanes} lanes a block needs {smem} bytes of shared "
              f"memory (> {_SMEM_LIMIT})")
@@ -357,21 +406,25 @@ def _solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     return V
 
 
-def _fused_smem(m: int, n: int) -> int:
-    """Shared memory of one fused_factor_bl block (csrc/batchlast.cu):
-    column k and a dT tile of up to 256 rows, 32 lanes each, plus each
-    warp's 32 x 4 W tile."""
-    return (m + min(n, 256)) * 32 * 4 + 8 * 32 * 16
+_PACKED_ROWS: dict = {}
 
 
-def _facsol_smem(m: int, k: int) -> int:
-    """Shared memory of one facsol_bl block: column k, dinv and the
-    (k, m) V tile, 32 lanes each."""
-    return (2 + k) * m * 32 * 4
+def _packed_wt(W, m: int):
+    """W's lower-triangle rows (i·m + j, j ≤ i, in the packed order
+    i(i+1)/2 + j), transposed to (n, m(m+1)/2): the layout the lane-group
+    fused_factor_bl reads, a warp's 32 entries 32 neighbouring floats of
+    each column."""
+    key = (m, W.device)
+    rows = _PACKED_ROWS.get(key)
+    if rows is None:
+        i, j = torch.tril_indices(m, m, device=W.device)
+        rows = _PACKED_ROWS[key] = i * m + j
+    return W.index_select(0, rows).T.contiguous()
 
 
-def _fused_factor_bl_cuda(W, dT, reg):
-    global FUSED_FACTOR_LAUNCHES
+def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None):
+    """fused_factor_bl on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
+    global FUSED_FACTOR_LAUNCHES, FUSED_FACTOR_SMEM_LAUNCHES
     _require(W.dim() == 2 and dT.dim() == 2, "W must be (m², n) and dT (n, B)")
     m = math.isqrt(W.shape[0])
     n, B = dT.shape
@@ -380,28 +433,31 @@ def _fused_factor_bl_cuda(W, dT, reg):
     _check_cuda("dT", dT, (n, B))
     _check_cuda("reg", reg, (B,))
     _require(W.device == dT.device == reg.device, "W, dT and reg must be on the same device")
-    smem = _fused_smem(m, n)
-    _require(smem <= _SMEM_LIMIT,
-             f"fused_factor_bl at m={m}, n={n} needs {smem} bytes of shared memory "
-             f"(> {_SMEM_LIMIT})")
     L = torch.empty((m, m, B), dtype=dT.dtype, device=dT.device)
     dinv = torch.empty((m, B), dtype=dT.dtype, device=dT.device)
     if B == 0:
         return L, dinv
+    plan = lane_plan("fused", m, B, torch.float32, _sm_count(dT.device), n=n, design=design,
+                     lanes=lanes)
     lib = _build.load()
+    entry = "pycllp_fused_factor_bl_f32"
+    if plan.design == "smem":
+        entry = "pycllp_fused_factor_bl_smem_f32"
+        W = _packed_wt(W, m)
+    args = [W.data_ptr(), dT.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, n, B]
+    if plan.design == "smem":
+        args.append(plan.lanes)
     with torch.cuda.device(dT.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pycllp_fused_factor_bl_f32(
-            W.data_ptr(), dT.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(),
-            m, n, B, stream,
-        )
-    _raise_on_error("pycllp_fused_factor_bl_f32", err)
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(entry, err)
     FUSED_FACTOR_LAUNCHES += 1
+    FUSED_FACTOR_SMEM_LAUNCHES += plan.design == "smem"
     return L, dinv
 
 
-def _facsol_bl_cuda(M, reg, R):
-    global FACSOL_LAUNCHES
+def _facsol_bl_cuda(M, reg, R, design=None, lanes=None):
+    """facsol_bl on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
+    global FACSOL_LAUNCHES, FACSOL_SMEM_LAUNCHES
     _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
     _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
     m, B = M.shape[0], M.shape[2]
@@ -410,22 +466,23 @@ def _facsol_bl_cuda(M, reg, R):
     _check_cuda("reg", reg, (B,))
     _check_cuda("R", R, (k, m, B))
     _require(M.device == reg.device == R.device, "M, reg and R must be on the same device")
-    smem = _facsol_smem(m, k)
-    _require(smem <= _SMEM_LIMIT,
-             f"facsol_bl at m={m}, k={k} needs {smem} bytes of shared memory (> {_SMEM_LIMIT})")
     dinv = torch.empty((m, B), dtype=M.dtype, device=M.device)
     V = torch.empty_like(R)
     if B == 0 or k == 0:
         return M, dinv, V
+    plan = lane_plan("facsol", m, B, torch.float32, _sm_count(M.device), k=k, design=design,
+                     lanes=lanes)
     lib = _build.load()
+    args = [M.data_ptr(), reg.data_ptr(), R.data_ptr(), dinv.data_ptr(), V.data_ptr(), m, B, k]
+    entry = "pycllp_facsol_bl_f32"
+    if plan.design == "smem":
+        entry = "pycllp_facsol_bl_smem_f32"
+        args.append(plan.lanes)
     with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pycllp_facsol_bl_f32(
-            M.data_ptr(), reg.data_ptr(), R.data_ptr(), dinv.data_ptr(), V.data_ptr(),
-            m, B, k, stream,
-        )
-    _raise_on_error("pycllp_facsol_bl_f32", err)
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(entry, err)
     FACSOL_LAUNCHES += 1
+    FACSOL_SMEM_LAUNCHES += plan.design == "smem"
     return M, dinv, V
 
 

@@ -3,9 +3,9 @@
 Counterpart of :mod:`pycllp_tpu.solvers.jax_hsd`.  Both classes run the
 same HSD core (:mod:`pycllp_tpu_torch.solvers.hsd`) and differ only in
 which :class:`KernelSet` feeds the hot path.  The registry names are the
-reference's (``hsd``; ``hsd_pallas`` with aliases ``clhsd`` and
-``pallas``), so ``get_solver(...)`` calls carry over unchanged, plus the
-keyword ``device=`` (default ``"cuda"``).
+reference's (``hsd`` with alias ``jax_hsd``; ``hsd_pallas`` with aliases
+``clhsd`` and ``pallas``), so ``get_solver(...)`` calls carry over
+unchanged, plus the keyword ``device=`` (default ``"cuda"``).
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ class TorchHSDSolver(BaseSolver):
     """
 
     name = "hsd"
+    aliases = ("jax_hsd",)  # the reference's registry name, kept so its calls carry over
     kernels: KernelSet = REFERENCE_KERNELS
 
     def __init__(

@@ -1,10 +1,10 @@
-"""The launch plan of the batch-last factor and solve, on the CPU.
+"""The launch plan of the batch-last factor, solve and fused pair, on the CPU.
 
 The lane-group kernels (``csrc/batchlast_smem.cuh``) run only on the card;
 what surrounds them is Python that these tests reach: the choice between
-the lane-group and the streaming design (by m and dtype alone), the
-lane-group size G, the grid and the shared memory of each launch, and the
-C entry points' ctypes signatures.  The kernels themselves are held
+the lane-group and the streaming design (by shape alone), the lane-group
+size G, the grid and the shared memory of each launch, the layout the
+fused factor reads W in, and the C entry points' ctypes signatures.  The kernels themselves are held
 against their plain versions on the card by ``chip_smoke.py``.
 """
 
@@ -128,7 +128,8 @@ def test_every_c_entry_point_has_its_ctypes_signature():
                     assert "*" in arg or arg.startswith("int "), (name, arg)
                 found[name] = tuple(kinds)
     assert {"pycllp_chol_bl_smem_f32", "pycllp_solve_bl_smem_f32", "pycllp_chol_bl_smem_f64",
-            "pycllp_solve_bl_smem_f64"} <= found.keys()
+            "pycllp_solve_bl_smem_f64", "pycllp_fused_factor_bl_smem_f32",
+            "pycllp_facsol_bl_smem_f32"} <= found.keys()
     assert found == _build._SIGNATURES
 
 
@@ -169,3 +170,148 @@ def test_cpu_tensors_leave_every_counter_at_zero(monkeypatch):
             bl.SOLVE_SMEM_LAUNCHES) == (0, 0, 0, 0)
     assert (df64.DF_CHOL_LAUNCHES, df64.DF_SOLVE_LAUNCHES, df64.DF_CHOL_SMEM_LAUNCHES,
             df64.DF_SOLVE_SMEM_LAUNCHES) == (0, 0, 0, 0)
+
+
+# the fused pair: (m, n) at the shapes the port meets (netlib afiro, sc50a,
+# adlittle; the main cell)
+FUSED_SHAPES = [(27, 59), (50, 98), (56, 153), (64, 128)]
+FUSED_WIDTHS = (256, 300, 1024, 5120, 16384)
+
+
+@pytest.mark.parametrize("kind", ["facsol", "fused"])
+@pytest.mark.parametrize("m,n", FUSED_SHAPES)
+def test_fused_pair_plan_fits_and_fills_the_card(m, n, kind):
+    """The lane-group plans of facsol_bl and fused_factor_bl fit in a
+    block's shared memory and put a block on every SM at every width the
+    paths use, with the largest G that still does."""
+    f32 = torch.float32
+    groups = bl._FUSED_LANE_GROUPS if kind == "fused" else bl._LANE_GROUPS[4]
+    for B in FUSED_WIDTHS:
+        plan = bl.lane_plan(kind, m, B, f32, SMS, k=2, n=n)
+        assert plan.design == "smem"
+        assert plan.smem <= SMEM_LIMIT
+        want = (bl.fused_smem_bytes(m, n, plan.lanes) if kind == "fused"
+                else bl.smem_bytes(m, plan.lanes, 4))
+        assert plan.smem == want
+        assert plan.lanes in groups
+        assert plan.blocks * plan.lanes >= B > (plan.blocks - 1) * plan.lanes
+        assert plan.blocks >= min(SMS, B), (B, plan)
+        bigger = [g for g in groups if g > plan.lanes and g <= B]
+        assert all(-(-B // g) < min(SMS, B) for g in bigger), (B, plan)
+
+
+@pytest.mark.parametrize("kind", ["facsol", "fused"])
+def test_fused_pair_design_is_chosen_by_shape_alone(kind):
+    """m = 27, 50, 56 and 64 with n = 59, 98, 128 and 153 take the
+    lane-group design at every B; past m = 128 the streaming kernels run."""
+    f32 = torch.float32
+    for m in (27, 50, 56, 64, 128):
+        for n in (59, 98, 128, 153):
+            assert bl.uses_smem(m, f32, kind, n)
+            assert {bl.lane_plan(kind, m, B, f32, k=2, n=n).design for B in WIDTHS} == {"smem"}
+    for m in (129, 200):
+        assert not bl.uses_smem(m, f32, kind, 128)
+        plans = [bl.lane_plan(kind, m, B, f32, k=2, n=128) for B in WIDTHS]
+        assert {p.design for p in plans} == {"stream"}
+        assert all(p.lanes == 32 and p.smem <= SMEM_LIMIT for p in plans)
+
+
+def test_fused_pair_plans_at_the_main_widths():
+    """The main shapes: 12-lane fused_factor_bl blocks (two an SM, W read
+    once for 12 lanes) and 8-lane facsol_bl blocks, as chol_bl's."""
+    f32 = torch.float32
+    assert bl.lane_plan("fused", 64, 16384, f32, n=128) == bl.LanePlan("smem", 12, 1366, 106080)
+    assert bl.lane_plan("fused", 64, 5120, f32, n=128).lanes == 12
+    assert bl.lane_plan("fused", 56, 8192, f32, n=153).lanes == 12
+    assert bl.lane_plan("facsol", 64, 16384, f32, k=2) == bl.lane_plan("chol", 64, 16384, f32)
+    assert bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=8).smem == 66688 + 128 * 8 * 4
+    # the streaming kernels, forced
+    assert bl.lane_plan("fused", 64, 16384, f32, n=128, design="stream") == bl.LanePlan(
+        "stream", 32, 512, (64 + 128) * 32 * 4 + 8 * 32 * 16)
+    assert bl.lane_plan("facsol", 64, 300, f32, k=2, design="stream") == bl.LanePlan(
+        "stream", 32, 10, 4 * 64 * 32 * 4)
+    with pytest.raises(ValueError, match="lane-group size"):
+        bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=24)
+    with pytest.raises(ValueError, match="lane-group size"):
+        bl.lane_plan("facsol", 64, 16384, f32, lanes=12)
+    with pytest.raises(ValueError, match="m <= 128"):
+        bl.lane_plan("facsol", 129, 300, f32, design="smem")
+
+
+def test_fused_pair_formulas_match_the_kernel_source():
+    """fused_smem_bytes, the fused pair's built G and its m limit are the
+    header's."""
+    src = HEADER.read_text()
+    assert "constexpr int kFormCols = 4;" in src
+    assert "return (tri_stride(m, G) * G + 3) / 4 * 4;" in src  # fused_dt_offset
+    assert "return (n + kFormCols - 1) / kFormCols * kFormCols;" in src  # fused_dt_rows
+    assert ("(static_cast<size_t>(fused_dt_offset(m, G)) + static_cast<size_t>(fused_dt_rows(n)) "
+            "* G) *\n         sizeof(float)") in src
+    fused = [int(g) for g in re.findall(r"case (\d+): return launch_fused_smem_g<T, \d+>", src)]
+    facsol = {int(g) for g in re.findall(r"case (\d+): return launch_facsol_smem_g<T, \d+>", src)}
+    assert sorted(fused, reverse=True) == list(bl._FUSED_LANE_GROUPS)
+    assert facsol == set(bl._LANE_GROUPS[4])
+    for launcher in ("launch_facsol_smem_g", "launch_fused_smem_g"):
+        body = src[src.index(f"int {launcher}("):]
+        body = body[:body.index("\n}\n")]
+        assert "if (m <= 128)" in body and "if (m <= 384)" not in body
+    assert bl._FUSED_MAX_M == 128
+    # the three kernels factor with one device routine
+    assert src.count("lane_factor<T, NP>(") == 2 and src.count("lane_factor<float, NP>(") == 1
+
+
+def test_lane_group_solve_forward_pass_is_left_looking():
+    """solve_bl_smem_kernel's forward pass is the reference's left-looking
+    one: a warp dot of the staged row with the owned w, reduced by a
+    butterfly, then one subtraction by the row's owner."""
+    src = HEADER.read_text()
+    body = src[src.index("solve_bl_smem_kernel(const T*"):]
+    body = body[:body.index("\n}\n")]
+    forward = body[body.index("// forward"):body.index("// backward")]
+    assert "left-looking" in forward and "__shfl_xor_sync" in forward
+    assert "(slot(v[q], ir) - dot[q]) * di" in forward
+
+
+@pytest.mark.parametrize("design", [None, "smem", "stream"])
+def test_fused_pair_wrappers_refuse_cpu_tensors_on_every_design(design):
+    m, n, B = 4, 6, 8
+    W = torch.ones(m * m, n)
+    dT = torch.ones(n, B)
+    reg = torch.zeros(B)
+    M = torch.eye(m).reshape(m, m, 1).repeat(1, 1, B).contiguous()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bl._fused_factor_bl_cuda(W, dT, reg, design=design)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bl._facsol_bl_cuda(M, reg, torch.ones(2, m, B), design=design)
+
+
+def test_cpu_tensors_leave_the_fused_pair_counters_at_zero(monkeypatch):
+    names = ("FUSED_FACTOR_LAUNCHES", "FACSOL_LAUNCHES", "FUSED_FACTOR_SMEM_LAUNCHES",
+             "FACSOL_SMEM_LAUNCHES")
+    for name in names:
+        monkeypatch.setattr(bl, name, 0)
+    g = torch.Generator().manual_seed(1)
+    A = torch.randn(5, 9, generator=g)
+    W = (A[:, None, :] * A[None, :, :]).reshape(25, 9)
+    dT = torch.rand(9, 6, generator=g) + 0.5
+    reg = torch.full((6,), 1e-6)
+    L, dinv = bl.fused_factor_bl(W, dT, reg)
+    M = (W @ dT).reshape(5, 5, 6)
+    bl.facsol_bl(M, reg, torch.randn(3, 5, 6, generator=g))
+    assert torch.isfinite(L.tril().permute(2, 0, 1)).all() and torch.isfinite(dinv).all()
+    assert tuple(getattr(bl, n) for n in names) == (0, 0, 0, 0)
+
+
+def test_fused_factor_reads_w_packed_and_transposed():
+    """The lane-group fused_factor_bl reads W's lower-triangle rows in the
+    triangle's packed order i(i+1)/2 + j, as the columns of an (n, m(m+1)/2)
+    tensor."""
+    m, n = 6, 5
+    W = torch.arange(m * m * n, dtype=torch.float32).reshape(m * m, n)
+    Wp = bl._packed_wt(W, m)
+    assert Wp.shape == (n, m * (m + 1) // 2) and Wp.is_contiguous()
+    e = 0
+    for i in range(m):
+        for j in range(i + 1):
+            assert torch.equal(Wp[:, e], W[i * m + j])
+            e += 1

@@ -197,6 +197,22 @@ def test_port_reads_nothing_of_the_reference_package():
                 assert mod.split(".")[0] not in ("pycllp_tpu", "jax", "jaxlib"), (path, mod)
 
 
+# the reference's names that wait for the parallel slice (ROADMAP §1 item 6b)
+_UNPORTED_NAMES = {"schur", "column_sharded", "big_lp"}
+
+
+def test_registry_names_match_the_reference():
+    """Every registry name and alias of the reference, apart from the
+    schur solver's, names the port's counterpart; the port has no other."""
+    ref = {name: cls.name for name, cls in ref_pkg.solvers.solver_registry.items()}
+    port = {name: cls.name for name, cls in port_pkg.solvers.solver_registry.items()}
+    assert _UNPORTED_NAMES <= ref.keys()
+    assert port == {k: v for k, v in ref.items() if k not in _UNPORTED_NAMES}
+    solver = port_pkg.get_solver("jax_hsd", device="cpu")
+    assert type(solver) is port_pkg.solvers.solver_registry["hsd"]
+    assert solver.name == "hsd"
+
+
 def test_cross_backend_agreement():
     """Every available backend agrees on one batch (tests/test_hsd.py)."""
     names = port_pkg.available_solvers()
