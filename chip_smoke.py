@@ -173,8 +173,10 @@ MAIN_SHAPES = {
                 "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming)"],
     "solve_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)",
                  "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming), k=1/2/3"],
-    "fused_factor_bl": ["m=64, n=128, B=256/300/16384 (lane-group and streaming)"],
-    "facsol_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)"],
+    "fused_factor_bl": ["m=64, n=128, B=256/300/16384 (lane-group and streaming)",
+                        "m=100, n=216, B=300 (lane-group); m=129, n=274, B=40 (streaming)"],
+    "facsol_bl": ["m=64, B=256/300/16384, k=1/2/3 (lane-group and streaming)",
+                  "m=100, B=300; m=300, B=40 (lane-group); m=341, B=40 (streaming), k=3"],
     "df_chol_bl": ["m=64, n=128, B=256/300 (lane-group and streaming)",
                    "m=100, B=300; m=200, B=40 (lane-group); m=241, B=40 (streaming)"],
     "df_solve_bl": ["m=64, B=256/300, k=1/2/3 (lane-group and streaming)",
@@ -520,7 +522,8 @@ def _hold_large_m(dev, dtype, rtol: float) -> None:
     """The factor and the k = 1, 2, 3 solves through the default route at m
     past 64 (the lane-group kernels' 2-row-pair / 4-row and 6-pair /
     11-row instantiations) and just past the lane-group limit (the
-    streaming kernels), against the plain versions, on a random SPD M."""
+    streaming kernels), against the plain versions, on a random SPD M; in
+    float also facsol_bl there, and fused_factor_bl at m = 100 and 129."""
     chol, solve = ((bl._chol_bl_cuda, bl._solve_bl_cuda) if dtype == torch.float32
                    else (df64._df_chol_bl_cuda, df64._df_solve_bl_cuda))
     limit = max(m for m in range(1, 400) if bl.uses_smem(m, dtype))
@@ -548,6 +551,40 @@ def _hold_large_m(dev, dtype, rtol: float) -> None:
         check(max(e) < rtol, f"{name} / solve at m={m}, B={B}: rel {max(e):.2e}")
         line.append(f"m={m}, B={B} ({design}): chol {e[0]:.1e}, solve k=1/2/3 "
                     f"{'/'.join(f'{x:.1e}' for x in e[1:])}")
+        if dtype == torch.float32:
+            # facsol_bl on the same lanes, k = 3: the factor's 2- and 6-pair
+            # instantiations, and the streaming kernel past the limit
+            zero_counts()
+            Lc, dinv_c, Vc = bl._facsol_bl_cuda(M.clone(), reg, R)
+            Lp, dinv_cp, Vp = bl._facsol_bl_plain(M.clone(), reg, R)
+            torch.cuda.synchronize()
+            e_fs = max(rel_err(_lower(Lc), _lower(Lp)), rel_err(dinv_c, dinv_cp), rel_err(Vc, Vp))
+            smem = read_counts()["facsol_bl_smem"] == 1
+            check(smem == (m <= limit), f"facsol_bl at m={m} ran the "
+                  f"{'lane-group' if smem else 'streaming'} design")
+            check(e_fs < rtol, f"facsol_bl k=3 at m={m}, B={B}: rel {e_fs:.2e}")
+            line[-1] += f", facsol k=3 {e_fs:.1e}"
+    if dtype == torch.float32:
+        # fused_factor_bl at m = 100 (its 2-pair instantiation) and just past
+        # its lane-group limit, m = 129 (the streaming kernel)
+        for m, B in ((100, 300), (bl._FUSED_MAX_M + 1, 40)):
+            rng = np.random.default_rng(m)
+            A = torch.from_numpy(rng.normal(size=(m, m + 16)) / np.sqrt(m + 16)).to(dev, dtype)
+            A = torch.cat([A, torch.eye(m, device=dev, dtype=dtype)], dim=1)
+            d = torch.from_numpy(rng.uniform(0.5, 2.0, size=(B, 2 * m + 16))).to(dev, dtype)
+            W = bl.BATCHLAST_FUSED_KERNELS.prepare(A).W
+            reg = torch.full((B,), 1e-6, device=dev, dtype=dtype)
+            zero_counts()
+            L_k, dinv_k = bl._fused_factor_bl_cuda(W, d.T.contiguous(), reg)
+            L_p, dinv_p = bl._fused_factor_bl_plain(W, d.T.contiguous(), reg)
+            torch.cuda.synchronize()
+            e = max(rel_err(_lower(L_k), _lower(L_p)), rel_err(dinv_k, dinv_p))
+            smem = read_counts()["fused_factor_bl_smem"] == 1
+            check(smem == (m <= bl._FUSED_MAX_M), f"fused_factor_bl at m={m} ran the "
+                  f"{'lane-group' if smem else 'streaming'} design")
+            check(e < rtol, f"fused_factor_bl at m={m}, B={B}: rel {e:.2e}")
+            line.append(f"fused_factor m={m}, B={B} "
+                        f"({'lane-group' if smem else 'streaming'}): {e:.1e}")
     say("kernel parity", f"{dtype} large m: " + "; ".join(line))
 
 
@@ -639,9 +676,10 @@ def _fused_bounds(m: int, n: int, B: int, k: int = 2) -> tuple[dict, dict]:
 
 
 def w_bytes_per_lane(m: int, n: int, lanes: int) -> float:
-    """Bytes of W a fused_factor_bl block reads from L2, per lane: every
-    block reads W's lower-triangle rows once for its lanes (32 on the
-    streaming design, G on the lane-group design)."""
+    """Bytes of W a fused_factor_bl block asks for, per lane, by the
+    design's formula: W's lower-triangle rows once for the block's lanes (32
+    on the streaming design, G on the lane-group design).  A formula, not a
+    reading: what L2 serves is not measured here."""
     return _tri(m) * n * 4 / lanes
 
 
@@ -714,14 +752,15 @@ def phase_fused_kernels(dev) -> dict:
         dT = d.T.contiguous()
         M_bl, reg = _formed(A, d, 1e-6)
         m, n = A.shape
+        Wp = bl.pack_w(W)  # as the fused-form set's prepare packs it, once per A
         R2 = R.contiguous()
         Mw = torch.empty_like(M_bl)
         t_f = designs_in_turns(f"fused_factor_bl at m=64, n=128, B={B}",
-                               lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                               lambda: bl._fused_factor_bl_cuda(W, dT, reg, Wp=Wp),
                                lambda: bl._fused_factor_bl_cuda(W, dT, reg, design="stream"),
                                lambda: bl._fused_factor_bl_plain(W, dT, reg))
         _, split_f = in_turns(f"fused_factor_bl vs the split path (matmul + chol_bl) at B={B}",
-                              lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+                              lambda: bl._fused_factor_bl_cuda(W, dT, reg, Wp=Wp),
                               lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
 
         def facsol(design=None, lanes=None):
@@ -744,27 +783,28 @@ def phase_fused_kernels(dev) -> dict:
         copy_ms = time_ms(lambda: Mw.copy_(M_bl), 10)
         chol_ms = time_ms(lambda: bl._chol_bl_cuda(M_bl, reg), 10)
         gemm_ms = time_ms(lambda: W @ dT, 10)
+        pack_ms = time_ms(lambda: bl.pack_w(W), 10)
         say("kernel time", f"at B={B}, alone: the copy of M {copy_ms:.4f} ms, chol_bl "
-            f"{chol_ms:.4f} ms, the GEMM forming M {gemm_ms:.4f} ms")
+            f"{chol_ms:.4f} ms, the GEMM forming M {gemm_ms:.4f} ms, packing W (once per A, "
+            f"in prepare) {pack_ms:.4f} ms")
         plan_f = bl.lane_plan("fused", m, B, torch.float32, n=n)
         sweep_f = lane_sweep(f"fused_factor_bl at m=64, n=128, B={B} (planned G={plan_f.lanes})",
                              lambda G: bl._fused_factor_bl_cuda(W, dT, reg, design="smem",
-                                                                lanes=G),
-                             torch.float32, sizes=bl._FUSED_LANE_GROUPS)
+                                                                lanes=G, Wp=Wp),
+                             torch.float32)
         sweep_c = lane_sweep(f"facsol_bl k=2 (with the copy of M) at m=64, B={B} (planned G="
                              f"{bl.lane_plan('facsol', m, B, torch.float32, k=2).lanes})",
                              lambda G: facsol("smem", G), torch.float32)
-        w_bytes = {G: w_bytes_per_lane(m, n, G) for G in bl._FUSED_LANE_GROUPS}
-        say("kernel time", f"fused_factor_bl W read from L2 per lane at B={B}: lane-group G="
-            f"{plan_f.lanes} {w_bytes[plan_f.lanes]:.0f} B (all G: " + ", ".join(
+        w_bytes = {G: w_bytes_per_lane(m, n, G) for G in bl._LANE_GROUPS[4]}
+        say("kernel time", f"fused_factor_bl W asked for per lane at B={B}, by the design's "
+            f"formula (L2 traffic not measured): lane-group G={plan_f.lanes} "
+            f"{w_bytes[plan_f.lanes]:.0f} B (all G: " + ", ".join(
                 f"{G} {v:.0f}" for G, v in w_bytes.items()) + f"), streaming "
-            f"{w_bytes_per_lane(m, n, 32):.0f} B; in all {w_bytes[plan_f.lanes] * B / 1e9:.3f} GB")
+            f"{w_bytes_per_lane(m, n, 32):.0f} B")
         fused, facsol_b = _fused_bounds(m, n, B)
         no_call = "no single PyTorch call computes it; the split path is its yardstick"
         entries = {
             "fused_factor_bl": {**t_f, "split_ms": split_f, **fused, "lanes": plan_f.lanes,
-                                "w_l2_bytes_per_lane": w_bytes[plan_f.lanes],
-                                "stream_w_l2_bytes_per_lane": w_bytes_per_lane(m, n, 32),
                                 "lane_sweep_ms": sweep_f, **no_library(no_call)},
             "facsol_bl": {**t_c, "split_ms": split_c, "copy_ms": copy_ms, **facsol_b,
                           "lane_sweep_ms": sweep_c, **no_library(no_call)}}
@@ -1640,6 +1680,7 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
     A, d, R = _shape_inputs(A64, B, seed=1, dev=dev)
     m, n = A64.shape
     W = bl.BATCHLAST_KERNELS.prepare(A).W
+    Wp = bl.pack_w(W)
     dT = d.T.contiguous()
     M_bl, reg = _formed(A, d, 1e-6)
     L, dinv = bl._chol_bl_cuda(M_bl, reg)
@@ -1677,7 +1718,7 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
                                      lambda: bl._solve_bl_cuda(L, dinv, R1, design="stream"),
                                      lambda: bl._solve_bl_plain(L, dinv, R1)),
         "fused_factor_bl": designs_in_turns(
-            f"fused_factor_bl at {at}", lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+            f"fused_factor_bl at {at}", lambda: bl._fused_factor_bl_cuda(W, dT, reg, Wp=Wp),
             lambda: bl._fused_factor_bl_cuda(W, dT, reg, design="stream"),
             lambda: bl._fused_factor_bl_plain(W, dT, reg)),
         "facsol_bl": designs_in_turns(f"facsol_bl k=2 (with the copy of M) at {at}", facsol,
@@ -1685,7 +1726,7 @@ def phase_netlib_kernels(dev, smi: str) -> dict:
     }
     _, two["fused_factor_bl"]["split_ms"] = in_turns(
         f"fused_factor_bl vs the split path (matmul + chol_bl) at {at}",
-        lambda: bl._fused_factor_bl_cuda(W, dT, reg),
+        lambda: bl._fused_factor_bl_cuda(W, dT, reg, Wp=Wp),
         lambda: bl._chol_bl_cuda((W @ dT).reshape(m, m, B), reg))
     _, two["facsol_bl"]["split_ms"] = in_turns(
         f"facsol_bl k=2 vs the split path (chol_bl + solve_bl k=2) at {at}", facsol, split)
@@ -2025,8 +2066,7 @@ def main() -> None:
                 "lane_sweep_ms": r["lane_sweep_ms"],
                 "other_width": r.get("resume_bucket") or r.get("tier2")})
         if name in ("fused_factor_bl", "facsol_bl"):
-            report[-1].update({"split_ms": r["split_ms"], "netlib_split_ms": held[name]["split_ms"],
-                               "w_l2_bytes_per_lane": r.get("w_l2_bytes_per_lane")})
+            report[-1].update({"split_ms": r["split_ms"], "netlib_split_ms": held[name]["split_ms"]})
         # device time of the kernel in the profiled main-path solve, by stage
         group = PROFILE_NAMES.get(name)
         report[-1].update({f"{stage}_device_ms": profile[stage]["by_kernel_ms"].get(group, 0.0)

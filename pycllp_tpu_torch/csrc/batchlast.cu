@@ -11,7 +11,7 @@
 //   solve_bl_smem, facsol_bl_smem, fused_factor_bl_smem), which keep each
 //   lane's triangle in shared memory and factor it with one routine
 //   (lane_factor): the default at every m whose one-lane triangle fits
-//   (m <= 340 in float; m <= 128 for the fused pair); the source note there
+//   (m <= 340 in float; m <= 128 for fused_factor_bl); the source note there
 //   says what bounds them and what the design does about it;
 // * the streaming kernels of batchlast.cuh (chol_bl_kernel,
 //   solve_bl_kernel) and of this file (fused_factor_bl_kernel,
@@ -23,7 +23,8 @@
 //   kernels below run that factor's pivot loop (chol_pivots).
 // The host chooses between them by shape alone (ops/batchlast.py).
 //
-// The streaming fused kernels, for m > 128 (and stream_ms):
+// The streaming fused kernels, for the larger m (m > 128 for
+// fused_factor_bl, m > 340 for facsol_bl) and stream_ms:
 //
 // fused_factor_bl(W, dT, reg) -> (L, dinv).  W is (m*m, n) with
 // W[i*m + j, q] = A[i, q] * A[j, q], dT is (n, B).  The kernel forms

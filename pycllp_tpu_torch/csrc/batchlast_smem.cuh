@@ -4,7 +4,7 @@
 // in df64.cu), and of facsol_bl / fused_factor_bl (float, batchlast.cu).
 //
 // Replaces, as the default route at every m whose one-lane triangle fits
-// in shared memory (m <= 128 for the fused pair):
+// in shared memory (m <= 128 for fused_factor_bl):
 //   chol_bl_smem    <- pycllp_tpu/ops/batchlast.py:223 (_chol_bl)
 //                      pycllp_tpu/ops/df64.py:264      (_df_chol_bl)
 //   solve_bl_smem   <- pycllp_tpu/ops/batchlast.py:273 (_solve_bl)
@@ -13,7 +13,7 @@
 //   fused_factor_bl_smem <- pycllp_tpu/ops/batchlast.py:195 (_fused_factor_bl)
 // The streaming kernels of batchlast.cuh and batchlast.cu stay for the m
 // whose triangle does not fit (m > 340 in float, m > 240 in double, at one
-// lane per block; m > 128 for the fused pair).  The host picks the design
+// lane per block; m > 128 for fused_factor_bl).  The host picks the design
 // by shape alone and the lane-group size G from (shape, B, SM count); see
 // lane_plan in ops/batchlast.py.
 //
@@ -32,8 +32,7 @@
 // solve's 2m dependent steps per lane (latency).
 //
 // All kernels run a block of G warps, one lane (instance) a warp, G a
-// template parameter (1, 2, 4 or 8; fused_factor_bl also 12).  The
-// block copies its G lanes' lower triangles into shared memory once, with
+// template parameter (1, 2, 4 or 8).  The block copies its G lanes' lower triangles into shared memory once, with
 // cp.async, 4 or 8 bytes an element: each entry's G lanes are one
 // contiguous segment of device memory, and no register holds the data in
 // flight.  Lanes past B are zero-filled, their warps idle, and nothing of
@@ -104,23 +103,25 @@
 // each lane's lower triangle M[i, j] = sum_q W[i*m + j, q] * dT[q, b],
 // j <= i, straight into its shared-memory triangle, then runs lane_factor:
 // M never exists in device memory.  Each thread forms whole entries for
-// all G lanes of its block, E entries at a time (2 at G = 12, 4 below),
-// the E * G dot products over q in registers, FP32 FMAs in q order from
-// zero (the streaming kernel's order; no TF32, no tensor cores).  dT[:,
-// block's lanes] is staged once in shared memory (q-major, lanes
-// contiguous), and every thread of a warp reads the same dT row, a
-// broadcast that serves E * G FMAs.  W comes packed and transposed, Wp =
-// (n, m(m+1)/2) of W's lower-triangle rows (the wrapper gathers it, ~1 MB):
-// a warp's 32 neighbouring entries read 32 neighbouring floats of each
-// column q, so every L2 sector is used whole; each block reads Wp once for
-// its G lanes (1.06 MB at m = 64, n = 128).  What bounds it: m(m+1)/2 * n
-// FMAs per lane (266K at m = 64, n = 128; 0.13 ms of FP32 issue at B =
-// 16,384), then the factor; W's L2 traffic is B / G reads of Wp.  Read as
-// W's rows (one thread a row, 16 bytes of each 32-byte sector) a 24-lane
-// block was the fastest, and the 8-lane one 40% slower; read packed and
-// transposed, 8-, 12- and 24-lane blocks are within 5% of each other on
-// the H100, and G = 12 (two blocks an SM) is the planned size where the
-// lanes fill the card.
+// all G lanes of its block, four entries at a time, the 4 * G dot products
+// over q in registers, FP32 FMAs in q order from zero (the streaming
+// kernel's order; no TF32, no tensor cores).  dT[:, block's lanes] is
+// staged once in shared memory (q-major, lanes contiguous), and every
+// thread of a warp reads the same dT row, a broadcast that serves 4 * G
+// FMAs.  W comes packed and transposed, Wp = (n, m(m+1)/2) of W's
+// lower-triangle rows (BatchLastKernels.prepare packs it once per A,
+// ~1 MB): a warp's 32 neighbouring entries read 32 neighbouring floats of
+// each column q, so every L2 sector is used whole; each block asks for Wp
+// once for its G lanes (1.06 MB at m = 64, n = 128).  What bounds it:
+// m(m+1)/2 * n FMAs per lane (266K at m = 64, n = 128; 0.13 ms of FP32
+// issue at B = 16,384), then the factor.  Read as W's rows (one thread a
+// row, 16 bytes of each 32-byte sector) a 24-lane block was the fastest
+// and the 8-lane one 40% slower; read packed and transposed, 8-, 12- and
+// 24-lane blocks are within 5% of each other on the H100, so G stays at
+// the factor's sizes (1 to 8) and the plan is chol_bl's.  The staged
+// triangle limits G as m grows, and each block's W grows as m^2 * n, so
+// past m = 128 the streaming kernel, which shares each W tile among 32
+// lanes, takes over.
 //
 // Semantics are those of batchlast.cuh: reg[b] is added at each pivot
 // read, a pivot <= 0 or NaN writes NaN to its diagonal and dinv and so
@@ -681,7 +682,7 @@ fused_factor_bl_smem_kernel(const T* __restrict__ Wp, const T* __restrict__ dT,
                             const T* __restrict__ reg, T* __restrict__ L,
                             T* __restrict__ dinv, int m, int n, int B) {
   static_assert(sizeof(T) == 4, "float only: dT is read as float4");
-  static_assert(G >= 1 && 32 * G <= 1024, "at most 32 warps a block");
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G is a power of two <= 32");
   constexpr int NT = 32 * G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* s = reinterpret_cast<float*>(smem_raw);  // G packed triangles, lane-major
@@ -703,21 +704,17 @@ fused_factor_bl_smem_kernel(const T* __restrict__ Wp, const T* __restrict__ dT,
   __syncthreads();
 
   // M[i, j, b0 + h] = sum_q W[i*m + j, q] * dT[q, b0 + h]: thread x forms
-  // the packed entries e = x + NT k, every lane h of the block at once, E
-  // entries at a time (E * G accumulators: 24 at G = 12, 32 at G = 8, so
-  // two 12-lane or three 8-lane blocks fit an SM's registers), then pairs,
-  // then one
-  constexpr int E = G >= 12 ? 2 : 4;
+  // the packed entries e = x + NT k, every lane h of the block at once,
+  // four entries at a time (32 accumulators at G = 8, so three 8-lane
+  // blocks fit an SM's registers), then pairs, then one.  The tail's shape
+  // matters even where it does no work: with a loop of single entries in
+  // place of the pair loop and the last `if`, chip_smoke.py timed the
+  // kernel at 1.06 ms instead of 0.90 (m = 64, B = 16,384, H100 SXM at
+  // 700 W), for the same entries.
   const int n_entries = tri_row(m);
   int e = threadIdx.x;
-  if constexpr (E >= 4) {
-    for (; e + 3 * NT < n_entries; e += 4 * NT) {
-      form_entries<G, 4>(s, ds, Wp, e, NT, n_entries, n, stride);
-    }
-  }
-  if constexpr (E >= 2) {
-    for (; e + NT < n_entries; e += 2 * NT) form_entries<G, 2>(s, ds, Wp, e, NT, n_entries, n, stride);
-  }
+  for (; e + 3 * NT < n_entries; e += 4 * NT) form_entries<G, 4>(s, ds, Wp, e, NT, n_entries, n, stride);
+  for (; e + NT < n_entries; e += 2 * NT) form_entries<G, 2>(s, ds, Wp, e, NT, n_entries, n, stride);
   if (e < n_entries) form_entries<G, 1>(s, ds, Wp, e, NT, n_entries, n, stride);
   const float r = live ? reg[b] : 0.0f;
   __syncthreads();  // every lane's M is formed
@@ -832,13 +829,13 @@ int launch_facsol_smem_gr(void* L, const void* reg, const void* Rhs, void* dinv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the fused pair's row pairs: NP = 1 up to m = 64, 2 up to 128 (the
-// streaming kernels take the larger m)
+// row pairs a facsol thread owns: those of the factor (launch_chol_smem_g)
 template <typename T, int G>
 int launch_facsol_smem_g(void* L, const void* reg, const void* Rhs, void* dinv, void* V, int m,
                          int B, int k_rhs, void* stream) {
   if (m <= 64) return launch_facsol_smem_gr<T, G, 1>(L, reg, Rhs, dinv, V, m, B, k_rhs, stream);
   if (m <= 128) return launch_facsol_smem_gr<T, G, 2>(L, reg, Rhs, dinv, V, m, B, k_rhs, stream);
+  if (m <= 384) return launch_facsol_smem_gr<T, G, 6>(L, reg, Rhs, dinv, V, m, B, k_rhs, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -856,6 +853,8 @@ int launch_fused_smem_gr(const void* Wp, const void* dT, const void* reg, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// fused_factor_bl's row pairs: NP = 1 up to m = 64, 2 up to 128 (the
+// streaming kernel takes the larger m)
 template <typename T, int G>
 int launch_fused_smem_g(const void* Wp, const void* dT, const void* reg, void* L, void* dinv,
                         int m, int n, int B, void* stream) {
@@ -865,7 +864,7 @@ int launch_fused_smem_g(const void* Wp, const void* dT, const void* reg, void* L
 }
 
 // Host-side launches with the lane-group size G chosen by the caller (1,
-// 2, 4 or 8; fused_factor_bl also 12); each returns
+// 2, 4 or 8); each returns
 // cudaGetLastError() (0 = launched) and does not synchronise.
 template <typename T>
 int launch_chol_bl_smem(const void* M, const void* reg, void* L, void* dinv, int m, int B,
@@ -915,7 +914,6 @@ int launch_fused_factor_bl_smem(const void* Wp, const void* dT, const void* reg,
     case 2: return launch_fused_smem_g<T, 2>(Wp, dT, reg, L, dinv, m, n, B, stream);
     case 4: return launch_fused_smem_g<T, 4>(Wp, dT, reg, L, dinv, m, n, B, stream);
     case 8: return launch_fused_smem_g<T, 8>(Wp, dT, reg, L, dinv, m, n, B, stream);
-    case 12: return launch_fused_smem_g<T, 12>(Wp, dT, reg, L, dinv, m, n, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,9 +22,10 @@ LAST axis, as in the reference:
   factor kernel, so M never goes through device memory (``fuse_form=True``,
   :data:`BATCHLAST_FUSED_KERNELS`), and :func:`facsol_bl` factors and
   solves the first right-hand sides in one launch (``fuse_facsol=True``).
-  Their lane-group kernels run the factor's own device routine and are the
-  route up to m = 128 (where the triangle, and the fused kernel's staged
-  dT, fit); the streaming kernels take the larger m.
+  Their lane-group kernels run the factor's own device routine.
+  facsol_bl's is the route wherever chol_bl's is; fused_factor_bl's up to
+  m = 128, past which the streaming kernel, which shares each W tile among
+  32 lanes, takes over.
 
 Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
 :func:`_solve_bl_plain`, :func:`_fused_factor_bl_plain`,
@@ -68,6 +69,7 @@ __all__ = [
     "solve_bl",
     "fused_factor_bl",
     "facsol_bl",
+    "pack_w",
 ]
 
 # launch counters: one per kernel launch, nowhere else.  CHOL_LAUNCHES and
@@ -96,10 +98,7 @@ H100_SMS = 132
 # size: 8 float or 4 double lanes of an m = 64 triangle are ~67 KB, three
 # blocks to an SM
 _LANE_GROUPS = {4: (8, 4, 2, 1), 8: (4, 2, 1)}
-# fused_factor_bl's lane-group sizes: past 8 for it alone, since a block
-# reads W once for its G lanes (two 12-lane blocks share an SM)
-_FUSED_LANE_GROUPS = (12, 8, 4, 2, 1)
-# the fused pair's lane-group kernels hold at most two row pairs a thread
+# the lane-group fused_factor_bl holds at most two row pairs a thread
 _FUSED_MAX_M = 128
 # the streaming kernels' blocks: 32 lanes a factor block, 128 threads
 # (one per lane and right-hand side) a solve block
@@ -141,9 +140,8 @@ def _lane_smem(kind: str, m: int, lanes: int, size: int, n: int) -> int:
 def uses_smem(m: int, dtype, kind: str = "chol", n: int = 0) -> bool:
     """The design choice, by shape alone: the lane-group kernels whenever
     one lane's triangle (and, for "fused", its n rows of dT) fits in a
-    block's shared memory, and for the fused pair ("facsol", "fused") up to
-    m = 128."""
-    if kind in ("facsol", "fused") and m > _FUSED_MAX_M:
+    block's shared memory, and for "fused" up to m = 128."""
+    if kind == "fused" and m > _FUSED_MAX_M:
         return False
     return _lane_smem(kind, m, 1, dtype.itemsize, n) <= _SMEM_LIMIT
 
@@ -187,9 +185,9 @@ def lane_plan(kind: str, m: int, B: int, dtype, n_sm: int = H100_SMS, k: int = 1
                  f"memory (> {_SMEM_LIMIT})")
         return LanePlan("stream", _STREAM_CHOL_LANES, -(-B // _STREAM_CHOL_LANES), smem)
     _require(design == "smem", f"unknown design {design!r}")
-    _require(kind not in ("facsol", "fused") or m <= _FUSED_MAX_M,
+    _require(kind != "fused" or m <= _FUSED_MAX_M,
              f"the lane-group {kind} kernel takes m <= {_FUSED_MAX_M}, got m={m}")
-    groups = _FUSED_LANE_GROUPS if kind == "fused" else _LANE_GROUPS[size]
+    groups = _LANE_GROUPS[size]
     if lanes is None:
         want = min(n_sm, B)
         fits = [g for g in groups if g <= B and _lane_smem(kind, m, g, size, n) <= _SMEM_LIMIT]
@@ -406,24 +404,21 @@ def _solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     return V
 
 
-_PACKED_ROWS: dict = {}
-
-
-def _packed_wt(W, m: int):
+def pack_w(W):
     """W's lower-triangle rows (i·m + j, j ≤ i, in the packed order
     i(i+1)/2 + j), transposed to (n, m(m+1)/2): the layout the lane-group
     fused_factor_bl reads, a warp's 32 entries 32 neighbouring floats of
-    each column."""
-    key = (m, W.device)
-    rows = _PACKED_ROWS.get(key)
-    if rows is None:
-        i, j = torch.tril_indices(m, m, device=W.device)
-        rows = _PACKED_ROWS[key] = i * m + j
-    return W.index_select(0, rows).T.contiguous()
+    each column.  W is fixed for a given A, so
+    :meth:`BatchLastKernels.prepare` packs it once."""
+    m = math.isqrt(W.shape[0])
+    i, j = torch.tril_indices(m, m, device=W.device)
+    return W.index_select(0, i * m + j).T.contiguous()
 
 
-def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None):
-    """fused_factor_bl on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
+def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None, Wp=None):
+    """fused_factor_bl on the card; ``design``/``lanes`` as
+    :func:`_chol_bl_cuda`.  ``Wp`` is :func:`pack_w` of W, which the
+    lane-group kernel reads; without it the wrapper packs W itself."""
     global FUSED_FACTOR_LAUNCHES, FUSED_FACTOR_SMEM_LAUNCHES
     _require(W.dim() == 2 and dT.dim() == 2, "W must be (m², n) and dT (n, B)")
     m = math.isqrt(W.shape[0])
@@ -443,7 +438,10 @@ def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None):
     entry = "pycllp_fused_factor_bl_f32"
     if plan.design == "smem":
         entry = "pycllp_fused_factor_bl_smem_f32"
-        W = _packed_wt(W, m)
+        if Wp is None:
+            Wp = pack_w(W)
+        _check_cuda("Wp", Wp, (n, m * (m + 1) // 2))
+        W = Wp
     args = [W.data_ptr(), dT.data_ptr(), reg.data_ptr(), L.data_ptr(), dinv.data_ptr(), m, n, B]
     if plan.design == "smem":
         args.append(plan.lanes)
@@ -508,17 +506,17 @@ def solve_bl(L, dinv, R):
     return _solve_bl_cuda(L, dinv, R)
 
 
-def fused_factor_bl(W, dT, reg):
+def fused_factor_bl(W, dT, reg, Wp=None):
     """W (m², n), dT (n, B), reg (B,) → (L, dinv): factor
     (W @ dT).reshape(m, m, B) + reg·I per lane, the product formed inside
-    the kernel.
+    the kernel.  ``Wp``, :func:`pack_w` of W, saves packing W on each call.
 
     CUDA tensors launch the hand-written kernel (float32, contiguous, or
     raise); CPU tensors run :func:`_fused_factor_bl_plain`.
     """
     if dT.device.type == "cpu":
         return _fused_factor_bl_plain(W, dT, reg)
-    return _fused_factor_bl_cuda(W, dT, reg)
+    return _fused_factor_bl_cuda(W, dT, reg, Wp=Wp)
 
 
 def facsol_bl(M, reg, R):
@@ -540,11 +538,14 @@ def facsol_bl(M, reg, R):
 
 
 class PreparedBL(typing.NamedTuple):
-    """Prepared shared-A context + the (m², n) self-outer-product W."""
+    """Prepared shared-A context + the (m², n) self-outer-product W, and
+    for the fused-form set W packed for the lane-group fused_factor_bl
+    (:func:`pack_w`; None otherwise)."""
 
     A: typing.Any
     Asq: typing.Any
     W: typing.Any
+    Wp: typing.Any = None
 
 
 class BLFactor(typing.NamedTuple):
@@ -586,7 +587,8 @@ class BatchLastKernels(KernelSet):
             return REFERENCE_KERNELS.prepare(A)
         m, n = A.shape
         W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
-        return PreparedBL(A=A, Asq=A * A, W=W)
+        Wp = pack_w(W) if self.fuse_form and m <= _FUSED_MAX_M else None
+        return PreparedBL(A=A, Asq=A * A, W=W, Wp=Wp)
 
     def mv(self, ctx, x):
         return REFERENCE_KERNELS.mv(ctx, x)
@@ -609,7 +611,7 @@ class BatchLastKernels(KernelSet):
             M_bl = ((A * d[:, None, :]) @ A.mT).permute(1, 2, 0).contiguous()
             L, dinv = chol_bl(M_bl, reg)
         elif self.fuse_form:
-            L, dinv = fused_factor_bl(ctx.W, d.T.contiguous(), reg)
+            L, dinv = fused_factor_bl(ctx.W, d.T.contiguous(), reg, ctx.Wp)
         else:
             m = ctx.A.shape[0]
             L, dinv = chol_bl((ctx.W @ d.T).reshape(m, m, d.shape[0]), reg)

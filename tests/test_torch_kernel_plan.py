@@ -185,7 +185,7 @@ def test_fused_pair_plan_fits_and_fills_the_card(m, n, kind):
     block's shared memory and put a block on every SM at every width the
     paths use, with the largest G that still does."""
     f32 = torch.float32
-    groups = bl._FUSED_LANE_GROUPS if kind == "fused" else bl._LANE_GROUPS[4]
+    groups = bl._LANE_GROUPS[4]
     for B in FUSED_WIDTHS:
         plan = bl.lane_plan(kind, m, B, f32, SMS, k=2, n=n)
         assert plan.design == "smem"
@@ -203,13 +203,16 @@ def test_fused_pair_plan_fits_and_fills_the_card(m, n, kind):
 @pytest.mark.parametrize("kind", ["facsol", "fused"])
 def test_fused_pair_design_is_chosen_by_shape_alone(kind):
     """m = 27, 50, 56 and 64 with n = 59, 98, 128 and 153 take the
-    lane-group design at every B; past m = 128 the streaming kernels run."""
+    lane-group design at every B; the streaming kernels run past m = 128
+    for fused_factor_bl and past chol_bl's m = 340 for facsol_bl."""
     f32 = torch.float32
     for m in (27, 50, 56, 64, 128):
         for n in (59, 98, 128, 153):
             assert bl.uses_smem(m, f32, kind, n)
             assert {bl.lane_plan(kind, m, B, f32, k=2, n=n).design for B in WIDTHS} == {"smem"}
-    for m in (129, 200):
+    last = {"fused": 128, "facsol": 340}[kind]
+    assert bl.uses_smem(last, f32, kind, 128)
+    for m in (last + 1, last + 60):
         assert not bl.uses_smem(m, f32, kind, 128)
         plans = [bl.lane_plan(kind, m, B, f32, k=2, n=128) for B in WIDTHS]
         assert {p.design for p in plans} == {"stream"}
@@ -217,30 +220,33 @@ def test_fused_pair_design_is_chosen_by_shape_alone(kind):
 
 
 def test_fused_pair_plans_at_the_main_widths():
-    """The main shapes: 12-lane fused_factor_bl blocks (two an SM, W read
-    once for 12 lanes) and 8-lane facsol_bl blocks, as chol_bl's."""
+    """The main shapes: 8-lane fused_factor_bl and facsol_bl blocks, as
+    chol_bl's (three an SM)."""
     f32 = torch.float32
-    assert bl.lane_plan("fused", 64, 16384, f32, n=128) == bl.LanePlan("smem", 12, 1366, 106080)
-    assert bl.lane_plan("fused", 64, 5120, f32, n=128).lanes == 12
-    assert bl.lane_plan("fused", 56, 8192, f32, n=153).lanes == 12
+    assert bl.lane_plan("fused", 64, 16384, f32, n=128) == bl.LanePlan("smem", 8, 2048,
+                                                                       66688 + 128 * 8 * 4)
+    assert bl.lane_plan("fused", 64, 5120, f32, n=128).lanes == 8
+    assert bl.lane_plan("fused", 56, 8192, f32, n=153).lanes == 8
     assert bl.lane_plan("facsol", 64, 16384, f32, k=2) == bl.lane_plan("chol", 64, 16384, f32)
-    assert bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=8).smem == 66688 + 128 * 8 * 4
+    assert bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=4).smem == (
+        bl.smem_bytes(64, 4, 4) + 128 * 4 * 4)
     # the streaming kernels, forced
     assert bl.lane_plan("fused", 64, 16384, f32, n=128, design="stream") == bl.LanePlan(
         "stream", 32, 512, (64 + 128) * 32 * 4 + 8 * 32 * 16)
     assert bl.lane_plan("facsol", 64, 300, f32, k=2, design="stream") == bl.LanePlan(
         "stream", 32, 10, 4 * 64 * 32 * 4)
     with pytest.raises(ValueError, match="lane-group size"):
-        bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=24)
+        bl.lane_plan("fused", 64, 16384, f32, n=128, lanes=12)
     with pytest.raises(ValueError, match="lane-group size"):
         bl.lane_plan("facsol", 64, 16384, f32, lanes=12)
     with pytest.raises(ValueError, match="m <= 128"):
-        bl.lane_plan("facsol", 129, 300, f32, design="smem")
+        bl.lane_plan("fused", 129, 300, f32, n=128, design="smem")
 
 
 def test_fused_pair_formulas_match_the_kernel_source():
-    """fused_smem_bytes, the fused pair's built G and its m limit are the
-    header's."""
+    """fused_smem_bytes, the fused pair's built G and m limits are the
+    header's: facsol_bl is built as chol_bl is, fused_factor_bl up to
+    m = 128."""
     src = HEADER.read_text()
     assert "constexpr int kFormCols = 4;" in src
     assert "return (tri_stride(m, G) * G + 3) / 4 * 4;" in src  # fused_dt_offset
@@ -248,13 +254,15 @@ def test_fused_pair_formulas_match_the_kernel_source():
     assert ("(static_cast<size_t>(fused_dt_offset(m, G)) + static_cast<size_t>(fused_dt_rows(n)) "
             "* G) *\n         sizeof(float)") in src
     fused = [int(g) for g in re.findall(r"case (\d+): return launch_fused_smem_g<T, \d+>", src)]
-    facsol = {int(g) for g in re.findall(r"case (\d+): return launch_facsol_smem_g<T, \d+>", src)}
-    assert sorted(fused, reverse=True) == list(bl._FUSED_LANE_GROUPS)
-    assert facsol == set(bl._LANE_GROUPS[4])
-    for launcher in ("launch_facsol_smem_g", "launch_fused_smem_g"):
+    facsol = [int(g) for g in re.findall(r"case (\d+): return launch_facsol_smem_g<T, \d+>", src)]
+    assert sorted(fused, reverse=True) == sorted(facsol, reverse=True) == list(bl._LANE_GROUPS[4])
+
+    def limits(launcher):
         body = src[src.index(f"int {launcher}("):]
-        body = body[:body.index("\n}\n")]
-        assert "if (m <= 128)" in body and "if (m <= 384)" not in body
+        return re.findall(r"if \(m <= (\d+)\)", body[:body.index("\n}\n")])
+
+    assert limits("launch_facsol_smem_g") == limits("launch_chol_smem_g") == ["64", "128", "384"]
+    assert limits("launch_fused_smem_g") == ["64", "128"]
     assert bl._FUSED_MAX_M == 128
     # the three kernels factor with one device routine
     assert src.count("lane_factor<T, NP>(") == 2 and src.count("lane_factor<float, NP>(") == 1
@@ -308,10 +316,49 @@ def test_fused_factor_reads_w_packed_and_transposed():
     tensor."""
     m, n = 6, 5
     W = torch.arange(m * m * n, dtype=torch.float32).reshape(m * m, n)
-    Wp = bl._packed_wt(W, m)
+    Wp = bl.pack_w(W)
     assert Wp.shape == (n, m * (m + 1) // 2) and Wp.is_contiguous()
     e = 0
     for i in range(m):
         for j in range(i + 1):
             assert torch.equal(Wp[:, e], W[i * m + j])
             e += 1
+
+
+@pytest.mark.parametrize("m", [1, 27, 56, 64, 100, 128, 129, 200, 340, 341, 380])
+def test_facsol_plan_is_the_factors(m):
+    """facsol_bl runs the factor's device routine on the factor's staged
+    triangle, so its plan is chol_bl's at every m and width."""
+    f32 = torch.float32
+    assert bl.uses_smem(m, f32, "facsol") == bl.uses_smem(m, f32, "chol")
+    for B in WIDTHS:
+        chol = bl.lane_plan("chol", m, B, f32, SMS)
+        facsol = bl.lane_plan("facsol", m, B, f32, SMS, k=2)
+        if chol.design == "smem":
+            assert facsol == chol
+        else:
+            assert facsol.design == "stream" and facsol.blocks == chol.blocks
+
+
+def test_fused_form_set_packs_w_once_per_a(monkeypatch):
+    """The fused-form set packs W in prepare (m <= 128) and hands the packed
+    W to every fused_factor_bl call; the other sets, and larger m, pack
+    nothing."""
+    g = torch.Generator().manual_seed(2)
+    A = torch.randn(5, 9, generator=g)
+    ctx = bl.BATCHLAST_FUSED_KERNELS.prepare(A)
+    assert torch.equal(ctx.Wp, bl.pack_w(ctx.W))
+    assert bl.BATCHLAST_KERNELS.prepare(A).Wp is None
+    assert bl.BatchLastKernels(fuse_facsol=True).prepare(A).Wp is None
+    assert bl.BATCHLAST_FUSED_KERNELS.prepare(torch.randn(129, 3, generator=g)).Wp is None
+    seen = []
+
+    def fused(W, dT, reg, Wp=None):
+        seen.append(Wp)
+        return bl._fused_factor_bl_plain(W, dT, reg)
+
+    monkeypatch.setattr(bl, "fused_factor_bl", fused)
+    d = torch.rand(6, 9, generator=g) + 0.5
+    for _ in range(2):
+        bl.BATCHLAST_FUSED_KERNELS.factor(ctx, d, 1e-6)
+    assert len(seen) == 2 and all(w is ctx.Wp for w in seen)
