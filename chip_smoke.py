@@ -48,7 +48,26 @@ PyTorch version on the card, and drives the port's paths:
 13. ``hsd_solve_two_pass``: the per-instance ladder (4,096 lanes) and the
     shared-A delegation (bitwise equal to ``hsd_solve_scan``);
 14. the CLI as a subprocess (``python -m pycllp_tpu_torch solve`` on an
-    MPS file, and ``info``); ``checked_solve`` on a clean batch.
+    MPS file, and ``info``); ``checked_solve`` on a clean batch;
+15. ``scenario_parallel``, the scenario-sharded layer (``parallel/``) on
+    the main cell: (a) one NCCL rank runs ``sharded_hsd_solve_scan``, in
+    turns with ``hsd_solve_scan`` (statuses bitwise, objectives to 1e-12);
+    (b) two gloo ranks that share the card, 32,768 lanes each (all
+    OPTIMAL, audited, objectives to 1e-6 of (a)); (c) ``sharded_hsd_solve``
+    on 8,192 lanes on the fused-form set, collective and local termination
+    (status agreement with the unsharded solve, equal host-loop counts on
+    both ranks in collective mode); and the cost of one ``CollectiveAny``;
+16. ``big_lp``: the column-sharded solve of one 512 × 4,096 LP (B = 2,
+    f32 + f64 finish) on two gloo ranks with the replicated and the
+    row-sharded factor, the registry's ``schur`` solver on a problem with
+    an odd column count, each audited against HiGHS, and the row-sharded
+    FP64 Cholesky against ``torch.linalg.cholesky``.
+
+Ranks are processes started with the spawn method (``torch.multiprocessing``)
+that meet through a ``file://`` store under ``build/``; each writes its
+report to a file there, and the parent checks every rank's.  The ranks of
+one run share the one card: their walls measure the collectives' cost and
+correctness, not scaling across cards.
 
 Usage (from the repository root, one CUDA card):
 
@@ -67,27 +86,33 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing
 import os
+import pickle
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from pycllp_tpu_torch import SolverOptions, Status, available_solvers, get_solver  # noqa: E402
+from pycllp_tpu_torch import parallel  # noqa: E402
 from pycllp_tpu_torch.io import netlib  # noqa: E402
-from pycllp_tpu_torch.io.generate import random_standard_lp  # noqa: E402
+from pycllp_tpu_torch.io.generate import random_equality_lp, random_standard_lp  # noqa: E402
 from pycllp_tpu_torch.io.mps import write_mps  # noqa: E402
 from pycllp_tpu_torch.ops import _build  # noqa: E402
 from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
+from pycllp_tpu_torch.parallel.dchol import rowshard_cholesky, rowshard_cholesky_solve  # noqa: E402
 from pycllp_tpu_torch.solvers import hsd as hsd_mod  # noqa: E402
 from pycllp_tpu_torch.solvers.dense_path import dense_path_solve_batched  # noqa: E402
 from pycllp_tpu_torch.solvers.twopass import hsd_solve_two_pass  # noqa: E402
@@ -1873,7 +1898,8 @@ def phase_config2(smi: str) -> dict:
 
 def phase_config1(smi: str) -> dict:
     """Config 1 (bench.py run_correctness) through hsd_pallas on the card,
-    every registry backend on the same batch, and dense_path in f32 on
+    every registry backend on the same batch (schur, with no process
+    group, on a mesh of one device), and dense_path in f32 on
     BATCHLAST_KERNELS against the reference set."""
     lp = random_standard_lp(30, 50, nlp=64, seed=1)
 
@@ -1894,7 +1920,7 @@ def phase_config1(smi: str) -> dict:
     check(counts["chol_bl"] > 0, "config 1: chol_bl was never launched")
 
     names = available_solvers()
-    check(names == ["cpp_hsd", "dense_path", "hsd", "hsd_pallas", "scipy"],
+    check(names == ["cpp_hsd", "dense_path", "hsd", "hsd_pallas", "schur", "scipy"],
           f"available_solvers() = {names}")
     line = []
     for name in names:
@@ -2009,6 +2035,327 @@ def phase_checked_solve(smi: str) -> None:
     check(report == [] and not (st == int(Status.NUMERICAL)).any(), "checked_solve: not clean")
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer: ranks that share the one card
+# ---------------------------------------------------------------------------
+
+# (c) of scenario_parallel: the first lanes of the main cell, solved with
+# hsd_solve_batched on each rank at the main options, collective and local
+PARALLEL_N = 8192
+PARALLEL_AGREE = 0.999  # status agreement of (c) with the unsharded solve
+ANY_REPS = 200  # CollectiveAny calls timed per rank
+# big_lp: one dense 512 × 4,096 equality LP, B = 2, f32 + f64 finish at
+# __graft_entry__.py's options; the registry's schur solver on a 512 × 3,583
+# Vanderbei LP, whose equality form has 4,095 columns (odd: padded to 4,096)
+BIG_M, BIG_N, BIG_B = 512, 4096, 2
+BIG_STD_N = BIG_N - 1 - BIG_M
+BIG_OPTIONS = dict(tol=1e-6, maxiter=40, dtype="float32", init_point="mehrotra",
+                   finish_dtype="float64", switch_tol=1e-4, finish_maxiter=20)
+DCHOL_RTOL = 1e-10  # the row-sharded FP64 factor vs torch.linalg.cholesky
+
+
+def _spawn_ranks(fn, nprocs: int, *args) -> list:
+    """Run ``fn(rank, init_file, out_dir, *args)`` on ``nprocs`` processes
+    (spawn start method, ``file://`` rendezvous under ``build/``) and return
+    the report each rank wrote with :func:`_report`, by rank.  A rank that
+    raises fails the spawn, and with it the run."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ranks-", dir=os.path.join(ROOT, "build")) as tmp:
+        torch.multiprocessing.spawn(fn, args=(os.path.join(tmp, "rendezvous"), tmp) + args,
+                                    nprocs=nprocs, join=True)
+        reports = []
+        for r in range(nprocs):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                reports.append(pickle.load(f))  # written by _report in this run
+    return reports
+
+
+def _report(out_dir: str, rank: int, report: dict) -> None:
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(report, f)
+
+
+def _join(rank: int, init_file: str, world: int, backend: str):
+    """Start this rank's group on the one card; returns the scenario mesh."""
+    torch.cuda.set_device(0)
+    check(parallel.initialize(f"file://{init_file}", world_size=world, rank=rank, backend=backend,
+                              timeout_s=600), "the process group did not start")
+    _build.load()  # the parent built the library; load it before any timing
+    return parallel.scenario_mesh()
+
+
+def _any_us(mesh) -> float:
+    """Host time of one CollectiveAny call on a 16,384-lane mask, in µs."""
+    gate = parallel.CollectiveAny(mesh)
+    mask = torch.zeros(16384, dtype=torch.bool, device=CARD)
+    gate(mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ANY_REPS):
+        gate(mask)
+    return (time.perf_counter() - t0) / ANY_REPS * 1e6
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    return out, time.perf_counter() - t0
+
+
+def _rank_scan_nccl(rank: int, init_file: str, out_dir: str) -> None:
+    """(a): one rank on NCCL runs the main cell through
+    sharded_hsd_solve_scan, in turns with hsd_solve_scan on the same data
+    (plain, sharded, sharded, plain), after one untimed plain solve."""
+    mesh = _join(rank, init_file, 1, "nccl")
+    check(dist.get_backend() == "nccl" and mesh.size() == 1, "not a one-rank NCCL mesh")
+    _, A, b, c = _bench_problem(N_LP)
+    opts = SolverOptions(**BENCH_OPTIONS)
+
+    def plain():
+        return hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
+                                      **SCAN_KW)
+
+    def sharded():
+        return parallel.sharded_hsd_solve_scan(A, b, c, opts, mesh, bl.BATCHLAST_KERNELS,
+                                               device="cuda", **SCAN_KW)
+
+    _timed(plain)  # the process's first solve: allocator and library set-up
+    ref, p1 = _timed(plain)
+    zero_counts()
+    out, s1 = _timed(sharded)
+    counts = read_counts()
+    _, s2 = _timed(sharded)
+    _, p2 = _timed(plain)
+    _report(out_dir, rank, {"ref": ref, "out": out, "counts": counts, "plain_s": (p1, p2),
+                            "sharded_s": (s1, s2), "any_us": _any_us(mesh)})
+    dist.destroy_process_group()
+
+
+def _rank_two_on_one_card(rank: int, init_file: str, out_dir: str) -> None:
+    """(b) and (c) on one of two gloo ranks that share the card: the main
+    cell through sharded_hsd_solve_scan (32,768 lanes a rank), then
+    sharded_hsd_solve on PARALLEL_N lanes on the fused-form set, with
+    collective and with local termination."""
+    mesh = _join(rank, init_file, 2, "gloo")
+    _, A, b, c = _bench_problem(N_LP)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    rep = {"any_us": _any_us(mesh)}
+    zero_counts()
+    rep["scan"], rep["scan_first_s"] = _timed(lambda: parallel.sharded_hsd_solve_scan(
+        A, b, c, opts, mesh, bl.BATCHLAST_KERNELS, device="cuda", **SCAN_KW))
+    rep["scan_counts"] = read_counts()
+    _, rep["scan_s"] = _timed(lambda: parallel.sharded_hsd_solve_scan(
+        A, b, c, opts, mesh, bl.BATCHLAST_KERNELS, device="cuda", **SCAN_KW))
+    for term in ("collective", "local"):
+        zero_counts()
+        out, secs = _timed(lambda: parallel.sharded_hsd_solve(
+            A, b[:PARALLEL_N], c[:PARALLEL_N], opts, mesh, bl.BATCHLAST_FUSED_KERNELS,
+            termination=term, device="cuda"))
+        rep[term] = {"status": out["status"], "objective": out["objective"], "s": secs,
+                     "counts": read_counts()}
+    if rank:  # rank 0 carries the gathered arrays; the others their counts
+        rep["scan"] = None
+        for term in ("collective", "local"):
+            rep[term].update(status=None, objective=None)
+    _report(out_dir, rank, rep)
+    dist.destroy_process_group()
+
+
+def _big_lp_data():
+    """The big LP: one dense 512 × 4,096 equality LP with planted
+    certificates, two lanes of perturbed b/c, in f32; and the schur
+    solver's 512 × 3,583 Vanderbei LP (two lanes)."""
+    rng = np.random.default_rng(0)
+    A, b0, c0 = random_equality_lp(BIG_M, BIG_N, seed=9)
+    b = np.stack([b0 * (1 + 0.05 * rng.random(BIG_M)) for _ in range(BIG_B)]).astype(np.float32)
+    c = np.stack([c0 + 0.02 * rng.random(BIG_N) for _ in range(BIG_B)]).astype(np.float32)
+    std = random_standard_lp(BIG_M, BIG_STD_N, nlp=BIG_B, seed=12, dtype=np.float32)
+    return A.astype(np.float32), b, c, std
+
+
+def _spd_fp64(seed: int = 4):
+    """(2, 512, 512) FP64 SPD matrices on the card and a right-hand side."""
+    g = torch.Generator(device=CARD).manual_seed(seed)
+    X = torch.randn((2, BIG_M, 2 * BIG_M), generator=g, device=CARD, dtype=torch.float64)
+    M = X @ X.mT + BIG_M * torch.eye(BIG_M, device=CARD, dtype=torch.float64)
+    return M, torch.randn((2, BIG_M), generator=g, device=CARD, dtype=torch.float64)
+
+
+def _rank_big_lp(rank: int, init_file: str, out_dir: str) -> None:
+    """big_lp on one of two gloo ranks that share the card."""
+    _join(rank, init_file, 2, "gloo")
+    mesh = parallel.model_mesh()
+    A, b, c, std = _big_lp_data()
+    opts = SolverOptions(**BIG_OPTIONS)
+    rep = {}
+    for factor in ("replicated", "sharded"):
+        out, secs = _timed(lambda: parallel.column_sharded_hsd_solve(
+            A, b, c, opts, mesh, factor, device="cuda"))
+        rep[factor] = {"status": out["status"], "objective": out["objective"],
+                       "iterations": out["iterations"], "x_shape": out["x"].shape, "s": secs}
+    solver = get_solver("schur", mesh=mesh, device="cuda", **BIG_OPTIONS)
+    solver.init(std)
+    t0 = time.perf_counter()
+    sol = solver.solve()
+    rep["schur"] = {"status": sol.status, "objective": sol.objective,
+                    "iterations": sol.iterations, "x_shape": sol.x.shape,
+                    "s": time.perf_counter() - t0}
+    M, r = _spd_fp64()
+    mb = BIG_M // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lw, kks = rowshard_cholesky(M[:, rank * mb:(rank + 1) * mb].contiguous(), mesh, 2)
+    x = rowshard_cholesky_solve(Lw, kks, r, mesh, 2)
+    torch.cuda.synchronize()
+    rep["dchol"] = {"Lw": Lw.cpu(), "x": x.cpu(), "s": time.perf_counter() - t0}
+    _report(out_dir, rank, rep)
+    dist.destroy_process_group()
+
+
+def phase_scenario_parallel(smi: str) -> dict:
+    """The scenario-sharded layer on the main cell: (a) one NCCL rank,
+    sharded scan vs hsd_solve_scan; (b) two gloo ranks on the one card,
+    the sharded scan; (c) sharded_hsd_solve on PARALLEL_N lanes, collective
+    and local.  The ranks share cuda:0, so their walls measure the
+    collective's cost and correctness, not scaling."""
+    (a,) = _spawn_ranks(_rank_scan_nccl, 1)
+    st, ref_st = a["out"]["status"], a["ref"]["status"]
+    obj, ref_obj = a["out"]["objective"], a["ref"]["objective"]
+    rel_a = float((np.abs(obj - ref_obj) / np.maximum(1.0, np.abs(ref_obj))).max())
+    check_smem_route("scenario_parallel (a)", a["counts"])
+    say("scenario_parallel", f"(a) 1 rank, NCCL: sharded_hsd_solve_scan vs hsd_solve_scan on "
+        f"{N_LP} LPs: statuses equal {np.array_equal(st, ref_st)}, objective max rel {rel_a:.3e} "
+        f"(limit 1e-12); walls in turns plain {a['plain_s'][0]:.3f}/{a['plain_s'][1]:.3f} s, "
+        f"sharded {a['sharded_s'][0]:.3f}/{a['sharded_s'][1]:.3f} s; CollectiveAny "
+        f"{a['any_us']:.1f} us a call (NCCL, 1 rank); launches {a['counts']} on {smi}")
+    check(np.array_equal(st, ref_st), "(a) sharded scan statuses differ from hsd_solve_scan")
+    check(rel_a <= 1e-12, f"(a) objectives differ by {rel_a:.3e}")
+
+    lp, _, _, _ = _bench_problem(N_LP)
+    ranks = _spawn_ranks(_rank_two_on_one_card, 2)
+    scan = ranks[0]["scan"]
+    for r, rep in enumerate(ranks):
+        check_smem_route(f"scenario_parallel (b) rank {r}", rep["scan_counts"])
+        for term in ("collective", "local"):
+            check_smem_route(f"scenario_parallel (c) {term} rank {r}", rep[term]["counts"])
+    n_opt = int((scan["status"] == int(Status.OPTIMAL)).sum())
+    rel_b = np.abs(scan["objective"] - obj) / np.maximum(1.0, np.abs(obj))
+    say("scenario_parallel", f"(b) 2 gloo ranks on one card, {N_LP // 2} lanes a rank: "
+        f"{n_opt}/{N_LP} OPTIMAL; objectives vs (a) max rel {rel_b.max():.3e}; walls rank 0/1 "
+        f"first {ranks[0]['scan_first_s']:.3f}/{ranks[1]['scan_first_s']:.3f} s, second "
+        f"{ranks[0]['scan_s']:.3f}/{ranks[1]['scan_s']:.3f} s; CollectiveAny "
+        f"{ranks[0]['any_us']:.1f}/{ranks[1]['any_us']:.1f} us a call (gloo through the host); "
+        f"launches rank 0 {ranks[0]['scan_counts']}, rank 1 {ranks[1]['scan_counts']} on {smi}")
+    check(n_opt == N_LP, f"(b) {n_opt}/{N_LP} OPTIMAL")
+    _audit_main("scenario_parallel (b)", lp, -scan["objective"], scan["status"])
+    check(rel_b.max() <= CONTRACT, f"(b) objectives differ from (a) by {rel_b.max():.3e}")
+
+    # (c): against one unsharded solve of the same lanes, in this process
+    _, A, b, c = _bench_problem(N_LP)
+    zero_counts()
+    ref = hsd_mod.hsd_solve_batched(A, b[:PARALLEL_N], c[:PARALLEL_N],
+                                    SolverOptions(**BENCH_OPTIONS), bl.BATCHLAST_FUSED_KERNELS,
+                                    device="cuda")
+    ref_st, ref_obj = ref["status"].cpu().numpy(), ref["objective"].cpu().numpy()
+    ref_steps = hsd_mod.HOST_STEPS
+    for term in ("collective", "local"):
+        out = ranks[0][term]
+        agree = float((out["status"] == ref_st).mean())
+        both = (out["status"] == int(Status.OPTIMAL)) & (ref_st == int(Status.OPTIMAL))
+        rel = float((np.abs(out["objective"] - ref_obj) / np.maximum(1.0, np.abs(ref_obj)))[
+            both].max())
+        steps = [rep[term]["counts"]["host_steps"] for rep in ranks]
+        say("scenario_parallel", f"(c) {term}: sharded_hsd_solve on {PARALLEL_N} lanes "
+            f"({bl.BATCHLAST_FUSED_KERNELS.name}): status agreement with the unsharded "
+            f"solve {agree:.4%} (limit {PARALLEL_AGREE:.1%}), objective max rel {rel:.3e} on "
+            f"{int(both.sum())} lanes OPTIMAL in both; host-loop iterations rank 0/1 {steps} "
+            f"(unsharded {ref_steps}); walls {ranks[0][term]['s']:.3f}/{ranks[1][term]['s']:.3f} "
+            f"s; launches rank 0 {ranks[0][term]['counts']} on {smi}")
+        check(agree >= PARALLEL_AGREE, f"(c) {term}: status agreement {agree:.4f}")
+        check(rel <= CONTRACT, f"(c) {term}: objectives differ by {rel:.3e}")
+        if term == "collective":
+            check(steps[0] == steps[1], f"(c) collective: host-loop iterations differ {steps}")
+    check(ranks[0]["collective"]["counts"]["fused_factor_bl"] > 0,
+          "(c) fused_factor_bl was never launched")
+    launches = {}
+    for name in SOURCES:
+        launches[name] = {
+            "a_nccl_scan": a["counts"][name],
+            "b_gloo_scan": [rep["scan_counts"][name] for rep in ranks],
+            "c_collective": [rep["collective"]["counts"][name] for rep in ranks],
+            "c_local": [rep["local"]["counts"][name] for rep in ranks],
+        }
+    return launches
+
+
+def _highs(job) -> float:
+    """scipy's HiGHS (interior point, then crossover) objective of one big
+    LP: ``job`` is ("eq", c, A, b) or ("ub", c, A, b)."""
+    from scipy.optimize import linprog
+
+    form, cost, A, rhs = job
+    kw = dict(A_eq=A, b_eq=rhs) if form == "eq" else dict(A_ub=A, b_ub=rhs)
+    res = linprog(cost, bounds=[(0, None)] * A.shape[1], method="highs-ipm", **kw)
+    if res.status != 0:
+        raise RuntimeError(f"highs could not solve the big LP: {res.message}")
+    return float(res.fun)
+
+
+def phase_big_lp(smi: str) -> None:
+    """The column-sharded big LP on two gloo ranks that share the card: both
+    factor strategies, the registry's schur solver (odd n, padded), and the
+    row-sharded FP64 factor against torch.linalg.cholesky; audited against
+    HiGHS, whose four solves run in a pool after the ranks are done."""
+    ranks = _spawn_ranks(_rank_big_lp, 2)
+    A, b, c, std = _big_lp_data()
+    A64 = A.astype(np.float64)
+    jobs = [("eq", c[i].astype(np.float64), A64, b[i].astype(np.float64)) for i in range(BIG_B)]
+    jobs += [("ub", -np.asarray(std.c[i], np.float64), np.asarray(std.A, np.float64),
+              np.asarray(std.b[i], np.float64)) for i in range(BIG_B)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        funs = list(pool.map(_highs, jobs))
+    highs_s = time.perf_counter() - t0
+    for label in ("replicated", "sharded", "schur"):
+        outs = [rep[label] for rep in ranks]
+        for rep in outs[1:]:
+            check(np.array_equal(rep["status"], outs[0]["status"])
+                  and np.array_equal(rep["objective"], outs[0]["objective"]),
+                  f"big_lp {label}: the ranks' answers differ")
+        out = outs[0]
+        if label == "schur":  # the registry's answer is in Vanderbei (max) form
+            ref = funs[BIG_B:]
+            rels = [abs(float(out["objective"][i]) + ref[i]) / max(1.0, abs(ref[i]))
+                    for i in range(BIG_B)]
+            shape = f"{BIG_M}x{BIG_STD_N} Vanderbei (equality form {BIG_M}x{BIG_N - 1}, padded)"
+            want_x = (BIG_B, BIG_STD_N)
+        else:
+            rels = [abs(float(out["objective"][i]) - funs[i]) / max(1.0, abs(funs[i]))
+                    for i in range(BIG_B)]
+            shape = f"{BIG_M}x{BIG_N} equality"
+            want_x = (BIG_B, BIG_N)
+        say("big_lp", f"{label}: {shape}, B={BIG_B}, f32 + f64 finish, 2 gloo ranks on one card: "
+            f"status {out['status'].tolist()}, iterations {out['iterations'].tolist()}, rel vs "
+            f"HiGHS {', '.join(f'{e:.2e}' for e in rels)} (limit {CONTRACT}); walls rank 0/1 "
+            f"{outs[0]['s']:.3f}/{outs[1]['s']:.3f} s on {smi}")
+        check((out["status"] == int(Status.OPTIMAL)).all(), f"big_lp {label}: not all OPTIMAL")
+        check(max(rels) <= CONTRACT, f"big_lp {label}: rel vs HiGHS {max(rels):.3e}")
+        check(tuple(out["x_shape"]) == want_x, f"big_lp {label}: x shape {out['x_shape']}")
+    M, r = _spd_fp64()
+    L = torch.linalg.cholesky(M).cpu()
+    Lw = torch.cat([rep["dchol"]["Lw"] for rep in ranks], dim=1)
+    rel_l = rel_err(Lw, L)
+    x_ref = torch.linalg.solve(M, r[..., None])[..., 0].cpu()
+    rel_x = max(rel_err(rep["dchol"]["x"], x_ref) for rep in ranks)
+    say("big_lp", f"rowshard_cholesky, m={BIG_M}, B=2, FP64, 2 ranks: L vs torch.linalg.cholesky "
+        f"rel {rel_l:.3e}, solve vs torch.linalg.solve rel {rel_x:.3e} (limit {DCHOL_RTOL}); "
+        f"factor + solve {ranks[0]['dchol']['s']:.3f}/{ranks[1]['dchol']['s']:.3f} s on {smi}; "
+        f"HiGHS audit of {len(jobs)} LPs in a pool {highs_s:.1f}s")
+    check(rel_l <= DCHOL_RTOL and rel_x <= DCHOL_RTOL, "big_lp: the row-sharded factor disagrees")
+
+
 def main() -> None:
     kind, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2031,6 +2378,8 @@ def main() -> None:
     twopass = phase_twopass(smi)
     phase_cli(kind, smi)
     phase_checked_solve(smi)
+    parallel = phase_scenario_parallel(smi)
+    phase_big_lp(smi)
     # launches: each kernel's count on the full main path that runs it (the
     # default set's, or the fused set's for the fused kernels); the narrow
     # path's, the df64 probe's (which must run the FP64 factor/solve) and
@@ -2045,6 +2394,7 @@ def main() -> None:
                        "sweep_launches": sweep_counts[name],
                        "netlib_launches": netlib_counts[name], "config2_launches": config2[name],
                        "config1_launches": config1[name], "twopass_launches": twopass[name],
+                       "parallel_launches": parallel[name],
                        "max_abs_err": max(r["err"], held[name]["err"]), "ms": r["ms"],
                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "bound_unit": r["bound_unit"],

@@ -4,7 +4,7 @@ Batched interior-point LP solving where thousands of independent LP
 instances (scenarios) are solved together on one NVIDIA GPU.  The JAX
 package ``pycllp_tpu`` is the reference; this package mirrors its layout
 and names module for module (``models/``, ``io/``, ``ops/``, ``solvers/``,
-``utils/``), imports ``torch`` and numpy, and never JAX.
+``utils/``, ``parallel/``), imports ``torch`` and numpy, and never JAX.
 
 Ported so far: the batched HSD solve of the default bench configuration —
 the narrow f32 phase (Ruiz scaling, the Mehrotra start, the KKT-refined
@@ -21,9 +21,11 @@ sweep (``utils/sweep.py``) and per-iteration metrics
 ``dense_path`` (on the same kernel sets), ``scipy`` (the oracle),
 ``cpp_hsd`` (the reference's native C++ solver through ctypes) and the
 two-pass ladder (``solvers/twopass.py``); ``utils/profiling.py``,
-``utils/debug.py`` and the CLI (``python -m pycllp_tpu_torch``).  Not
-ported yet: the multi-device layer (``parallel/``) and the schur solver
-(ROADMAP.md).
+``utils/debug.py`` and the CLI (``python -m pycllp_tpu_torch``); and the
+multi-device layer (``parallel/``: scenario sharding with collective or
+local termination, the column-sharded big LP with its row-sharded
+Cholesky) on a ``torch.distributed`` process group, with the registry's
+``schur`` solver.
 
 The device is explicit: solvers take ``device=`` (default ``"cuda"``),
 and a CUDA request without a card raises.  Pass ``device="cpu"`` to run

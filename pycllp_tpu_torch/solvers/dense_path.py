@@ -24,7 +24,7 @@ import torch
 
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.solvers.base import BaseSolver, register_solver
-from pycllp_tpu_torch.solvers.hsd import _full_precision_matmuls, _resolve_dtype, _to
+from pycllp_tpu_torch.solvers.hsd import _any_running, _full_precision_matmuls, _resolve_dtype, _to
 from pycllp_tpu_torch.solvers.options import Solution, SolverOptions, Status
 from pycllp_tpu_torch.utils.device import resolve_device
 from pycllp_tpu_torch.utils.scaling import ruiz_equilibrate, scale_problem, unscale_solution
@@ -53,17 +53,20 @@ def dense_path_solve_batched(
     c,
     opts: SolverOptions = SolverOptions(),
     kset: KernelSet = REFERENCE_KERNELS,
+    reduce_any=None,
     *,
     device="cuda",
 ):
     """Batched path-following solve; same output dict as ``hsd_solve_batched``
-    (tensors on ``device``).  A CUDA request without a card raises."""
+    (tensors on ``device``).  A CUDA request without a card raises.
+    ``reduce_any`` reduces the loop predicate's RUNNING mask, as in
+    ``hsd_solve_batched`` (None: locally)."""
     dev = resolve_device(device)
     with _full_precision_matmuls():
-        return _impl(A, b, c, opts, kset, dev)
+        return _impl(A, b, c, opts, kset, dev, reduce_any)
 
 
-def _impl(A, b, c, opts, kset, dev):
+def _impl(A, b, c, opts, kset, dev, reduce_any):
     dtype = _resolve_dtype(opts, A, b, c)
     A, b, c = _to(A, dtype, dev), _to(b, dtype, dev), _to(c, dtype, dev)
     B, m = b.shape
@@ -97,7 +100,7 @@ def _impl(A, b, c, opts, kset, dev):
     status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
     iterations = torch.zeros((B,), dtype=torch.int32, device=dev)
     k = 0
-    while k < opts.maxiter and bool((status == _RUNNING).any()):
+    while k < opts.maxiter and _any_running(status, reduce_any):
         rp, rd, gap, ok = classify(x, y, z)
         status = torch.where((status == _RUNNING) & ok, _OPTIMAL, status)
         active = status == _RUNNING

@@ -324,14 +324,24 @@ def _make_step_fn(ctx, b, c, opts: SolverOptions, kset: KernelSet, dtype):
     return step
 
 
+def _any_running(status, reduce_any) -> bool:
+    """The loop predicate's lane test: ``any(status == RUNNING)``, reduced
+    by ``reduce_any`` (a mask -> bool callable; the sharded solve passes
+    a collective one) or locally when it is None."""
+    mask = status == _RUNNING
+    return bool(mask.any()) if reduce_any is None else bool(reduce_any(mask))
+
+
 def _run_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
-    dtype, tol: float, maxiter: int,
+    dtype, tol: float, maxiter: int, reduce_any=None,
 ) -> HSDState:
     """Run the masked IPM loop until all lanes finish or ``k == maxiter``.
 
     The reference's ``lax.while_loop`` as a host loop: the predicate is
-    read back from the device once per iteration.
+    read back from the device once per iteration.  ``k < maxiter`` is
+    tested first, so ``reduce_any`` (a collective) runs on every rank at
+    the same ``k``.
     """
     global HOST_STEPS
     step = _make_step_fn(ctx, b, c, opts, kset, dtype)
@@ -412,7 +422,7 @@ def _run_phase(
         )
 
     s = state
-    while s.k < maxiter and bool((s.status == _RUNNING).any()):
+    while s.k < maxiter and _any_running(s.status, reduce_any):
         s = body(s)
         HOST_STEPS += 1
     return s
@@ -436,7 +446,7 @@ def _log_iteration(s: HSDState, ind: _Indicators, mu, active) -> None:
 
 def _run_narrow_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
-    dtype, tol: float, maxiter: int,
+    dtype, tol: float, maxiter: int, reduce_any=None,
 ) -> HSDState:
     """Narrow IPM phase with the ``kkt_warmup`` refine schedule: the first
     ``kkt_warmup`` iterations run with ``kkt_refine=0``, then the loop
@@ -446,9 +456,9 @@ def _run_narrow_phase(
     if opts.kkt_refine and w:
         state = _run_phase(
             ctx, b, c, state, opts.replace(kkt_refine=0), kset, dtype, tol,
-            min(w, maxiter),
+            min(w, maxiter), reduce_any,
         )
-    return _run_phase(ctx, b, c, state, opts, kset, dtype, tol, maxiter)
+    return _run_phase(ctx, b, c, state, opts, kset, dtype, tol, maxiter, reduce_any)
 
 
 def _finalize(ctx, b, c, s: HSDState, kset: KernelSet, tol):
@@ -893,6 +903,7 @@ def hsd_solve_batched(
     c,
     opts: SolverOptions = SolverOptions(),
     kset: KernelSet = REFERENCE_KERNELS,
+    reduce_any=None,
     *,
     warm=None,
     device="cuda",
@@ -903,6 +914,10 @@ def hsd_solve_batched(
     ----------
     A : (m, n) shared or (B, m, n) per-instance constraint matrices.
     b : (B, m); c : (B, n).  numpy arrays or tensors.
+    reduce_any : mask reduction of the loop predicate (a callable taking
+        the (B,) RUNNING mask to a bool); None reduces locally.  The
+        sharded solve passes :class:`pycllp_tpu_torch.parallel.CollectiveAny`
+        so every rank's loops leave on the same iteration.
     warm : optional (x, y, z) starting point in UNSCALED equality
         coordinates, batched — typically the previous solve's solution on
         a nearby problem.  Overrides ``opts.init_point``.
@@ -915,10 +930,10 @@ def hsd_solve_batched(
     """
     dev = resolve_device(device)
     with _full_precision_matmuls():
-        return _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm)
+        return _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm, reduce_any)
 
 
-def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
+def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None):
     dtype = _resolve_dtype(opts, A, b, c)
     _require_ported(opts, dtype)
     fdtype = _finish_dtype(opts, dtype)
@@ -953,7 +968,8 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
     state = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=warm)
 
     phase1_tol = max(opts.tol, opts.switch_tol) if fdtype else opts.tol
-    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, phase1_tol, opts.maxiter)
+    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, phase1_tol, opts.maxiter,
+                              reduce_any)
     if fdtype is None:
         return _package(ctx, b_s, c_s, state, kset, opts, scaling, c_w)
 
@@ -980,7 +996,8 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
         )
     wopts = _wide_opts(opts)
     state = _run_phase(
-        ctx, b_sw, c_sw, state, wopts, fkset, fdtype, opts.tol, opts.maxiter + opts.finish_maxiter
+        ctx, b_sw, c_sw, state, wopts, fkset, fdtype, opts.tol, opts.maxiter + opts.finish_maxiter,
+        reduce_any,
     )
     if opts.finish_mode == "crossover":
         # second attempt after the IPM sharpened the rejects, and a rescue
@@ -997,7 +1014,7 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None):
         state = _restart_merge(state, fresh, retry)
         state = _run_phase(
             ctx, b_sw, c_sw, state, wopts.replace(stall_patience=_NO_STALL), fkset, fdtype,
-            opts.tol, opts.finish_maxiter + 10,
+            opts.tol, opts.finish_maxiter + 10, reduce_any,
         )
     return _package(ctx, b_sw, c_sw, state, fkset, opts, scaling, c_w)
 

@@ -33,11 +33,6 @@ _OUT_KEYS = (
     "rho_p", "rho_d", "rho_gap",
 )
 
-REDUCE_ANY_NOT_PORTED = (
-    "reduce_any= (collective termination across devices) belongs to the "
-    "parallel slice of the port (ROADMAP.md §1 item 6), which is not ported yet"
-)
-
 
 def _bucket(size: int, min_bucket: int, max_bucket: int) -> int:
     """Smallest power-of-two bucket ≥ size (clamped): few distinct shapes."""
@@ -70,8 +65,13 @@ def hsd_solve_two_pass(
         cap continue (shared A: resume warm; 3-D A: re-solve from
         scratch) with the full ``opts.maxiter``.
     min_bucket : smallest remnant padding bucket.
-    reduce_any : not ported (raises ``NotImplementedError``): collective
-        termination is the parallel slice's.
+    reduce_any : mask reduction of every per-instance solve's loop
+        predicate (see ``hsd_solve_batched``); shared 2-D A does not take
+        it (``ValueError``: use ``pycllp_tpu_torch.parallel.sharded_hsd_solve``).
+        On 3-D A the number of pass-2 solves follows this process's own
+        remnant count, so a collective ``reduce_any`` (``CollectiveAny``)
+        is only safe where every rank has the same number of remnant
+        buckets; as in the reference, nothing here aligns them.
     keys : which output fields to return.
     device : where the solves run (``"cuda"`` by default).
 
@@ -80,8 +80,6 @@ def hsd_solve_two_pass(
     across the warm resume; for 3-D A remnant lanes report the pass-2
     from-scratch count.
     """
-    if reduce_any is not None:
-        raise NotImplementedError(REDUCE_ANY_NOT_PORTED)
     dev = resolve_device(device)
     b = torch.as_tensor(b, device=dev)
     c = torch.as_tensor(c, device=dev)
@@ -95,6 +93,12 @@ def hsd_solve_two_pass(
         # shared structure: the compact sweep IS the mechanism (pass-1 cap
         # → compaction → warm resume with the full budget).  The resume
         # bucket covers every lane, so no remnant overflows.
+        if reduce_any is not None:
+            raise ValueError(
+                "reduce_any is not supported on the shared-A two-pass path; "
+                "use pycllp_tpu_torch.parallel.sharded_hsd_solve for collective "
+                "termination"
+            )
         out = hsd_solve_scan(
             A, b, c, opts, kset,
             chunk=chunk, keys=want,
@@ -110,7 +114,7 @@ def hsd_solve_two_pass(
     pass1 = []
     for k in range(B // chunk):
         sl = slice(k * chunk, (k + 1) * chunk)
-        pass1.append(hsd_solve_batched(A[sl], b[sl], c[sl], opts1, kset, device=dev))
+        pass1.append(hsd_solve_batched(A[sl], b[sl], c[sl], opts1, kset, reduce_any, device=dev))
     status = torch.cat([p["status"] for p in pass1]).cpu().numpy()
 
     remnant = np.flatnonzero(status == int(Status.ITERATION_LIMIT))
@@ -123,7 +127,8 @@ def hsd_solve_two_pass(
             pad = nb - idx.size
             rows = np.concatenate([idx, np.repeat(idx[-1:], pad)]) if pad else idx
             r = torch.from_numpy(rows).to(dev)
-            subs.append((idx, hsd_solve_batched(A[r], b[r], c[r], opts, kset, device=dev)))
+            subs.append((idx, hsd_solve_batched(A[r], b[r], c[r], opts, kset, reduce_any,
+                                                device=dev)))
 
     out = {}
     for key in want:

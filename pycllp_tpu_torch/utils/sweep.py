@@ -23,8 +23,10 @@ import numpy as np
 import torch
 
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_tpu_torch.parallel.collectives import psum
 from pycllp_tpu_torch.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 from pycllp_tpu_torch.solvers.options import SolverOptions
+from pycllp_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SweepResult", "scenario_sweep"]
 
@@ -49,6 +51,19 @@ def _dtype_name(opts: SolverOptions, b) -> str:
     if opts.dtype:
         return str(np.dtype(opts.dtype))
     return str(b.dtype).removeprefix("torch.")
+
+
+def _check_manifest(out_dir: str, manifest: dict) -> bool:
+    """Create the sweep directory and its manifest, or check the one there:
+    False when it holds a different configuration."""
+    os.makedirs(out_dir, exist_ok=True)
+    mpath = os.path.join(out_dir, _MANIFEST)
+    if not os.path.exists(mpath):
+        with open(mpath, "w") as f:
+            json.dump(manifest, f)
+        return True
+    with open(mpath) as f:
+        return json.load(f) == manifest
 
 
 def _repeat_last(v, pad: int):
@@ -101,21 +116,24 @@ def scenario_sweep(
     :func:`hsd_solve_scan`); the chain restarts at window boundaries, and
     therefore on resume.
 
-    ``mesh`` (a sharded sweep) raises ``NotImplementedError``: sharding is
-    ported with ``parallel/`` (ROADMAP.md §1 item 6).
+    ``mesh``: a scenario mesh (:func:`pycllp_tpu_torch.parallel.scenario_mesh`);
+    every rank calls the sweep with the same arguments, and each chunk is
+    solved by :func:`pycllp_tpu_torch.parallel.sharded_hsd_solve` (one
+    chunk a call; the scan path is off).  Only the mesh's rank 0 writes
+    the manifest and the chunk files.  Rank 0 alone checks the manifest
+    and decides which chunks are missing, and broadcasts that (the
+    collective is every other rank's barrier before it reads a chunk
+    file), so every rank solves the same chunks and calls the same
+    collectives, and a mismatched directory raises on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "scenario_sweep(mesh=...): sharded sweeps come with the port of "
-            "parallel/ (ROADMAP.md §1 item 6)"
-        )
     N = b.shape[0]
     if c.shape[0] != N:
         raise ValueError("b and c must agree on the scenario count")
     n_chunks = -(-N // chunk)
+    writer = mesh is None or mesh.get_local_rank() == 0
 
+    done = np.zeros(n_chunks, bool)  # chunks found on disk
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
         manifest = {
             "N": int(N),
             "chunk": int(chunk),
@@ -125,24 +143,34 @@ def scenario_sweep(
             "dtype": _dtype_name(opts, b),
             "save_x": bool(save_x),
         }
-        mpath = os.path.join(out_dir, _MANIFEST)
-        if os.path.exists(mpath):
-            with open(mpath) as f:
-                old = json.load(f)
-            if old != manifest:
-                raise ValueError(
-                    f"sweep dir {out_dir} holds a different configuration:"
-                    f" {old} != {manifest}"
-                )
-        else:
-            with open(mpath, "w") as f:
-                json.dump(manifest, f)
+        manifest_ok = True
+        if writer:
+            manifest_ok = _check_manifest(out_dir, manifest)
+            done = np.array([os.path.exists(_chunk_path(out_dir, k)) for k in range(n_chunks)])
+        if mesh is not None:
+            # rank 0's verdict and chunk list, to every rank (the others
+            # contribute zeros to the sum)
+            flags = torch.zeros(n_chunks + 1, dtype=torch.int32, device=resolve_device(device))
+            if writer:
+                flags[0] = int(manifest_ok)
+                flags[1:] = torch.from_numpy(done)
+            flags = psum(flags, mesh).cpu()
+            manifest_ok, done = bool(flags[0]), flags[1:].numpy().astype(bool)
+        if not manifest_ok:
+            raise ValueError(f"sweep dir {out_dir} holds a different configuration than {manifest}")
 
-    scan_ok = solve_fn is None and getattr(A, "ndim", 2) == 2
+    scan_ok = solve_fn is None and mesh is None and getattr(A, "ndim", 2) == 2
     if solve_fn is None:
+        if mesh is not None:
+            from pycllp_tpu_torch.parallel import sharded_hsd_solve
 
-        def solve_fn(Ab, bb, cb):
-            return hsd_solve_batched(Ab, bb, cb, opts, kset, device=device)
+            def solve_fn(Ab, bb, cb):
+                return sharded_hsd_solve(Ab, bb, cb, opts, mesh=mesh, kset=kset, device=device)
+
+        else:
+
+            def solve_fn(Ab, bb, cb):
+                return hsd_solve_batched(Ab, bb, cb, opts, kset, device=device)
 
     objective = np.zeros(N)
     status = np.zeros(N, np.int32)
@@ -161,7 +189,7 @@ def scenario_sweep(
     while k < n_chunks:
         kw = min(window, n_chunks - k)
         paths = [_chunk_path(out_dir, k + j) if out_dir else None for j in range(kw)]
-        missing = [j for j, p in enumerate(paths) if p is None or not os.path.exists(p)]
+        missing = [j for j in range(kw) if not done[k + j]]
         for j in range(kw):
             if j in missing:
                 continue
@@ -196,7 +224,7 @@ def scenario_sweep(
                 objective[lo:hi] = out["objective"][sl][: hi - lo]
                 status[lo:hi] = out["status"][sl][: hi - lo]
                 iterations[lo:hi] = out["iterations"][sl][: hi - lo]
-                if paths[j]:
+                if paths[j] and writer:
                     persist(paths[j], sl, out, lo, hi)
         if progress is not None:
             progress(min(k + kw, n_chunks), n_chunks)

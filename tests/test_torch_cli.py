@@ -88,6 +88,6 @@ def test_info_runs_without_card():
     proc = subprocess.run([sys.executable, "-m", "pycllp_tpu_torch", "info"], cwd=ROOT,
                           capture_output=True, text=True, timeout=300, check=True)
     assert "torch " in proc.stdout and "cuda available: " in proc.stdout
-    assert "'cpp_hsd', 'dense_path', 'hsd', 'hsd_pallas', 'scipy'" in proc.stdout
+    assert "'cpp_hsd', 'dense_path', 'hsd', 'hsd_pallas', 'schur', 'scipy'" in proc.stdout
     if not torch.cuda.is_available():
         assert "none (CPU only)" in proc.stdout

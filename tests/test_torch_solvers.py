@@ -33,6 +33,7 @@ from pycllp_tpu.solvers import dense_path as ref_dense
 from pycllp_tpu.utils import debug as ref_debug
 from pycllp_tpu.utils import profiling as ref_profiling
 from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
+from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS as REFERENCE_KERNELS_PORT
 from pycllp_tpu_torch.solvers import cpp as port_cpp
 from pycllp_tpu_torch.solvers.dense_path import dense_path_solve_batched
 from pycllp_tpu_torch.utils import debug, profiling
@@ -81,6 +82,27 @@ def test_dense_path_f32_batchlast_matches_jax_interpret():
     both = (port["status"] == OPTIMAL) & (ref["status"] == OPTIMAL)
     assert both.sum() >= 4
     np.testing.assert_allclose(port["objective"][both], ref["objective"][both], rtol=1e-4)
+
+
+def test_dense_path_reduce_any_gates_the_loop():
+    """dense_path's loop predicate goes through ``reduce_any`` (the
+    reference's argument): called before every pass of the loop (the last
+    pass classifies the last lanes OPTIMAL and steps none) and once to end
+    it, with the same answer as the local reduction."""
+    A, b, c = _batch(True)
+    opts = port_pkg.SolverOptions(tol=1e-8, maxiter=60)
+    calls = []
+
+    def reduce_any(mask):
+        calls.append(tuple(mask.shape))
+        return bool(mask.any())
+
+    out = _np(dense_path_solve_batched(A, b, c, opts, REFERENCE_KERNELS_PORT, reduce_any,
+                                       device="cpu"))
+    ref = _np(dense_path_solve_batched(A, b, c, opts, device="cpu"))
+    assert calls == [(12,)] * (int(out["iterations"].max()) + 2)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k])
 
 
 def test_dense_path_registry_matches_jax():
@@ -197,17 +219,13 @@ def test_port_reads_nothing_of_the_reference_package():
                 assert mod.split(".")[0] not in ("pycllp_tpu", "jax", "jaxlib"), (path, mod)
 
 
-# the reference's names that wait for the parallel slice (ROADMAP §1 item 6b)
-_UNPORTED_NAMES = {"schur", "column_sharded", "big_lp"}
-
-
 def test_registry_names_match_the_reference():
-    """Every registry name and alias of the reference, apart from the
-    schur solver's, names the port's counterpart; the port has no other."""
+    """Every registry name and alias of the reference names the port's
+    counterpart; the port has no other."""
     ref = {name: cls.name for name, cls in ref_pkg.solvers.solver_registry.items()}
     port = {name: cls.name for name, cls in port_pkg.solvers.solver_registry.items()}
-    assert _UNPORTED_NAMES <= ref.keys()
-    assert port == {k: v for k, v in ref.items() if k not in _UNPORTED_NAMES}
+    assert {"schur", "column_sharded", "big_lp"} <= port.keys()
+    assert port == ref
     solver = port_pkg.get_solver("jax_hsd", device="cpu")
     assert type(solver) is port_pkg.solvers.solver_registry["hsd"]
     assert solver.name == "hsd"
@@ -216,7 +234,7 @@ def test_registry_names_match_the_reference():
 def test_cross_backend_agreement():
     """Every available backend agrees on one batch (tests/test_hsd.py)."""
     names = port_pkg.available_solvers()
-    assert names == ["cpp_hsd", "dense_path", "hsd", "hsd_pallas", "scipy"]
+    assert names == ["cpp_hsd", "dense_path", "hsd", "hsd_pallas", "schur", "scipy"]
     lp = random_standard_lp(10, 15, nlp=4, seed=33)
     objs = {}
     for name in names:

@@ -1,10 +1,12 @@
 """Port parity: the checkpointed scenario sweep (``utils/sweep.py``).
 
-The cases of tests/test_sweep.py but the sharded one, run on the port and
-held against the JAX package's sweep on the same numpy inputs (f64,
-reference kernel sets): statuses and iteration counts equal, objectives
-to 1e-9.  Both packages write the same sweep directory format, so a
-sweep started by one is finished by the other.
+The cases of tests/test_sweep.py, run on the port and held against the
+JAX package's sweep on the same numpy inputs (f64, reference kernel
+sets): statuses and iteration counts equal, objectives to 1e-9.  Both
+packages write the same sweep directory format, so a sweep started by one
+is finished by the other.  The sharded sweep (``mesh=``) runs on 2 gloo
+ranks on the CPU: it equals the unsharded sweep, its resumed run equals
+its uninterrupted one, and a mismatched directory raises on both ranks.
 """
 
 import json
@@ -12,11 +14,16 @@ import os
 
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 import pycllp_tpu as ref_pkg
 from pycllp_tpu.io.generate import random_equality_lp
 from pycllp_tpu.utils.sweep import scenario_sweep as ref_sweep
 from pycllp_tpu_torch import SolverOptions, Status
+from pycllp_tpu_torch.io.generate import random_equality_lp as port_random_equality_lp
+from pycllp_tpu_torch.parallel import initialize, scenario_mesh
 from pycllp_tpu_torch.utils.sweep import scenario_sweep
 
 
@@ -217,7 +224,77 @@ def test_custom_solve_fn_pads_the_tail_chunk(sweep_problem, jax_whole):
     np.testing.assert_allclose(res.objective, jax_whole.objective, rtol=1e-9, atol=1e-12)
 
 
-def test_mesh_raises(sweep_problem):
+def _problem():
+    """sweep_problem's arrays from the port's generator (bit-identical),
+    for the ranks, which import no JAX."""
+    m, n, N = 6, 15, 50
+    A, _, _ = port_random_equality_lp(m, n, seed=40)
+    rng = np.random.default_rng(41)
+    b = rng.uniform(0.1, 1.0, size=(N, n)) @ A.T
+    c = rng.normal(size=(N, m)) @ A + rng.uniform(0.1, 1.0, size=(N, n))
+    return A, b, c
+
+
+def _sweep_rank(rank: int, init_file: str, out_dir: str) -> None:
+    """One of 2 ranks: a sharded sweep uninterrupted, then one stopped
+    after its first window and resumed, then a mismatched directory."""
+    torch.set_num_threads(1)
+    initialize(f"file://{init_file}", world_size=2, rank=rank, backend="gloo", timeout_s=120)
+    mesh = scenario_mesh()
+    A, b, c = _problem()
+    opts = SolverOptions(tol=1e-8)
+    whole = sweep(A, b, c, opts, chunk=16, mesh=mesh)
+    d = os.path.join(out_dir, "sweep")
+
+    def stop(done, total):
+        raise _Interrupt
+
+    try:
+        sweep(A, b, c, opts, chunk=16, mesh=mesh, out_dir=d, progress=stop)
+    except _Interrupt:
+        pass
+    files_after_stop = sorted(os.listdir(d))
+    resumed = sweep(A, b, c, opts, chunk=16, mesh=mesh, out_dir=d)
+    try:
+        sweep(A, b, c, SolverOptions(tol=1e-6), chunk=16, mesh=mesh, out_dir=d)
+        mismatch = ""
+    except ValueError as e:
+        mismatch = str(e)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             whole_objective=whole.objective, whole_status=whole.status,
+             whole_iterations=whole.iterations, resumed_objective=resumed.objective,
+             resumed_status=resumed.status, n_resumed=resumed.n_resumed,
+             files_after_stop=np.array(files_after_stop), mismatch=mismatch)
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sharded_sweep")
+    mp.spawn(_sweep_rank, args=(str(d / "rendezvous"), str(d)), nprocs=2, join=True)
+    return [dict(np.load(d / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_sharded_sweep_matches_unsharded(sweep_problem, sharded_ranks, jax_whole):
     A, b, c = sweep_problem
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        sweep(A, b, c, SolverOptions(tol=1e-8), chunk=16, mesh=object())
+    plain = sweep(A, b, c, SolverOptions(tol=1e-8), chunk=16)
+    for res in sharded_ranks:
+        np.testing.assert_array_equal(res["whole_status"], plain.status)
+        np.testing.assert_allclose(res["whole_objective"], plain.objective, rtol=1e-8, atol=1e-9)
+        np.testing.assert_array_equal(res["whole_status"], jax_whole.status)
+        # resumed equals uninterrupted, bitwise
+        np.testing.assert_array_equal(res["resumed_objective"], res["whole_objective"])
+        np.testing.assert_array_equal(res["resumed_status"], res["whole_status"])
+        assert int(res["n_resumed"]) == 1
+    # rank 0 wrote the first chunk and the manifest before its stop (rank 1
+    # may have looked before rank 0 got there: it reads only after rank 0's
+    # broadcast)
+    files = list(sharded_ranks[0]["files_after_stop"])
+    assert files == ["chunk_000000.npz", "manifest.json"]
+
+
+def test_mesh_raises(sharded_ranks):
+    """A sharded sweep into a directory of another configuration raises
+    on every rank (rank 0 checks, the verdict is broadcast)."""
+    for res in sharded_ranks:
+        assert "different configuration" in str(res["mismatch"])

@@ -9,8 +9,11 @@
 * the 3-D ladder on the port's ``BATCHLAST_KERNELS`` in f32 (the plain
   versions on the CPU) agrees in status with one full-budget
   ``hsd_solve_batched`` on ≥ 99% of lanes;
-* ``reduce_any=`` raises ``NotImplementedError`` (the parallel slice's),
-  and a chunk that does not divide the batch raises ``ValueError``.
+* ``reduce_any=`` raises ``ValueError`` on shared A, as the reference; on
+  3-D A a recording ``reduce_any`` is called by every pass-1 and pass-2
+  solve's loop predicate, and the results equal the default's and the
+  JAX two-pass's;
+* a chunk that does not divide the batch raises ``ValueError``.
 """
 
 import numpy as np
@@ -104,10 +107,50 @@ def test_batched_A_batchlast_f32_matches_full_budget(batched_problem):
     assert (port["iterations"] > 6).any()
 
 
-def test_reduce_any_raises(shared_problem, batched_problem):
-    for A, b, c in (shared_problem, batched_problem):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            hsd_solve_two_pass(A, b, c, SolverOptions(), reduce_any=any, device="cpu")
+def test_reduce_any_raises(shared_problem):
+    A, b, c = shared_problem
+    with pytest.raises(ValueError, match="shared-A"):
+        hsd_solve_two_pass(A, b, c, SolverOptions(), reduce_any=any, device="cpu")
+    with pytest.raises(ValueError, match="shared-A"):
+        ref_twopass.hsd_solve_two_pass(A, b, c, RefOptions(), reduce_any=any)
+
+
+def test_reduce_any_reaches_every_batched_A_solve(batched_problem, monkeypatch):
+    """3-D A: the recording reduce_any answers every loop predicate of
+    every pass-1 and pass-2 solve (one call per host iteration, plus one
+    that ends each loop its lanes finish; a loop at its cap ends on
+    ``k < maxiter`` alone), and changes no result."""
+    from pycllp_tpu_torch.solvers import hsd as port_hsd
+
+    A, b, c = batched_problem
+    kw = dict(chunk=8, pass1_maxiter=6, min_bucket=4)
+    opts = SolverOptions(tol=1e-8, maxiter=60)
+    phases = []
+    run_phase = port_hsd._run_phase
+
+    def counted(*args, **kwargs):
+        phases.append(args[9] if len(args) > 9 else kwargs.get("reduce_any"))
+        return run_phase(*args, **kwargs)
+
+    calls = []
+
+    def reduce_any(mask):
+        calls.append(mask.shape[0])
+        return bool(mask.any())
+
+    monkeypatch.setattr(port_hsd, "_run_phase", counted)
+    port_hsd.HOST_STEPS = 0
+    out = hsd_solve_two_pass(A, b, c, opts, reduce_any=reduce_any, **kw, device="cpu")
+    steps = port_hsd.HOST_STEPS
+    assert phases and all(r is reduce_any for r in phases)
+    assert steps < len(calls) <= steps + len(phases)
+    # 3 pass-1 chunks of 8 lanes, then the pass-2 buckets
+    assert calls.count(8) >= 3 and set(calls) - {8}
+    default = hsd_solve_two_pass(A, b, c, opts, **kw, device="cpu")
+    for k in default:
+        np.testing.assert_array_equal(out[k], default[k])
+    ref = ref_twopass.hsd_solve_two_pass(A, b, c, RefOptions(tol=1e-8, maxiter=60), **kw)
+    _assert_same(out, {k: np.asarray(v) for k, v in ref.items()})
 
 
 def test_bad_chunk_raises(shared_problem):
