@@ -648,8 +648,8 @@ class BatchLastKernels(KernelSet):
         ``"df64_f64form"``: the same with an f64 GEMM formation;
         ``"mixed"`` / ``"mixed1"``: f32 CUDA factor + f64 refinement
         (:mod:`pycllp_tpu_torch.ops.mixed`), the crossover engine;
-        ``"reference"``: the plain set.  ``"df64_fastform"``, the
-        reference's recorded negative result, is not ported.
+        ``"df64_fastform"``: the same with the fast formation, the
+        reference's recorded negative result; ``"reference"``: the plain set.
         """
         cache = self.__dict__.setdefault("_finish_kernels", {})
         fk = cache.get(which)
@@ -659,9 +659,7 @@ class BatchLastKernels(KernelSet):
             elif which == "df64_f64form":
                 from pycllp_tpu_torch.ops.df64 import DF64_F64FORM_KERNELS as fk
             elif which == "df64_fastform":
-                from pycllp_tpu_torch.ops.df64 import FASTFORM_NOT_PORTED
-
-                raise NotImplementedError(FASTFORM_NOT_PORTED)
+                from pycllp_tpu_torch.ops.df64 import DF64_FASTFORM_KERNELS as fk
             elif which == "mixed":
                 from pycllp_tpu_torch.ops.mixed import MIXED_FINISH_KERNELS as fk
             elif which == "mixed1":

@@ -18,9 +18,10 @@ native FP64, so here the card computes in FP64:
 * The Ozaki scheme stays: shared-A matvecs and the normal-matrix
   formation run as exact f32 group GEMMs of integer slices, which
   :func:`slice_rounds_bl` (also in ``csrc/df64.cu``) cuts.  The hi/lo
-  split survives only there.  The group GEMMs are exact only if every
-  integer partial sum stays ≤ 2²⁴ in an f32 accumulator, so
-  :func:`_ozaki_matmul` refuses to run with TF32 on.
+  split survives there and in the reference's fast formation
+  (``form="fast"``: three f32 GEMMs, no kernel of its own).  The group
+  GEMMs are exact only if every integer partial sum stays ≤ 2²⁴ in an f32
+  accumulator, so :func:`_ozaki_matmul` refuses to run with TF32 on.
 
 Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`).  The wrappers
@@ -56,6 +57,7 @@ __all__ = [
     "DoubleSingleKernels",
     "DF64_FINISH_KERNELS",
     "DF64_F64FORM_KERNELS",
+    "DF64_FASTFORM_KERNELS",
     "df_chol_bl",
     "df_solve_bl",
     "slice_rounds_bl",
@@ -70,14 +72,6 @@ DF_SOLVE_LAUNCHES = 0
 DF_CHOL_SMEM_LAUNCHES = 0
 DF_SOLVE_SMEM_LAUNCHES = 0
 SLICE_LAUNCHES = 0
-
-FASTFORM_NOT_PORTED = (
-    'form="fast" (finish_kset="df64_fastform") is not ported: the reference '
-    "records it as a negative result — 3 f32 GEMMs on hi/lo splits give "
-    "f32-accumulation accuracy, and 15.8K of 16.4K lanes ended NUMERICAL "
-    "(pycllp_tpu/ops/df64.py:614-617)"
-)
-
 
 # ---------------------------------------------------------------------------
 # double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
@@ -345,6 +339,8 @@ class PreparedDF(typing.NamedTuple):
     A: typing.Any  # (m, n) or (B, m, n) f64
     Asq: typing.Any
     W: typing.Any  # (m², n) f64 self-outer-product, or None for 3-D A
+    Wh: typing.Any  # f32 hi/lo split of W (the fast formation's GEMM inputs)
+    Wl: typing.Any
     Woz: typing.Any  # (per-group integer slice blocks, e_row) or None
     Amv: typing.Any  # Ozaki slice groups of A — exact-GEMM f64 matvecs
     Armv: typing.Any  # ... and of Aᵀ (different contraction length)
@@ -366,17 +362,22 @@ class DoubleSingleKernels(KernelSet):
     The reference's name is kept (there the factor and solve run in
     double-single Pallas); on the card they compute in native FP64.
     Shared-A matvecs run as Ozaki products; the normal matrix is formed
-    by the Ozaki product (``form="ozaki"``, default) or an f64 GEMM
-    (``form="f64"``), and handed to :func:`df_chol_bl` in f64.
-    ``form="fast"`` is not ported (:data:`FASTFORM_NOT_PORTED`).
+    by the Ozaki product (``form="ozaki"``, default), an f64 GEMM
+    (``form="f64"``) or three f32 GEMMs on hi/lo splits (``form="fast"``),
+    and handed to :func:`df_chol_bl` in f64.
+
+    ``form="fast"`` is the reference's recorded negative result, kept
+    because a user can select it: its f32 accumulation gives M to ~1e-7
+    relative, too coarse for the 1e-12 shift (the reference measured 15.8K
+    of 16.4K lanes NUMERICAL), and a late-IPM ``d`` beyond f32's range
+    makes its hi part ``inf``, so that lane's factor is NaN.  Both are
+    reproduced, not repaired.
     """
 
     name = "cuda_df64"
 
     def __init__(self, form: str = "ozaki"):
-        if form == "fast":
-            raise NotImplementedError(FASTFORM_NOT_PORTED)
-        if form not in ("ozaki", "f64"):
+        if form not in ("ozaki", "f64", "fast"):
             raise ValueError(f"unknown formation {form!r}")
         self.form = form
         if form != "ozaki":
@@ -385,9 +386,11 @@ class DoubleSingleKernels(KernelSet):
     def prepare(self, A):
         A = A.to(torch.float64)
         if A.dim() != 2:
-            return PreparedDF(A=A, Asq=A * A, W=None, Woz=None, Amv=None, Armv=None)
+            return PreparedDF(A=A, Asq=A * A, W=None, Wh=None, Wl=None, Woz=None, Amv=None,
+                              Armv=None)
         m, n = A.shape
         W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+        Wh, Wl = _split_hi_lo(W) if self.form == "fast" else (None, None)
         Woz = None
         if self.form == "ozaki":
             s, n_slices, cut = ozaki_params(n)
@@ -396,7 +399,7 @@ class DoubleSingleKernels(KernelSet):
         sr, nr, cr = ozaki_mv_params(m)
         Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
         Armv = _ozaki_prepare(A.T, s=sr, n_slices=nr, cut=cr)
-        return PreparedDF(A=A, Asq=A * A, W=W, Woz=Woz, Amv=Amv, Armv=Armv)
+        return PreparedDF(A=A, Asq=A * A, W=W, Wh=Wh, Wl=Wl, Woz=Woz, Amv=Amv, Armv=Armv)
 
     def mv(self, ctx, x):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
@@ -427,6 +430,14 @@ class DoubleSingleKernels(KernelSet):
         elif self.form == "ozaki":
             s, n_slices, cut = ozaki_params(ctx.A.shape[-1])
             M = _ozaki_matmul(*ctx.Woz, d.T, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
+        elif self.form == "fast":
+            # three f32 GEMMs (full f32: the solver switches TF32 off); a d
+            # beyond f32's range makes dh inf and NaNs the lane, as in the
+            # reference
+            dh, dl = _split_hi_lo(d.T)
+            P = ctx.Wh @ dh
+            Q = ctx.Wh @ dl + ctx.Wl @ dh
+            M = (P.to(torch.float64) + Q.to(torch.float64)).reshape(m, m, B)
         else:
             M = (ctx.W @ d.T).reshape(m, m, B)  # batch-last directly
         # the factor sees δ rounded to f32, as the reference's kernel adds
@@ -443,3 +454,4 @@ class DoubleSingleKernels(KernelSet):
 
 DF64_FINISH_KERNELS = DoubleSingleKernels()  # Ozaki formation (default)
 DF64_F64FORM_KERNELS = DoubleSingleKernels(form="f64")
+DF64_FASTFORM_KERNELS = DoubleSingleKernels(form="fast")

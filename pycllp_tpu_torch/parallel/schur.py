@@ -44,7 +44,6 @@ from pycllp_tpu_torch.parallel.shard import CollectiveAny
 from pycllp_tpu_torch.solvers.hsd import (
     _finish_dtype,
     _full_precision_matmuls,
-    _require_ported,
     _resolve_dtype,
     _to,
 )
@@ -152,7 +151,6 @@ def _solve(A, b, c, opts, mesh, factor, dev):
     my = mesh.get_local_rank()
     m, n = A.shape
     dtype = _resolve_dtype(opts, A, b, c)
-    _require_ported(opts, dtype)
     fdtype = _finish_dtype(opts, dtype)
     wide = fdtype or dtype
     # scaling and the wide-phase data derive from the ORIGINAL inputs in

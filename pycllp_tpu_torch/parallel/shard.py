@@ -34,7 +34,6 @@ from pycllp_tpu_torch.solvers.hsd import (
     _hsd_scan_finish_core,
     _hsd_scan_narrow_core,
     _narrow_opts_view,
-    _require_ported,
     _resolve_dtype,
     hsd_solve_batched,
 )
@@ -167,7 +166,6 @@ def sharded_hsd_solve_scan(
     fbucket = min(int(finish_bucket or compact_bucket), local_n)
 
     dtype = _resolve_dtype(opts, A, b, c)
-    _require_ported(opts, dtype)
     keys = tuple(keys)
     with _full_precision_matmuls():
         if _finish_dtype(opts, dtype) is None:

@@ -883,16 +883,6 @@ def _finish_dtype(opts: SolverOptions, dtype):
     return _DTYPES[str(opts.finish_dtype)]
 
 
-def _require_ported(opts: SolverOptions, dtype) -> None:
-    """Raise for options whose code paths are not ported."""
-    if _finish_dtype(opts, dtype) is not None and "df64_fastform" in (
-        opts.finish_kset, opts.crossover_kset
-    ):
-        from pycllp_tpu_torch.ops.df64 import FASTFORM_NOT_PORTED
-
-        raise NotImplementedError(FASTFORM_NOT_PORTED)
-
-
 def _to(v, dtype, dev):
     return torch.as_tensor(v, dtype=dtype, device=dev)
 
@@ -935,7 +925,6 @@ def hsd_solve_batched(
 
 def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None):
     dtype = _resolve_dtype(opts, A, b, c)
-    _require_ported(opts, dtype)
     fdtype = _finish_dtype(opts, dtype)
     # With a finish phase configured, scaling and the phase-2 arrays are
     # built in the WIDE dtype from the original inputs; phase 1 sees the
@@ -1474,7 +1463,6 @@ def hsd_solve_scan(
     b = torch.as_tensor(b, device=dev)
     c = torch.as_tensor(c, device=dev)
     dtype = _resolve_dtype(opts, A, b, c)
-    _require_ported(opts, dtype)
     N = b.shape[0]
     chunk = min(chunk, N)
     pad = (-N) % chunk

@@ -2,11 +2,9 @@
 
 Counterpart of :mod:`pycllp_tpu.solvers.options`: the same fields with
 the same defaults, so a reference configuration carries over field for
-field (:func:`pycllp_tpu_torch.interop.options_from_reference`).  The
-one option value whose code path is not ported
-(``finish_kset="df64_fastform"``, a negative result of the reference) is
-kept so that configurations stay comparable; the solvers raise
-``NotImplementedError`` when it is switched on.
+field (:func:`pycllp_tpu_torch.interop.options_from_reference`).  Every
+value the reference accepts runs, ``finish_kset="df64_fastform"`` (its
+recorded negative result) included.
 """
 
 from __future__ import annotations

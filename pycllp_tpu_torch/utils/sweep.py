@@ -110,7 +110,14 @@ def scenario_sweep(
     (optionally with the cap/compact/warm-resume sweep and the wide
     finish).  The chunk stays the persist/resume unit; a window holding
     any missing chunk is re-solved whole and only its missing chunks are
-    written (an LP re-solve is deterministic and cheap).
+    written (an LP re-solve is deterministic and cheap).  Whole, because
+    a lane's answer can depend on the rest of its window: the compaction
+    and drain buckets gather lanes across the window's chunks, and lanes
+    beyond a full bucket keep their capped answer.  So a resumed sweep
+    equals an uninterrupted one, however it was cut.  (The JAX package
+    re-solves only the span from the window's first to its last missing
+    chunk.)  A ``chunk_*.npz.tmp.npz`` left by a killed writer is never
+    read, and is overwritten when its chunk is written.
 
     ``warm_chain``: chunk-to-chunk warm starts within each window (see
     :func:`hsd_solve_scan`); the chain restarts at window boundaries, and
@@ -200,8 +207,8 @@ def scenario_sweep(
                 iterations[lo:hi] = data["iterations"]
             n_resumed += 1
         if missing:
-            lo_w = (k + missing[0]) * chunk
-            hi_w = min((k + missing[-1] + 1) * chunk, N)
+            lo_w = k * chunk
+            hi_w = min((k + kw) * chunk, N)
             bb, cb = b[lo_w:hi_w], c[lo_w:hi_w]
             if scan_ok:
                 out = hsd_solve_scan(

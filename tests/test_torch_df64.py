@@ -15,7 +15,12 @@ versions of its CUDA kernels; the JAX Pallas kernels run in interpret mode.
   < 1e-7 at 1e±3; the f32 rounding of δ; the NaN lane; per-instance A;
 * the mixed set on the port's batch-last base against the reference's,
   d uniform in [0.5, 2]: solves agree to 1e-8 relative;
-* the TF32 guard of the Ozaki GEMMs, and ``form="fast"`` raising.
+* the TF32 guard of the Ozaki GEMMs;
+* ``form="fast"`` (``DF64_FASTFORM_KERNELS``, the reference's recorded
+  negative result) against the reference's fast set at m = 6 and 8,
+  B = 16: factor and solves to 1e-5 relative (each package sums the f32
+  GEMMs in its own order, so M agrees only to ~1e-7), and a lane whose d
+  exceeds f32's range ends NaN in both.
 """
 
 import numpy as np
@@ -195,13 +200,69 @@ def test_df64_per_instance_A():
                                rtol=1e-10, atol=1e-10)
 
 
-def test_fastform_is_not_ported():
-    with pytest.raises(NotImplementedError, match="negative result"):
-        df64.DoubleSingleKernels(form="fast")
-    with pytest.raises(NotImplementedError, match="negative result"):
-        BATCHLAST_KERNELS.finish_kernels("df64_fastform")
+FASTFORM_RTOL = 1e-5  # f32-level: both packages' f32 GEMMs round, each in its own order
+BIG_LANE = 5  # its d reaches 5e47 (the reference measured d that large), beyond f32
+
+
+@pytest.fixture(scope="module", params=[6, 8])
+def fastform_pair(request):
+    """One factor and a k = 2 solve through both packages' fast sets, at m
+    = 6 or 8 and B = 16; lane BIG_LANE has one d entry beyond f32's range."""
+    m = request.param
+    n, B = 2 * m + 2, 16
+    rng = np.random.default_rng(m)
+    A = rng.standard_normal((m, n))
+    d = rng.uniform(0.5, 2.0, (B, n)) * 10.0 ** rng.uniform(-3, 3, (B, 1))
+    d[BIG_LANE, 1] = 5e47
+    rs = tuple(rng.standard_normal((B, m)) for _ in range(2))
+    ref = ref_df64.DF64_FASTFORM_KERNELS
+    ref_fac = ref.factor(ref.prepare(jnp.asarray(A)), jnp.asarray(d), 1e-12)
+    ref_v = ref.solve(ref_fac, tuple(jnp.asarray(r) for r in rs))
+    port = df64.DF64_FASTFORM_KERNELS
+    fac = port.factor(port.prepare(torch.from_numpy(A)), torch.from_numpy(d), 1e-12)
+    v = port.solve(fac, _t(*rs))
+    ref_L = (np.asarray(ref_fac.Lh, np.float64) + np.asarray(ref_fac.Ll, np.float64))[:m, :m, :B]
+    return dict(m=m, ref_L=ref_L, ref_v=[np.asarray(x) for x in ref_v], ref_reg=np.asarray(ref_fac.reg),
+                L=fac.L.numpy(), v=[x.numpy() for x in v], reg=fac.reg.numpy(), ctx=fac.ctx)
+
+
+def test_fastform_is_not_ported(fastform_pair):
+    """``form="fast"`` runs: selectable by name, named as the reference
+    names it, and its factor and solves agree with the reference's fast
+    set to FASTFORM_RTOL on every lane whose d stays in f32's range; an
+    unknown set name still raises."""
+    fast = df64.DF64_FASTFORM_KERNELS
+    assert fast.form == "fast" and df64.DoubleSingleKernels(form="fast").form == "fast"
+    assert fast.name == ref_df64.DF64_FASTFORM_KERNELS.name.replace("pallas_", "cuda_")
+    assert BATCHLAST_KERNELS.finish_kernels("df64_fastform") is fast
     with pytest.raises(ValueError):
         BATCHLAST_KERNELS.finish_kernels("no_such_set")
+    with pytest.raises(ValueError):
+        df64.DoubleSingleKernels(form="no_such_form")
+    p = fastform_pair
+    m = p["m"]
+    ctx = p["ctx"]
+    assert ctx.Wh.dtype == ctx.Wl.dtype == torch.float32 and ctx.Wh.shape == (m * m, 2 * m + 2)
+    torch.testing.assert_close(ctx.Wh.double() + ctx.Wl.double(), ctx.W, rtol=1e-14, atol=0)
+    ok = np.ones(p["L"].shape[-1], bool)
+    ok[BIG_LANE] = False
+    np.testing.assert_allclose(p["reg"][ok], p["ref_reg"][ok], rtol=1e-6)
+    lower = np.tril(np.ones((m, m), bool))[..., None]
+    L, ref_L = np.where(lower, p["L"], 0.0)[..., ok], np.where(lower, p["ref_L"], 0.0)[..., ok]
+    assert (np.abs(L - ref_L).max((0, 1)) / np.abs(ref_L).max((0, 1))).max() < FASTFORM_RTOL
+    for v, ref_v in zip(p["v"], p["ref_v"]):
+        assert (np.abs(v[ok] - ref_v[ok]).max(-1) / np.abs(ref_v[ok]).max(-1)).max() < FASTFORM_RTOL
+
+
+def test_fastform_lane_beyond_f32_range_is_nan_in_both(fastform_pair):
+    """The negative result is reproduced, not repaired: a d beyond f32's
+    range makes the hi split inf and the lane's factor NaN, in both
+    packages, and no other lane is touched."""
+    p = fastform_pair
+    for v in p["v"] + p["ref_v"]:
+        assert np.isnan(v[BIG_LANE]).any()
+        assert np.isfinite(np.delete(v, BIG_LANE, axis=0)).all()
+    assert np.isnan(p["L"][..., BIG_LANE]).any() and np.isnan(p["ref_L"][..., BIG_LANE]).any()
 
 
 def test_finish_kernels_cached_per_name():

@@ -57,11 +57,17 @@ def test_cuda_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_unported_options_raise(capsys):
+    """No option value the reference accepts is refused: the fast-formation
+    finish (``finish_kset="df64_fastform"``) runs through both entry
+    points, and so do the wide finish and ``log_every``."""
     A, b, c = random_equality_lp(4, 9, nlp=3, seed=0)
-    unported = (dict(finish_dtype="float64", dtype="float32", finish_kset="df64_fastform"),)
-    for kw in unported:
-        with pytest.raises(NotImplementedError):
-            hsd_solve_batched(A, b, c, port_pkg.SolverOptions(**kw), device="cpu")
+    fast = port_pkg.SolverOptions(finish_dtype="float64", dtype="float32", finish_mode="ipm",
+                                  finish_kset="df64_fastform")
+    out = hsd_solve_batched(A, b, c, fast, bl.BATCHLAST_KERNELS, device="cpu")
+    assert out["x"].dtype == torch.float64 and out["status"].shape == (3,)
+    out = hsd_solve_scan(A, b, c, fast, bl.BATCHLAST_KERNELS, chunk=2, compact_cap=3, device="cpu",
+                         keys=("objective", "status"))
+    assert out["objective"].dtype == torch.float64 and out["status"].shape == (3,)
     # the wide finish itself is ported
     out = hsd_solve_batched(A, b, c, port_pkg.SolverOptions(finish_dtype="float64", dtype="float32"),
                             device="cpu")

@@ -278,11 +278,33 @@ def test_batched_A_crossover_finish_on_cpu():
 
 
 def test_unported_finish_options_raise():
-    A, b, c = random_equality_lp(4, 9, nlp=3, seed=0)
-    for kw in (dict(finish_kset="df64_fastform"), dict(crossover_kset="df64_fastform")):
-        opts = port_pkg.SolverOptions(dtype="float32", finish_dtype="float64", **kw)
-        with pytest.raises(NotImplementedError, match="negative result"):
-            port_hsd.hsd_solve_batched(A, b, c, opts, BATCHLAST_KERNELS, device="cpu")
-        with pytest.raises(NotImplementedError, match="negative result"):
-            port_hsd.hsd_solve_scan(A, b, c, opts, BATCHLAST_KERNELS, chunk=3, compact_cap=3,
-                                    device="cpu")
+    """The fast-formation set (the reference's recorded negative result)
+    runs in both finish roles, through both packages on the same inputs,
+    the JAX Pallas kernels in interpret mode.
+
+    * ``crossover_kset="df64_fastform"``: statuses equal, objectives to 1e-9.
+    * ``finish_kset="df64_fastform"`` (the wide IPM factors on it): the
+      negative result reproduced, at least half the lanes NUMERICAL in
+      both packages.  Which lanes break down depends on the f32 GEMMs'
+      summation order, which the packages do not share, so statuses are
+      held to 90% agreement and objectives to 1e-6 where both are OPTIMAL.
+    """
+    lp = random_standard_lp(6, 6, nlp=32, seed=3, dtype=np.float32)
+    A, b, c = _eq32(lp)
+    for mode, kw, agree, rtol in (("crossover", dict(crossover_kset="df64_fastform"), 1.0, 1e-9),
+                                  ("ipm", dict(finish_kset="df64_fastform"), 0.9, 1e-6)):
+        ref_opts, opts = _finish_opts(mode, **kw)
+        ref_out = ref_hsd.hsd_solve_batched(A, b, c, ref_opts, REF_BL)
+        port_out = port_hsd.hsd_solve_batched(A, b, c, opts, BATCHLAST_KERNELS, device="cpu")
+        rs, ps = _np(ref_out["status"]), _np(port_out["status"])
+        assert (rs == ps).mean() >= agree, (kw, rs, ps)
+        both = (rs == OPTIMAL) & (ps == OPTIMAL)
+        np.testing.assert_allclose(_np(port_out["objective"])[both], _np(ref_out["objective"])[both],
+                                   rtol=rtol, atol=rtol)
+        if mode == "ipm":
+            assert (rs == NUMERICAL).mean() >= 0.5 and (ps == NUMERICAL).mean() >= 0.5, (rs, ps)
+        else:
+            assert both.all()
+        out = port_hsd.hsd_solve_scan(A, b, c, opts, BATCHLAST_KERNELS, chunk=16, compact_cap=3,
+                                      device="cpu", keys=("objective", "status"))
+        assert out["status"].shape == (32,) and out["objective"].dtype == torch.float64

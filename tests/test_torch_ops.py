@@ -148,6 +148,13 @@ def test_unported_options_raise():
     assert bl.BATCHLAST_FUSED_KERNELS.name == "cuda_batchlast_form"
     assert BATCHLAST_KERNELS.name == "cuda_batchlast"
     assert BATCHLAST_KERNELS.finish_kernels("reference") is REFERENCE_KERNELS
-    # every finish set is ported but the reference's recorded negative result
-    with pytest.raises(NotImplementedError):
-        BATCHLAST_KERNELS.finish_kernels("df64_fastform")
+    # every finish set is ported, the reference's recorded negative result
+    # (df64_fastform) too, each named as the reference names it
+    from pycllp_tpu.ops.batchlast import BATCHLAST_KERNELS as REF_BL
+
+    for which in ("df64", "df64_f64form", "df64_fastform", "mixed", "mixed1"):
+        fk = BATCHLAST_KERNELS.finish_kernels(which)
+        assert fk is BATCHLAST_KERNELS.finish_kernels(which)
+        assert fk.name == REF_BL.finish_kernels(which).name.replace("pallas_", "cuda_"), which
+    with pytest.raises(ValueError):
+        BATCHLAST_KERNELS.finish_kernels("no_such_set")

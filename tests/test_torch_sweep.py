@@ -7,10 +7,19 @@ packages write the same sweep directory format, so a sweep started by one
 is finished by the other.  The sharded sweep (``mesh=``) runs on 2 gloo
 ranks on the CPU: it equals the unsharded sweep, its resumed run equals
 its uninterrupted one, and a mismatched directory raises on both ranks.
+
+BASELINE.md config 5's shape at a small size: a sweep whose last window
+is short and whose tail chunk is ragged, with compaction buckets that
+gather lanes across a window's chunks and overflow, equals the JAX
+package's; a sweep whose process is killed (SIGKILL) from its progress
+callback, left with half a window and a stale ``*.tmp.npz`` on disk, then
+resumed, equals the uninterrupted sweep bitwise; the same kill and resume
+on the 2-rank mesh at a ragged N, where only rank 0 writes.
 """
 
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -298,3 +307,166 @@ def test_mesh_raises(sharded_ranks):
     on every rank (rank 0 checks, the verdict is broadcast)."""
     for res in sharded_ranks:
         assert "different configuration" in str(res["mismatch"])
+
+
+# config 5's window arithmetic at a small size: 50 = 5 x 9 + 5, so 6 chunks
+# in windows of 4 and 2, the tail chunk ragged; at cap 6 more lanes run on
+# than a bucket of 12 holds, so a lane's answer depends on its window
+WINDOWED = dict(chunk=9, window_chunks=4, compact_cap=6, compact_bucket=12)
+WINDOWED_TOL = dict(tol=1e-8, maxiter=60)
+KILL_WAIT_S = 300
+
+
+@pytest.fixture(scope="module")
+def jax_windowed(sweep_problem):
+    A, b, c = sweep_problem
+    return ref_sweep(A, b, c, ref_pkg.SolverOptions(**WINDOWED_TOL), **WINDOWED)
+
+
+def test_short_last_window_matches_jax(sweep_problem, jax_windowed):
+    A, b, c = sweep_problem
+    progress = []
+    res = sweep(A, b, c, SolverOptions(**WINDOWED_TOL),
+                progress=lambda done, total: progress.append((done, total)), **WINDOWED)
+    assert res.n_chunks == 6 and progress == [(4, 6), (6, 6)]
+    assert (res.status == int(Status.ITERATION_LIMIT)).any()  # the buckets overflowed
+    assert_same(res, jax_windowed)
+
+
+def _killed_sweep(out_dir: str, kill_after: int) -> None:
+    """A child process: the windowed sweep into ``out_dir``, killed with
+    SIGKILL from its progress callback once ``kill_after`` chunks are done."""
+    torch.set_num_threads(1)
+    A, b, c = _problem()
+
+    def kill(done, total):
+        if done >= kill_after:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    sweep(A, b, c, SolverOptions(**WINDOWED_TOL), out_dir=out_dir, progress=kill, **WINDOWED)
+
+
+def _run_killed(target, *arg_lists) -> None:
+    """Start one spawned process ``target(*args)`` for each of ``arg_lists``,
+    and check that each died by SIGKILL."""
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in arg_lists]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(KILL_WAIT_S)
+    assert not any(p.is_alive() for p in procs)
+    assert [p.exitcode for p in procs] == [-signal.SIGKILL] * len(procs)
+
+
+def _plant_stale_tmp(d: str, k: int) -> str:
+    """A ``chunk_k.npz.tmp.npz`` as a writer killed between its write and
+    its rename leaves it, with values no solve gives."""
+    tmp = os.path.join(d, f"chunk_{k:06d}.npz.tmp.npz")
+    np.savez(tmp, objective=np.full(9, np.nan), status=np.full(9, 99, np.int32),
+             iterations=np.full(9, -1, np.int32))
+    return tmp
+
+
+def test_killed_sweep_resumes(sweep_problem, jax_windowed, tmp_path):
+    """A process killed after its first window leaves that window's 4 chunk
+    files; with the window's last chunk deleted and a stale temporary file
+    planted, the resume reads 3 chunks, re-solves the half-present window
+    whole (its lanes share buckets, which overflow here, so solving the
+    missing chunk alone would change its answers) and writes the missing
+    chunks: the result equals the uninterrupted sweep bitwise."""
+    A, b, c = sweep_problem
+    d = str(tmp_path / "sweep")
+    _run_killed(_killed_sweep, (d, 4))
+    assert sorted(os.listdir(d)) == [f"chunk_{k:06d}.npz" for k in range(4)] + ["manifest.json"]
+    os.remove(os.path.join(d, "chunk_000003.npz"))
+    tmp = _plant_stale_tmp(d, 3)
+    opts = SolverOptions(**WINDOWED_TOL)
+    res = sweep(A, b, c, opts, out_dir=d, **WINDOWED)
+    whole = sweep(A, b, c, opts, **WINDOWED)
+    assert res.n_resumed == 3 and res.n_chunks == 6
+    np.testing.assert_array_equal(res.status, whole.status)
+    np.testing.assert_array_equal(res.objective, whole.objective)
+    np.testing.assert_array_equal(res.iterations, whole.iterations)
+    assert_same(res, jax_windowed)
+    assert not os.path.exists(tmp)  # overwritten by the chunk's own write, then renamed
+    with np.load(os.path.join(d, "chunk_000003.npz")) as chunk3:
+        np.testing.assert_array_equal(chunk3["objective"], whole.objective[27:36])
+        np.testing.assert_array_equal(chunk3["status"], whole.status[27:36])
+    assert sorted(os.listdir(d)) == [f"chunk_{k:06d}.npz" for k in range(6)] + ["manifest.json"]
+
+
+def _record_writes() -> list:
+    """Record the file names this process writes through ``np.savez`` (the
+    sweep's chunk writes) from now on."""
+    written = []
+    savez = np.savez
+
+    def recording(path, **arrays):
+        written.append(os.path.basename(path))
+        savez(path, **arrays)
+
+    np.savez = recording
+    return written
+
+
+def _killed_rank(rank: int, init_file: str, sweep_dir: str, report_dir: str) -> None:
+    """One of 2 ranks: the sharded sweep, killed with SIGKILL from the
+    progress callback once 2 of its 4 chunks are done; before dying the
+    rank reports the files it wrote."""
+    torch.set_num_threads(1)
+    initialize(f"file://{init_file}", world_size=2, rank=rank, backend="gloo", timeout_s=120)
+    A, b, c = _problem()
+    savez = np.savez
+    written = _record_writes()
+
+    def kill(done, total):
+        if done >= 2:
+            savez(os.path.join(report_dir, f"killed{rank}.npz"), written=np.array(written))
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    sweep(A, b, c, SolverOptions(tol=1e-8), chunk=16, mesh=scenario_mesh(), out_dir=sweep_dir,
+          progress=kill)
+
+
+def _resumed_rank(rank: int, init_file: str, sweep_dir: str, report_dir: str) -> None:
+    """One of 2 ranks of a fresh group: the same sharded sweep, resumed."""
+    torch.set_num_threads(1)
+    initialize(f"file://{init_file}", world_size=2, rank=rank, backend="gloo", timeout_s=120)
+    A, b, c = _problem()
+    savez = np.savez
+    written = _record_writes()
+    res = sweep(A, b, c, SolverOptions(tol=1e-8), chunk=16, mesh=scenario_mesh(),
+                out_dir=sweep_dir)
+    savez(os.path.join(report_dir, f"resumed{rank}.npz"), written=np.array(written),
+          objective=res.objective, status=res.status, n_resumed=res.n_resumed)
+    dist.destroy_process_group()
+
+
+def test_killed_sharded_sweep_resumes(sweep_problem, jax_whole, tmp_path):
+    """Both ranks of the 2-rank mesh are killed by SIGKILL after chunk 2 of 4
+    (N = 50: the tail chunk holds 2 lanes); a fresh group resumes from rank
+    0's files past a stale temporary file.  Only rank 0 writes, and the
+    result equals the unsharded sweep."""
+    A, b, c = sweep_problem
+    d = str(tmp_path / "sweep")
+    _run_killed(_killed_rank, *[(r, str(tmp_path / "rendezvous-1"), d, str(tmp_path))
+                                for r in range(2)])
+    assert sorted(os.listdir(d)) == ["chunk_000000.npz", "chunk_000001.npz", "manifest.json"]
+    killed = [np.load(tmp_path / f"killed{r}.npz") for r in range(2)]
+    assert list(killed[0]["written"]) == ["chunk_000000.npz.tmp.npz", "chunk_000001.npz.tmp.npz"]
+    assert len(killed[1]["written"]) == 0
+    tmp = _plant_stale_tmp(d, 2)
+    mp.spawn(_resumed_rank, args=(str(tmp_path / "rendezvous-2"), d, str(tmp_path)), nprocs=2,
+             join=True)
+    plain = sweep(A, b, c, SolverOptions(tol=1e-8), chunk=16)
+    for r in range(2):
+        res = np.load(tmp_path / f"resumed{r}.npz")
+        assert int(res["n_resumed"]) == 2
+        assert list(res["written"]) == ([] if r else ["chunk_000002.npz.tmp.npz",
+                                                      "chunk_000003.npz.tmp.npz"])
+        np.testing.assert_array_equal(res["status"], plain.status)
+        np.testing.assert_array_equal(res["status"], jax_whole.status)
+        np.testing.assert_allclose(res["objective"], plain.objective, rtol=1e-8, atol=1e-9)
+    assert not os.path.exists(tmp)
+    assert sorted(os.listdir(d)) == [f"chunk_{k:06d}.npz" for k in range(4)] + ["manifest.json"]
