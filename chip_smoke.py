@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port (``pycllp_tpu_torch``).
 
 Builds the hand-written CUDA kernels from the sources in this checkout
-(``csrc/batchlast.cu`` and ``csrc/df64.cu``), holds each against its plain
+(``csrc/batchlast.cu`` and ``csrc/df64.cu``, which includes
+``csrc/ozaki.cuh``), holds each against its plain
 PyTorch version on the card, and drives the port's paths:
 
 1. device and build;
@@ -14,7 +15,12 @@ PyTorch version on the card, and drives the port's paths:
    plain version, with a sweep over the lane-group size, each kernel's
    bound and the one PyTorch call that computes its function
    (``library_ms``); the Ozaki ``slice_rounds_bl``, plus the df64 and
-   Ozaki accuracy contracts of ``tests_tpu/smoke.py``;
+   Ozaki accuracy contracts of ``tests_tpu/smoke.py``; the fused Ozaki
+   product ``ozaki_product_bl`` (``phase_ozaki_kernels``) at every shape
+   the paths give it (the main cell's matvecs and formation, netlib's),
+   with zero, power-of-two and NaN lanes, BITWISE against the split route
+   it replaced and its plain version, timed against the split route and
+   one f64 ``torch.matmul``;
 3. the narrow main path — 65,536 dense 64×64 LPs through
    ``get_solver("hsd_pallas", device="cuda")`` at the ``BENCH_FINISH=0``
    options, its ITERATION_LIMIT count bounded around the JAX reference's;
@@ -29,9 +35,11 @@ PyTorch version on the card, and drives the port's paths:
 5. the full main path — ``bench.py``'s default configuration: the same
    65,536 LPs through ``hsd_solve_scan`` with the wide f64 crossover
    finish and its drain tiers — audited to the 1e-6 contract on 2,048
-   lanes and every non-OPTIMAL one (the wide audit), then one more solve
-   under ``torch.profiler`` (device time by kernel and the busy share of
-   each stage);
+   lanes and every non-OPTIMAL one (the wide audit), then two more solves
+   under ``torch.profiler`` (device time by kernel, launches and the busy
+   share of each stage, GEMMs by shape): on the kernel route, and with
+   every Ozaki product on the split route, each bitwise equal in statuses
+   and objectives to the main path;
 6. the same configuration on the fused-form set
    (``BATCHLAST_FUSED_KERNELS``) and on the ``fuse_facsol`` set, each
    audited and with its kernel's launches tied to the narrow iterations;
@@ -89,7 +97,9 @@ Usage (from the repository root, one CUDA card):
 Every phase prints lines; any failure raises and the script exits
 non-zero (there is no CPU fallback).  Every path phase checks, by the
 ``*_SMEM_LAUNCHES`` counters, that each of its factors, solves and fused
-launches ran the lane-group design.  The script's wall is printed just
+launches ran the lane-group design, and that each of its shared-A Ozaki
+products was one ``ozaki_product_bl`` launch (``OZAKI_LAUNCHES`` equals
+the products counted at ``df64._ozaki_matmul``, no ``slice_rounds_bl``).  The script's wall is printed just
 before the kernel report; the kernel report, as JSON, is the line before
 the last, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -143,6 +153,7 @@ SOURCES = {
     "df_chol_bl": "pycllp_tpu_torch/csrc/df64.cu",
     "df_solve_bl": "pycllp_tpu_torch/csrc/df64.cu",
     "slice_rounds_bl": "pycllp_tpu_torch/csrc/df64.cu",
+    "ozaki_product_bl": "pycllp_tpu_torch/csrc/ozaki.cuh",
 }
 REPLACES = {
     "chol_bl": "pycllp_tpu/ops/batchlast.py:223",
@@ -152,6 +163,9 @@ REPLACES = {
     "df_chol_bl": "pycllp_tpu/ops/df64.py:264",
     "df_solve_bl": "pycllp_tpu/ops/df64.py:295",
     "slice_rounds_bl": "pycllp_tpu/ops/df64.py:504",
+    # the slicing kernel with the group GEMMs and the f64 sum of _ozaki_matmul
+    # (pycllp_tpu/ops/df64.py:547) around it
+    "ozaki_product_bl": "pycllp_tpu/ops/df64.py:504",
 }
 KERNEL_RTOL = 1e-4  # f32 kernels vs plain and vs the f32 reference set (smoke's bound)
 F64_RTOL = 1e-12  # FP64 kernels vs their plain versions
@@ -248,7 +262,14 @@ MAIN_SHAPES = {
     "df_solve_bl": ["m=64, B=256/300, k=1/2/3 (lane-group and streaming)",
                     "m=100, B=300; m=200, B=40 (lane-group); m=241, B=40 (streaming), k=1/2/3"],
     "slice_rounds_bl": ["r=128, B=16384; r=64, B=300"],
+    "ozaki_product_bl": ["mv 64x128, rmv 128x64: B=1/300/1024/5120/16384; formation "
+                         "4096x128: B=1/300/1024"],
 }
+# ozaki_product_bl's widths: the matvecs' up to a chunk, the formation's up
+# to the drain's tier 1 (it forms M only in the finish); netlib's buckets
+OZAKI_WIDTHS = (1, 300, 1024, 5120, 16384)
+OZAKI_FORMATION_MAX_B = 1024
+OZAKI_NETLIB_WIDTHS = (300, 8192)
 
 
 def say(phase: str, msg: str) -> None:
@@ -321,10 +342,12 @@ def lane_sweep(label: str, launch, dtype, reps: int = 20, sizes=None) -> dict:
 # bounds and library yardsticks
 # ---------------------------------------------------------------------------
 
-# NVIDIA's H100 SXM data sheet: HBM rate, and the FP32 / FP64 rates outside
-# the tensor cores (the kernels use neither TF32 nor DMMA)
+# NVIDIA's H100 SXM data sheet: HBM rate, the FP32 / FP64 rates outside the
+# tensor cores (the kernels use neither TF32 nor DMMA), and the dense bf16
+# tensor-core rate (ozaki_product_bl's mma.sync)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: (67e12, "fp32"), torch.float64: (34e12, "fp64")}
+PEAK_FLOPS = {torch.float32: (67e12, "fp32"), torch.float64: (34e12, "fp64"),
+              torch.bfloat16: (989e12, "bf16 tensor")}
 
 
 def _tri(m: int) -> int:
@@ -405,6 +428,8 @@ def zero_counts() -> None:
     bl.FUSED_FACTOR_SMEM_LAUNCHES = bl.FACSOL_SMEM_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
+    df64.OZAKI_LAUNCHES = 0
+    _PRODUCTS[0] = 0
     hsd_mod.HOST_STEPS = 0
 
 
@@ -412,7 +437,8 @@ def read_counts() -> dict:
     return {"chol_bl": bl.CHOL_LAUNCHES, "solve_bl": bl.SOLVE_LAUNCHES,
             "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
-            "slice_rounds_bl": df64.SLICE_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
+            "slice_rounds_bl": df64.SLICE_LAUNCHES, "ozaki_product_bl": df64.OZAKI_LAUNCHES,
+            "ozaki_products": _PRODUCTS[0], "host_steps": hsd_mod.HOST_STEPS,
             "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
             "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
             "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
@@ -425,6 +451,7 @@ PROFILE_NAMES = {"chol_bl": "chol_bl_smem_kernel", "solve_bl": "solve_bl_smem_ke
                  "df_chol_bl": "chol_bl_smem_kernel<double>",
                  "df_solve_bl": "solve_bl_smem_kernel<double>",
                  "slice_rounds_bl": "slice_rounds_kernel",
+                 "ozaki_product_bl": "ozaki_product_kernel",
                  "fused_factor_bl": "fused_factor_bl_smem_kernel",
                  "facsol_bl": "facsol_bl_smem_kernel"}
 
@@ -436,11 +463,53 @@ TWO_DESIGNS = ("chol_bl", "solve_bl", "df_chol_bl", "df_solve_bl", "fused_factor
 
 def check_smem_route(label: str, counts: dict) -> None:
     """Every factor, solve and fused launch of a path at m <= 128 ran the
-    lane-group design."""
+    lane-group design, and every shared-A Ozaki product of the path was one
+    ozaki_product_bl launch (none sliced by slice_rounds_bl)."""
     for name in TWO_DESIGNS:
         check(counts[f"{name}_smem"] == counts[name],
               f"{label}: {name} launched {counts[name]} times, {counts[f'{name}_smem']} of them "
               "on the lane-group design")
+    check(counts["ozaki_product_bl"] == counts["ozaki_products"] and counts["slice_rounds_bl"] == 0,
+          f"{label}: {counts['ozaki_products']} Ozaki products, {counts['ozaki_product_bl']} "
+          f"ozaki_product_bl launches, {counts['slice_rounds_bl']} slice_rounds_bl launches")
+
+
+# every shared-A Ozaki product with lanes on the card, counted where the
+# kernel sets call it (df64._ozaki_matmul), in this process and in every
+# rank (which imports this module); zero_counts / read_counts reset and read it
+_PRODUCTS = [0]
+_PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels), while phase_profile records
+
+
+def _counted_products(inner):
+    def counted(W, d, *, s, n_slices, cut):
+        if d.is_cuda and d.shape[0] and W.e.shape[0]:
+            _PRODUCTS[0] += 1
+            if _PRODUCT_SHAPES["on"]:
+                _PRODUCT_SHAPES["shapes"].append((W.e.shape[0], d.shape[1], d.shape[0], cut - 1))
+        return inner(W, d, s=s, n_slices=n_slices, cut=cut)
+
+    return counted
+
+
+df64._ozaki_matmul = _counted_products(df64._ozaki_matmul)
+
+
+@contextlib.contextmanager
+def split_ozaki_route():
+    """Route every Ozaki product through _ozaki_matmul_split (the
+    slice_rounds_bl kernel, f32 torch.matmul group GEMMs, the f64 sum): the
+    card's route before ozaki_product_bl, on no solver path otherwise."""
+    kernel = df64._ozaki_product_bl_cuda
+
+    def split(W, d, s, n_slices, cut):
+        return df64._ozaki_matmul_split(W, d, s=s, n_slices=n_slices, cut=cut)
+
+    df64._ozaki_product_bl_cuda = split
+    try:
+        yield
+    finally:
+        df64._ozaki_product_bl_cuda = kernel
 
 
 @contextlib.contextmanager
@@ -984,7 +1053,7 @@ def phase_wide_kernels(dev) -> dict:
     A, d, _ = _wide_inputs(512, seed=3, dev=dev, spread=30)
     ctx = kset.prepare(A)
     s, n_slices, cut = df64.ozaki_params(128)
-    Mo = df64._ozaki_matmul(*ctx.Woz, d.T, s=s, n_slices=n_slices, cut=cut)
+    Mo = df64._ozaki_matmul(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut)
     M_ref = torch.einsum("mn,bn,kn->mkb", A, d, A).reshape(64 * 64, 512)
     oz = float(((Mo - M_ref).abs() / M_ref.abs().amax(0, keepdim=True)).max())
     check(oz < 2.5e-13, f"Ozaki formation rel {oz:.2e} of the output scale")
@@ -1060,6 +1129,127 @@ def phase_wide_kernels(dev) -> dict:
         **bound((8 + 4 * n_slices) * 128 * 16384, 12 * n_slices * 128 * 16384, torch.float32),
         **no_library("no single PyTorch call cuts the Ozaki slices")}
     return out
+
+
+def _ozaki_operands(A64) -> list:
+    """The three shared-A Ozaki products on A (m, n) f64, as the kernel sets
+    prepare them: [(label, W (rows, k) f64, OzakiOperand, (s, n_slices, cut))]
+    for the matvec, the transposed matvec and the normal-matrix formation."""
+    m, n = A64.shape
+    W = (A64[:, None, :] * A64[None, :, :]).reshape(m * m, n)
+    out = []
+    for label, Wx, params in (("mv", A64, df64.ozaki_mv_params(n)),
+                              ("rmv", A64.T.contiguous(), df64.ozaki_mv_params(m)),
+                              ("formation", W, df64.ozaki_params(n))):
+        s, n_slices, cut = params
+        out.append((label, Wx, df64._ozaki_prepare(Wx, s=s, n_slices=n_slices, cut=cut), params))
+    return out
+
+
+def _ozaki_lanes(B: int, k: int, rng, dev) -> torch.Tensor:
+    """d (B, k) f64 spread over 1e±30 (the solver caps d at 1e30); where B
+    allows, lane 0 all zero (its max clamps to f32's tiny), lane 1 with an
+    exact power of two as its max (the ceil(log2) edge) and lane 2 NaN."""
+    d = 10.0 ** rng.uniform(-30, 30, size=(B, k))
+    if B >= 3:
+        d[0] = 0.0
+        d[1] = rng.uniform(0.1, 1.0, k) * 2.0 ** 40
+        d[1, k // 2] = 2.0 ** 40
+        d[2, k // 3] = np.nan
+    return torch.from_numpy(d).to(dev)
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float]:
+    """(equal bit for bit with NaN in the same places, max |a − b| elsewhere)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False, float("nan")
+    a0, b0 = torch.where(na, 0.0, a), torch.where(nb, 0.0, b)
+    return (torch.equal(a0.view(torch.int64), b0.view(torch.int64)),
+            float((a0 - b0).abs().max()) if a0.numel() else 0.0)
+
+
+def ozaki_bound(rows: int, k: int, B: int, n_slices: int, cut: int) -> dict:
+    """ozaki_product_bl's least time: packed W, W's row scales and d read,
+    the f64 output written; 2·rows·k·B tensor-core operations a pair (k,
+    l) of the cut − 1 levels, on bf16 at its dense peak."""
+    pairs = sum(len(ks) for _, ks in df64._group_levels(n_slices, cut))
+    rows_pad = -(-rows // df64.OZAKI_ROW_PAD) * df64.OZAKI_ROW_PAD
+    nbytes = n_slices * rows_pad * (-(-k // 16) * 16) * 2 + rows * 8 + B * k * 8 + rows * B * 8
+    return {**bound(nbytes, pairs * 2 * rows * k * B, torch.bfloat16), "pairs": pairs}
+
+
+def phase_ozaki_kernels(dev, smi: str) -> dict:
+    """ozaki_product_bl at every shape the solver paths give it: the main
+    cell's matvec (64×128), transposed matvec (128×64) and formation
+    (4,096×128) at B = 1 … 16,384 (the formation to 1,024), and netlib's
+    (m = 27/50/56, their m² formations) at B = 300 and 8,192.  Each is held
+    BITWISE to the split route (slice_rounds_bl, f32 GEMMs, f64 sum) and to
+    the plain version, NaN lane in place; then timed in turns against the
+    split route, beside one torch.matmul of the f64 W and d (the library
+    call for the same product) and its bound."""
+    rng = np.random.default_rng(10)
+    A_main = torch.from_numpy(rng.normal(size=(64, 128)) / np.sqrt(128)).to(dev)
+    cases = [("main", A_main, OZAKI_WIDTHS)]
+    for fx in ("afiro", "sc50a", "adlittle"):
+        cases.append((fx, torch.from_numpy(_netlib_eq(fx)[1]).to(dev), OZAKI_NETLIB_WIDTHS))
+    rows_out, held, main = [], [], None
+    zero_counts()
+    for src, A64, widths in cases:
+        for label, Wx, op, (s, n_slices, cut) in _ozaki_operands(A64):
+            rows, k = Wx.shape
+            for B in widths:
+                if label == "formation" and src == "main" and B > OZAKI_FORMATION_MAX_B:
+                    continue
+                d = _ozaki_lanes(B, k, rng, dev)
+                kw = dict(s=s, n_slices=n_slices, cut=cut)
+                out_k = df64._ozaki_product_bl_cuda(op, d, s, n_slices, cut)
+                out_s = df64._ozaki_matmul_split(op, d, **kw)
+                out_p = df64._ozaki_matmul_plain(op, d, **kw)
+                torch.cuda.synchronize()
+                at = f"{src} {label} {rows}x{k}, B={B}, (s, n_slices, cut)=({s}, {n_slices}, {cut})"
+                same_s, diff_s = _bitwise(out_k, out_s)
+                same_p, diff_p = _bitwise(out_k, out_p)
+                check(same_s, f"ozaki_product_bl vs the split route at {at}: not bitwise equal "
+                      f"(max abs diff {diff_s:.3e})")
+                check(same_p, f"ozaki_product_bl vs its plain version at {at}: not bitwise "
+                      f"equal (max abs diff {diff_p:.3e})")
+                if B >= 3:
+                    check(bool(torch.isnan(out_k[:, 2]).all()) and not bool(
+                        torch.isnan(out_k[:, :2]).any() or torch.isnan(out_k[:, 3:]).any()),
+                          f"ozaki_product_bl at {at}: the NaN lane is not exactly lane 2")
+                    check(not out_k[:, 0].any(), f"ozaki_product_bl at {at}: the zero lane is "
+                          "not 0")
+                held.append(at)
+                t_k, t_s = in_turns(f"ozaki_product_bl vs the split route at {at}",
+                                    lambda: df64._ozaki_product_bl_cuda(op, d, s, n_slices, cut),
+                                    lambda: df64._ozaki_matmul_split(op, d, **kw))
+                lib = time_ms(lambda: Wx @ d.T, 5)
+                bd = ozaki_bound(rows, k, B, n_slices, cut)
+                row = {"src": src, "use": label, "rows": rows, "n": k, "B": B, "s": s,
+                       "n_slices": n_slices, "cut": cut, "ms": t_k, "split_ms": t_s,
+                       "library_ms": lib, **bd}
+                rows_out.append(row)
+                if src == "main" and label == "formation" and B == OZAKI_FORMATION_MAX_B:
+                    t_p = time_ms(lambda: df64._ozaki_matmul_plain(op, d, **kw), 5)
+                    main = dict(row, plain_ms=t_p)
+    counts = read_counts()
+    check(counts["ozaki_product_bl"] > 0 and counts["ozaki_products"] == 0,
+          f"ozaki kernels: launches {counts['ozaki_product_bl']}")
+    say("ozaki kernels", f"ozaki_product_bl bitwise equal to the split route and to its plain "
+        f"version at {len(held)} shapes (zero, power-of-two and NaN lanes at B >= 3) on {smi}")
+    for r in rows_out:
+        say("kernel bound", f"ozaki_product_bl {r['src']} {r['use']} {r['rows']}x{r['n']}, "
+            f"B={r['B']}: {r['ms']:.4f} ms, split route {r['split_ms']:.4f} ms "
+            f"({r['split_ms'] / r['ms']:.1f}x), torch.matmul f64 {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_unit']}; {r['bound_ms'] / r['ms']:.1%} of it; "
+            f"{r['pairs']} pairs)")
+    return {"ozaki_product_bl": {
+        "err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"], "split_ms": main["split_ms"],
+        **{k_: main[k_] for k_ in ("bound_ms", "bound_by", "bound_unit", "bound_bytes",
+                                   "bound_flops")},
+        "library_ms": main["library_ms"], "library_permute_ms": None,
+        "library_call": "torch.matmul (f64 W @ d.T)", "by_shape": rows_out, "held_at": held}}
 
 
 # ---------------------------------------------------------------------------
@@ -1453,7 +1643,7 @@ def phase_main_path(smi: str) -> dict:
     run = _scan_path(smi, bl.BATCHLAST_KERNELS, "main path", ("second", "third"))
     _optimal_share("main path", run["objective"], run["status"])
     wide_audit("main path", run["lp"], run["objective"], run["status"])
-    for name in ("chol_bl", "solve_bl", "slice_rounds_bl"):
+    for name in ("chol_bl", "solve_bl", "ozaki_product_bl"):
         check(run["total"][name] > 0, f"{name} was never launched on the main path")
     return run
 
@@ -1463,10 +1653,10 @@ def _kernel_group(name: str) -> str:
     function name, the library's by what they do."""
     for ours in ("fused_factor_bl_smem_kernel", "facsol_bl_smem_kernel", "chol_bl_smem_kernel",
                  "solve_bl_smem_kernel", "chol_bl_kernel",
-                 "solve_bl_kernel", "slice_rounds_kernel", "fused_factor_bl_kernel",
-                 "facsol_bl_kernel"):
-        if ours in name:
-            return ours + ("<double>" if "double" in name else "")
+                 "solve_bl_kernel", "slice_rounds_kernel", "ozaki_product_kernel",
+                 "fused_factor_bl_kernel", "facsol_bl_kernel"):
+        if ours in name:  # the FP64 instantiations of the batch-last templates apart
+            return ours + ("<double>" if "double" in name and "ozaki" not in ours else "")
     low = name.lower()
     for kind in ("gemm", "gemv", "reduce", "elementwise", "copy", "scan", "sort", "index"):
         if kind in low:
@@ -1474,16 +1664,15 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def phase_profile(smi: str) -> dict:
-    """One more solve of the main path under torch.profiler, with a sync
-    between the stages: device time by kernel in the narrow stage and in
-    the finish, and each stage's busy share (device time over the span from
-    its first kernel to its last)."""
-    _, A, b, c = _bench_problem(N_LP)
-    opts = SolverOptions(**BENCH_OPTIONS)
+def _profiled_solve(route: str, A, b, c, opts) -> tuple:
+    """One main-cell solve under torch.profiler (stage_sync, the finish
+    marked), on the kernel route or, ``route="split"``, with every Ozaki
+    product on the split route.  Returns (profiler, output, launch counts,
+    the Ozaki products' (rows, n, B, levels) and the slicing launches'
+    (r, B, n_slices), each in launch order)."""
     finish_core = hsd_mod._hsd_scan_finish_core
     slice_cuda = df64._slice_rounds_bl_cuda
-    slice_shapes = []  # (r, B, n_slices) of each slicing launch, in launch order
+    slice_shapes = []
 
     def marked(*args, **kwargs):
         with torch.profiler.record_function("finish stage"):
@@ -1497,28 +1686,39 @@ def phase_profile(smi: str) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     hsd_mod._hsd_scan_finish_core = marked
     df64._slice_rounds_bl_cuda = slice_logged
+    _PRODUCT_SHAPES.update(on=True, shapes=[])
+    zero_counts()
     try:
-        torch.cuda.synchronize()
-        with contextlib.redirect_stderr(io.StringIO()), \
-                torch.profiler.profile(activities=acts) as prof:
-            out = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
-                                         stage_sync=True, **SCAN_KW)
-            out["status"].cpu()
+        with split_ozaki_route() if route == "split" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            with contextlib.redirect_stderr(io.StringIO()), \
+                    torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+                out = hsd_mod.hsd_solve_scan(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda",
+                                             stage_sync=True, **SCAN_KW)
+                out["status"].cpu()
     finally:
         hsd_mod._hsd_scan_finish_core = finish_core
         df64._slice_rounds_bl_cuda = slice_cuda
+        _PRODUCT_SHAPES["on"] = False
+    return prof, out, read_counts(), list(_PRODUCT_SHAPES["shapes"]), slice_shapes
+
+
+def _stages(prof, smi: str, route: str) -> tuple[dict, list]:
+    """Device time by kernel, launches and busy share of the narrow stage
+    and of the finish; returns (stages, the kernel events in time order)."""
     events = prof.events()
     finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     # kernels only: copies and fills run on the copy engines, not the SMs,
     # and the stage's own annotation is mirrored on the device timeline
-    kernels = [e for e in device
-               if not e.name.startswith(("Memcpy", "Memset")) and e.name != "finish stage"]
+    kernels = sorted((e for e in device
+                      if not e.name.startswith(("Memcpy", "Memset")) and e.name != "finish stage"),
+                     key=lambda e: e.time_range.start)
     check(len(kernels) > 0, "the profiler saw no device kernel")
     stages = {}
     for stage, sel in (("narrow", lambda e: e.time_range.start < finish_at),
                        ("finish", lambda e: e.time_range.start >= finish_at)):
-        ks = sorted((e for e in kernels if sel(e)), key=lambda e: e.time_range.start)
+        ks = [e for e in kernels if sel(e)]
         # busy: the union of the kernels' intervals (they may overlap)
         busy_us, reach = 0.0, float("-inf")
         for e in ks:
@@ -1538,43 +1738,113 @@ def phase_profile(smi: str) -> dict:
                          "launches": len(ks),
                          "by_kernel_ms": {k: round(v[0], 3) for k, v in top},
                          "by_kernel_launches": {k: v[1] for k, v in top}}
-        say("profile", f"{stage} stage: device busy {busy:.1f} of {span:.1f} ms (idle "
-            f"{1 - busy / span:.1%}), {len(ks)} kernels; " + ", ".join(
+        say("profile", f"{route} route, {stage} stage: device busy {busy:.1f} of {span:.1f} ms "
+            f"(idle {1 - busy / span:.1%}), {len(ks)} kernels; " + ", ".join(
                 f"{k} {v[0]:.1f} ms/{v[1]}" for k, v in top[:9]) + f"; 'other' is e.g. {others}"
             f" on {smi}")
-    # device time per launch of the FP64 solve and of the slicing, the
-    # slicing by width (its launches are matched to the recorded shapes in
-    # launch order: one stream)
-    per_launch = {}
-    for group in ("solve_bl_smem_kernel<double>", "chol_bl_smem_kernel<double>",
-                  "solve_bl_smem_kernel", "chol_bl_smem_kernel"):
-        ks = [e for e in kernels if _kernel_group(e.name) == group]
-        if ks:
-            per_launch[group] = sum(e.time_range.elapsed_us() for e in ks) / len(ks)
-    say("profile", "device time per launch: " + ", ".join(
-        f"{k} {v:.1f} us" for k, v in per_launch.items()))
-    slices = sorted((e for e in kernels if _kernel_group(e.name) == "slice_rounds_kernel"),
-                    key=lambda e: e.time_range.start)
-    if len(slices) != len(slice_shapes):  # a measurement, not a check: say so and go on
-        say("profile", f"{len(slices)} slicing kernels in the trace but {len(slice_shapes)} "
-            "launches recorded: no breakdown by shape")
-        slice_shapes = []
-    by_shape = {}
-    for e, shape in zip(slices, slice_shapes):
-        by_shape.setdefault(shape, []).append(e.time_range.elapsed_us())
-    slice_rows = []
-    for (r, B, n_slices), us in sorted(by_shape.items(), key=lambda kv: -len(kv[1])):
-        # the (hi, lo) pair read, n_slices f32 bands written; 12 f32 operations a slice
-        bd = bound((8 + 4 * n_slices) * r * B, 12 * n_slices * r * B, torch.float32)
+    return stages, kernels
+
+
+def _by_shape(kernels, group: str, shapes: list, bound_of) -> list:
+    """Device time of one kernel's launches by shape: its events matched to
+    the recorded shapes in launch order (one stream)."""
+    ks = [e for e in kernels if _kernel_group(e.name) == group]
+    if len(ks) != len(shapes):  # a measurement, not a check: say so and go on
+        say("profile", f"{len(ks)} {group} launches in the trace but {len(shapes)} recorded: no "
+            "breakdown by shape")
+        return []
+    by = {}
+    for e, shape in zip(ks, shapes):
+        by.setdefault(shape, []).append(e.time_range.elapsed_us())
+    rows = []
+    for shape, us in sorted(by.items(), key=lambda kv: -len(kv[1])):
+        bound_us = bound_of(*shape)["bound_ms"] * 1e3
         mean_us = sum(us) / len(us)
-        slice_rows.append({"r": r, "B": B, "n_slices": n_slices, "launches": len(us),
-                           "mean_us": mean_us, "bound_us": bd["bound_ms"] * 1e3,
-                           "share": bd["bound_ms"] * 1e3 / mean_us})
-    say("profile", "slice_rounds_bl by shape (r, B, n_slices): " + "; ".join(
-        f"({x['r']}, {x['B']}, {x['n_slices']}) {x['launches']} launches, {x['mean_us']:.1f} us "
-        f"each, bound {x['bound_us']:.2f} us ({x['share']:.1%})" for x in slice_rows))
-    stages["per_launch_us"] = per_launch
-    stages["slice_rounds_by_shape"] = slice_rows
+        rows.append({"shape": shape, "launches": len(us), "mean_us": mean_us,
+                     "bound_us": bound_us, "share": bound_us / mean_us})
+    return rows
+
+
+def _gemms_by_shape(prof) -> list:
+    """The f32/f64 GEMMs of the solve by input shapes (aten::mm and
+    aten::addmm, device time summed), the largest first."""
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::mm", "aten::addmm", "aten::bmm"):
+            dev_us = getattr(e, "device_time_total", None)
+            dev_us = e.cuda_time_total if dev_us is None else dev_us
+            rows.append({"op": e.key, "shapes": str(e.input_shapes)[:80], "calls": e.count,
+                         "device_ms": dev_us / 1e3})
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
+def phase_profile(smi: str, main_run: dict) -> dict:
+    """Two more solves of the main path under torch.profiler, with a sync
+    between the stages: on the kernel route, then with every Ozaki product
+    on the split route (the route before ozaki_product_bl).  Both must give
+    the main path's statuses and objectives bit for bit.  Per route: device
+    time by kernel in the narrow stage and in the finish, each stage's
+    busy share (device time over the span from its first kernel to its
+    last) and launches, the GEMMs by shape, and the product kernel's (or
+    the slicing's) device time by shape."""
+    _, A, b, c = _bench_problem(N_LP)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    stages = {}
+    for route in ("kernel", "split"):
+        prof, out, counts, products, slices = _profiled_solve(route, A, b, c, opts)
+        status = out["status"].cpu().numpy()
+        obj = -out["objective"].cpu().numpy()
+        same = np.array_equal(status, main_run["status"])
+        bitwise = obj.dtype == main_run["objective"].dtype and \
+            obj.tobytes() == main_run["objective"].tobytes()
+        say("profile", f"{route} route: statuses equal to the main path's {same}, objectives "
+            f"bitwise equal {bitwise}; {counts['ozaki_products']} Ozaki products, "
+            f"ozaki_product_bl {counts['ozaki_product_bl']}, slice_rounds_bl "
+            f"{counts['slice_rounds_bl']}")
+        check(same and bitwise, f"the main cell on the {route} route differs from the main path")
+        if route == "kernel":
+            check(counts["ozaki_product_bl"] == counts["ozaki_products"] > 0
+                  and counts["slice_rounds_bl"] == 0, f"kernel route: launches {counts}")
+        else:
+            check(counts["slice_rounds_bl"] == counts["ozaki_products"] > 0
+                  and counts["ozaki_product_bl"] == 0, f"split route: launches {counts}")
+        st, kernels = _stages(prof, smi, route)
+        st["counts"] = counts
+        st["gemms_by_shape"] = gemms = _gemms_by_shape(prof)[:8]
+        say("profile", f"{route} route, GEMMs by input shape (device ms / calls): " + "; ".join(
+            f"{g['op']} {g['shapes']} {g['device_ms']:.2f}/{g['calls']}" for g in gemms))
+        if route == "kernel":
+            rows = _by_shape(kernels, "ozaki_product_kernel", products,
+                             lambda r, k, B, lv: ozaki_bound(r, k, B, lv, lv + 1))
+            say("profile", "ozaki_product_bl by shape (rows, n, B, levels): " + "; ".join(
+                f"{x['shape']} {x['launches']} launches, {x['mean_us']:.1f} us each, bound "
+                f"{x['bound_us']:.2f} us ({x['share']:.1%})" for x in rows))
+            st["ozaki_by_shape"] = rows
+            # device time per launch of the factors and solves
+            per_launch = {}
+            for group in ("solve_bl_smem_kernel<double>", "chol_bl_smem_kernel<double>",
+                          "solve_bl_smem_kernel", "chol_bl_smem_kernel"):
+                ks = [e for e in kernels if _kernel_group(e.name) == group]
+                if ks:
+                    per_launch[group] = sum(e.time_range.elapsed_us() for e in ks) / len(ks)
+            say("profile", "device time per launch: " + ", ".join(
+                f"{k} {v:.1f} us" for k, v in per_launch.items()))
+            st["per_launch_us"] = per_launch
+        else:
+            # the (hi, lo) pair read, n_slices f32 bands written; 12 f32 operations a slice
+            rows = _by_shape(kernels, "slice_rounds_kernel", slices, lambda r, B, ns: bound(
+                (8 + 4 * ns) * r * B, 12 * ns * r * B, torch.float32))
+            say("profile", "split route, slice_rounds_bl by shape (r, B, n_slices): " + "; ".join(
+                f"{x['shape']} {x['launches']} launches, {x['mean_us']:.1f} us each, bound "
+                f"{x['bound_us']:.2f} us ({x['share']:.1%})" for x in rows))
+            st["slice_rounds_by_shape"] = rows
+        stages[route] = st
+    k_fin, s_fin = stages["kernel"]["finish"], stages["split"]["finish"]
+    say("profile", f"the finish, split route -> kernel route: launches {s_fin['launches']} -> "
+        f"{k_fin['launches']}, device busy {s_fin['device_ms']:.1f} -> {k_fin['device_ms']:.1f} "
+        f"ms, span {s_fin['span_ms']:.1f} -> {k_fin['span_ms']:.1f} ms, GEMM "
+        f"{s_fin['by_kernel_ms'].get('gemm', 0.0):.1f} -> "
+        f"{k_fin['by_kernel_ms'].get('gemm', 0.0):.1f} ms on {smi}")
     return stages
 
 
@@ -1741,7 +2011,7 @@ def phase_sweep(smi: str) -> dict:
     whole_s = time.perf_counter() - t0
     counts = read_counts()
     check_smem_route("config 5", counts)
-    for name in ("fused_factor_bl", "solve_bl", "slice_rounds_bl"):
+    for name in ("fused_factor_bl", "solve_bl", "ozaki_product_bl"):
         check(counts[name] > 0, f"{name} was never launched in the config-5 sweep")
     windows = np.diff([t0] + marks)
     say("config 5", f"uninterrupted, no out_dir: {whole_s:.3f}s = {SWEEP_N / whole_s:.1f} "
@@ -2777,11 +3047,12 @@ def main() -> None:
     measured = phase_kernels(dev)
     measured.update(phase_wide_kernels(dev))
     measured.update(phase_fused_kernels(dev))
+    measured.update(phase_ozaki_kernels(dev, smi))
     narrow, narrow_status = phase_narrow_path(smi)
     phase_narrow_mix(smi, narrow_status)
     probe = phase_probes()
     main_run = phase_main_path(smi)
-    profile = phase_profile(smi)
+    profile = phase_profile(smi, main_run)
     form, facsol = phase_fused_paths(smi, main_run["status"])
     sweep_counts = phase_sweep(smi)
     phase_metrics()
@@ -2798,10 +3069,13 @@ def main() -> None:
         phase_sweep_parallel(smi, backend="nccl")
     phase_big_lp(smi)
     # launches: each kernel's count on the full main path that runs it (the
-    # default set's, or the fused set's for the fused kernels); the narrow
-    # path's, the df64 probe's (which must run the FP64 factor/solve) and
-    # the sweep's beside it
-    path_of = {"fused_factor_bl": ("fused-form path", form), "facsol_bl": ("facsol path", facsol)}
+    # default set's, or the fused set's for the fused kernels; the slicing
+    # pass runs only on the split route, the main cell's profiled solve with
+    # every Ozaki product routed there); the narrow path's, the df64
+    # probe's (which must run the FP64 factor/solve) and the sweep's beside it
+    path_of = {"fused_factor_bl": ("fused-form path", form), "facsol_bl": ("facsol path", facsol),
+               "slice_rounds_bl": ("main path, split route (phase_profile)",
+                                   {"total": profile["split"]["counts"]})}
     report = []
     for name, r in measured.items():
         path, run = path_of.get(name, ("main path", main_run))
@@ -2821,7 +3095,7 @@ def main() -> None:
                        "library_call": r["library_call"], "library_none": r.get("library_none"),
                        "netlib_ms": held[name].get("ms"),
                        "netlib_plain_ms": held[name].get("plain_ms"),
-                       "held_at": MAIN_SHAPES[name] + held[name]["held_at"]})
+                       "held_at": MAIN_SHAPES[name] + held[name]["held_at"] + r.get("held_at", [])})
         if name in TWO_DESIGNS:
             # the lane-group design's launches on the same path (all of them),
             # the streaming design's time in the same turns, the other widths
@@ -2835,9 +3109,14 @@ def main() -> None:
                 "other_width": r.get("resume_bucket") or r.get("tier2")})
         if name in ("fused_factor_bl", "facsol_bl"):
             report[-1].update({"split_ms": r["split_ms"], "netlib_split_ms": held[name]["split_ms"]})
+        if name == "ozaki_product_bl":
+            report[-1].update({"split_ms": r["split_ms"], "by_shape": r["by_shape"],
+                               "profiled_by_shape": profile["kernel"]["ozaki_by_shape"]})
         # device time of the kernel in the profiled main-path solve, by stage
+        # (the slicing pass's in the split route's)
         group = PROFILE_NAMES.get(name)
-        report[-1].update({f"{stage}_device_ms": profile[stage]["by_kernel_ms"].get(group, 0.0)
+        prof_run = profile["split" if name == "slice_rounds_bl" else "kernel"]
+        report[-1].update({f"{stage}_device_ms": prof_run[stage]["by_kernel_ms"].get(group, 0.0)
                            for stage in ("narrow", "finish")})
     say("wall", f"the whole script {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,10 +1,12 @@
 // Wide-phase kernels for Hopper (sm_90a): native-FP64 factor and solve,
-// and the Ozaki slicing pass.
+// the Ozaki slicing pass and the fused Ozaki product.
 //
 // Replaces the Pallas TPU kernels in pycllp_tpu/ops/df64.py:
-//   df_chol_bl      <- _df_chol_bl      (_df_chol_kernel)
-//   df_solve_bl     <- _df_solve_bl     (_df_solve_kernel)
-//   slice_rounds_bl <- _slice_rounds_bl (_slice_rounds_kernel)
+//   df_chol_bl       <- _df_chol_bl      (_df_chol_kernel)
+//   df_solve_bl      <- _df_solve_bl     (_df_solve_kernel)
+//   ozaki_product_bl <- _slice_rounds_bl (_slice_rounds_kernel) with the
+//                       group GEMMs of _ozaki_matmul (ozaki.cuh)
+//   slice_rounds_bl  <- _slice_rounds_bl, the slicing pass alone
 //
 // df_chol_bl / df_solve_bl.  The reference computes the Cholesky factor
 // and the k-RHS solve in double-single arithmetic (hi/lo f32 pairs, ~18
@@ -47,13 +49,18 @@
 // written with __fadd_rn / __fsub_rn / __fmul_rn, which nvcc does not
 // contract into FMAs; the build uses no fast-math flag, so denormals
 // are kept.  The slices are f32 (integers <= 2^s), as the reference's
-// off-TPU path produces, so the f32 group GEMMs stay exact.
+// off-TPU path produces, so the f32 group GEMMs stay exact.  Its round is
+// ozaki_slice_round (ozaki.cuh), which ozaki_product_bl runs too.  Since
+// every shared-A Ozaki product became one ozaki_product_bl launch, this
+// pass runs on no solver path: it is the split route (slicing pass, then
+// torch.matmul and the f64 sum) that the product is held to bitwise.
 //
 // C interface: each function launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 = launched).
 
 #include "batchlast.cuh"
 #include "batchlast_smem.cuh"
+#include "ozaki.cuh"
 
 namespace {
 
@@ -64,22 +71,7 @@ slice_rounds_kernel(const float* __restrict__ Rh, const float* __restrict__ Rl,
   if (t >= n_elem) return;
   float h = Rh[t];
   float l = Rl[t];
-  for (int k = 1; k <= n_slices; ++k) {
-    const float up = ldexpf(1.0f, s * k);     // exact powers of two
-    const float down = ldexpf(1.0f, -s * k);
-    const float ik = rintf(__fmul_rn(h, up));  // integer-valued, |ik| <= 2^s
-    S[(k - 1) * n_elem + t] = ik;
-    // (h, l) := df_sub((h, l), (xk, 0)) = df_add((h, l), (-xk, -0))
-    const float b = -__fmul_rn(ik, down);
-    // two_sum(h, b)
-    const float sum = __fadd_rn(h, b);
-    const float bb = __fsub_rn(sum, h);
-    const float e = __fadd_rn(__fsub_rn(h, __fsub_rn(sum, bb)), __fsub_rn(b, bb));
-    // fast_two_sum(sum, e + (l + -0))
-    const float tail = __fadd_rn(e, __fadd_rn(l, -0.0f));
-    h = __fadd_rn(sum, tail);
-    l = __fsub_rn(tail, __fsub_rn(h, sum));
-  }
+  for (int k = 1; k <= n_slices; ++k) S[(k - 1) * n_elem + t] = ozaki_slice_round(h, l, s, k);
 }
 
 }  // namespace
@@ -114,6 +106,14 @@ int pycllp_slice_rounds_bl(const void* Rh, const void* Rl, void* S, int r, int B
       static_cast<const float*>(Rh), static_cast<const float*>(Rl), static_cast<float*>(S),
       n_elem, s, n_slices);
   return static_cast<int>(cudaGetLastError());
+}
+
+int pycllp_ozaki_product_bl(const void* Wp, const void* We, const void* d, void* out, int rows,
+                            int n, int B, int sdb, int sdj, int s, int n_slices, int cut,
+                            void* stream) {
+  cudaGetLastError();
+  return static_cast<int>(launch_ozaki_product(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices,
+                                               cut, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "pycllp_fused_factor_bl_smem_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "pycllp_facsol_bl_smem_f32": (_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
+    # Wp, We, d, out, rows, n, B, d's strides (lane, contraction), s, n_slices, cut, stream
+    "pycllp_ozaki_product_bl": (_VP, _VP, _VP, _VP) + (_INT,) * 8 + (_VP,),
 }
 
 

@@ -16,18 +16,24 @@ native FP64, so here the card computes in FP64:
   carries ~49 bits), and :class:`DoubleSingleKernels` hands them f64
   tensors without a hi/lo split.
 * The Ozaki scheme stays: shared-A matvecs and the normal-matrix
-  formation run as exact f32 group GEMMs of integer slices, which
-  :func:`slice_rounds_bl` (also in ``csrc/df64.cu``) cuts.  The hi/lo
-  split survives there and in the reference's fast formation
-  (``form="fast"``: three f32 GEMMs, no kernel of its own).  The group
-  GEMMs are exact only if every integer partial sum stays ≤ 2²⁴ in an f32
-  accumulator, so :func:`_ozaki_matmul` refuses to run with TF32 on.
+  formation are exact group products of integer slices.  On the card each
+  product is ONE launch of the hand-written ``ozaki_product_bl``
+  (``csrc/ozaki.cuh``): the per-lane normalisation, the slicing and the
+  group products on bf16 tensor cores with f32 accumulators, and the f64
+  combination, bitwise equal to the split route it replaces
+  (:func:`_ozaki_matmul_split`: :func:`slice_rounds_bl`, then f32
+  ``torch.matmul`` group GEMMs and the f64 sum).  The hi/lo split survives
+  there and in the reference's fast formation (``form="fast"``: three f32
+  GEMMs, no kernel of its own).  The f32 group GEMMs of the plain and
+  split routes are exact only if every integer partial sum stays ≤ 2²⁴ in
+  a full f32 accumulator, so they refuse to run with TF32 on.
 
 Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
-:func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`).  The wrappers
-take the plain version only for CPU tensors; for a CUDA tensor they
-launch the kernel or raise.  Each launch adds one to ``DF_CHOL_LAUNCHES``,
-``DF_SOLVE_LAUNCHES`` or ``SLICE_LAUNCHES``, and a factor or solve on the
+:func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`,
+:func:`_ozaki_matmul_plain`).  The wrappers take the plain version only
+for CPU tensors; for a CUDA tensor they launch the kernel or raise.  Each
+launch adds one to ``DF_CHOL_LAUNCHES``, ``DF_SOLVE_LAUNCHES``,
+``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, and a factor or solve on the
 lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
 ``DF_SOLVE_SMEM_LAUNCHES``.
 
@@ -72,6 +78,7 @@ DF_SOLVE_LAUNCHES = 0
 DF_CHOL_SMEM_LAUNCHES = 0
 DF_SOLVE_SMEM_LAUNCHES = 0
 SLICE_LAUNCHES = 0
+OZAKI_LAUNCHES = 0
 
 # ---------------------------------------------------------------------------
 # double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
@@ -259,14 +266,15 @@ def ozaki_params(n: int, bits: int = OZAKI_BITS):
     raise ValueError(f"contraction length {n} too large for exact Ozaki slicing")
 
 
-def _df_slice_int(X64, axis, *, s, n_slices):
+def _df_slice_int(X64, axis, *, s, n_slices, slicer=slice_rounds_bl):
     """Slice f64 ``X64`` into integer-valued s-bit f32 bands along ``axis``.
 
     Returns ``(slices, mx)``: a per-``axis`` scale ``mx`` (f64, an exact
     power of two) and ``n_slices`` f32 bands (indexable by band; a
     ``(n_slices, r, B)`` tensor on the 2-D axis-0 path) with integer
     entries in [−2^s, 2^s] such that X64 ≈ mx · Σ_k slices[k]·2^(−s·(k+1)).
-    The normalisation is in f64, before any f32 cast.
+    The normalisation is in f64, before any f32 cast.  On the 2-D axis-0
+    path all rounds run in one pass of ``slicer``.
     """
     mx = X64.abs().amax(dim=axis, keepdim=True)
     mx = mx.clamp(min=torch.finfo(torch.float32).tiny)
@@ -276,9 +284,7 @@ def _df_slice_int(X64, axis, *, s, n_slices):
     mx = torch.exp2(E)  # exact power of two
     Rh, Rl = _split_hi_lo(X64 * torch.exp2(-E))  # exact scaling; |R| ≤ 1
     if X64.dim() == 2 and axis == 0:
-        # the hot path (vector operands of every wide matvec/formation):
-        # all rounds in one pass of the slicing kernel
-        return slice_rounds_bl(Rh.contiguous(), Rl.contiguous(), s, n_slices), mx
+        return slicer(Rh.contiguous(), Rl.contiguous(), s, n_slices), mx
     slices = []
     for k in range(1, n_slices + 1):
         ik = torch.round(Rh * 2.0 ** (s * k))  # integer-valued
@@ -296,38 +302,125 @@ def _group_levels(n_slices, cut):
     ]
 
 
+class OzakiOperand(typing.NamedTuple):
+    """``W`` (rows, n) prepared once for Ozaki products against many ``d``."""
+
+    groups: tuple  # per level t = 2 … cut: W's slices of its pairs along n, f32
+    e: typing.Any  # (rows, 1) f64 per-row scale, an exact power of two
+    packed: typing.Any  # every slice as bf16, in the fragment order of ozaki_product_bl
+
+
+OZAKI_ROW_PAD = 32  # packed rows: a multiple of the kernel's 32-row tile (csrc/ozaki.cuh)
+OZAKI_MAX_LEVELS = 24  # cut − 1 of the kernel's largest instantiation
+
+
+def _pack_slices(slices):
+    """W's ``n_slices`` (rows, n) integer slices → bf16 ``(rows_pad/16,
+    n_slices, n_pad/16, 32, 8)``: for each 16-row tile, slice and 16-column
+    step, the 32 lanes' A fragments of ``mma.m16n8k16`` in register order
+    (csrc/ozaki.cuh).  Lane 4g + q holds rows (g, g + 8) and columns (2q,
+    2q + 1, 2q + 8, 2q + 9) as a0 … a7; rows pad to 32, columns to 16, with
+    zeros.  The slices are integers ≤ 2^s ≤ 2⁷, so bf16 holds them exactly.
+    """
+    S = torch.stack(list(slices)).to(torch.bfloat16)
+    ns, rows, n = S.shape
+    Rp = -(-rows // OZAKI_ROW_PAD) * OZAKI_ROW_PAD
+    Np = -(-n // 16) * 16
+    S = torch.nn.functional.pad(S, (0, Np - n, 0, Rp - rows))
+    # (k, row tile, h, g, column step, c8, q, e): row = 16·tile + 8h + g,
+    # column = 16·step + 8·c8 + 2q + e
+    S = S.reshape(ns, Rp // 16, 2, 8, Np // 16, 2, 4, 2)
+    return S.permute(1, 0, 4, 3, 6, 5, 2, 7).reshape(Rp // 16, ns, Np // 16, 32, 8).contiguous()
+
+
 def _ozaki_prepare(W64, *, s, n_slices, cut):
-    """Precompute per-group concatenated slice blocks of ``W`` (rows, n).
+    """Slice ``W`` (rows, n) once: an :class:`OzakiOperand`.
 
     Group t's block stacks slices [max(1, t−n_slices) … t−1] along the
-    contraction axis.  Returns (tuple of per-group f32 blocks, per-row scale).
+    contraction axis (the plain and split routes); ``packed`` holds every
+    slice for the kernel.
     """
     sl, e = _df_slice_int(W64.to(torch.float64), axis=1, s=s, n_slices=n_slices)
     groups = tuple(
         torch.cat([sl[k - 1] for k in ks], dim=1) for _, ks in _group_levels(n_slices, cut)
     )
-    return groups, e
+    return OzakiOperand(groups=groups, e=e, packed=_pack_slices(sl))
 
 
-def _ozaki_matmul(W_groups, We, d64, *, s, n_slices, cut):
-    """~2^(−s·(cut−1))-accurate ``W @ d64`` from exact f32 GEMMs.
-
-    ``W_groups``/``We``: from :func:`_ozaki_prepare`.  ``d64``: (n, B)
-    f64, sliced here along axis 0.  Returns f64 (rows, B).  Raises if
-    TF32 is on: the group GEMMs are exact only in a full f32 accumulator.
-    """
+def _ozaki_group_gemms(W, d, *, s, n_slices, cut, slicer=slice_rounds_bl):
+    """The group-GEMM route of the product: ``d`` sliced by ``slicer``,
+    one f32 GEMM per level, combined in f64 in level order."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the Ozaki group GEMMs need full f32 accumulation: switch TF32 off "
             "(torch.backends.cuda.matmul.allow_tf32 = False)"
         )
-    dsl, de = _df_slice_int(d64.to(torch.float64), axis=0, s=s, n_slices=n_slices)
+    dsl, de = _df_slice_int(d.to(torch.float64).T, axis=0, s=s, n_slices=n_slices,
+                            slicer=slicer)
     acc = None
-    for (t, ks), Wg in zip(_group_levels(n_slices, cut), W_groups):
+    for (t, ks), Wg in zip(_group_levels(n_slices, cut), W.groups):
         Dg = torch.cat([dsl[t - k - 1] for k in ks], dim=0)
         term = (Wg @ Dg).to(torch.float64) * 2.0 ** (-s * t)
         acc = term if acc is None else acc + term
-    return acc * (We * de)
+    return acc * (W.e * de)
+
+
+def _ozaki_matmul_plain(W, d, *, s, n_slices, cut):
+    """Plain version of ``ozaki_product_bl``: every step a PyTorch op
+    (the slicing by :func:`_slice_rounds_bl_plain`).  Raises with TF32 on."""
+    return _ozaki_group_gemms(W, d, s=s, n_slices=n_slices, cut=cut,
+                              slicer=_slice_rounds_bl_plain)
+
+
+def _ozaki_matmul_split(W, d, *, s, n_slices, cut):
+    """The card's route before ``ozaki_product_bl``: the ``slice_rounds_bl``
+    kernel, then f32 ``torch.matmul`` group GEMMs and the f64 sum.  On no
+    solver path; ``chip_smoke.py`` holds the kernel to it bitwise."""
+    return _ozaki_group_gemms(W, d, s=s, n_slices=n_slices, cut=cut)
+
+
+def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int):
+    """``W @ dᵀ`` as one launch of the hand-written ``ozaki_product_bl``."""
+    global OZAKI_LAUNCHES
+    _require(d.dim() == 2, f"d must be (B, n), got {tuple(d.shape)}")
+    B, n = d.shape
+    _require(d.is_cuda, f"d must be a CUDA tensor, got device {d.device}")
+    _require(d.dtype == torch.float64, f"d must be torch.float64, got {d.dtype}")
+    rows = W.e.shape[0]
+    _check_cuda("We", W.e, (rows, 1), torch.float64)
+    shape = (-(-rows // OZAKI_ROW_PAD) * OZAKI_ROW_PAD // 16, n_slices, -(-n // 16), 32, 8)
+    _check_cuda("W.packed", W.packed, shape, torch.bfloat16)
+    _require(W.e.device == W.packed.device == d.device, "W and d must be on the same device")
+    _require(1 <= s and 2 <= cut <= OZAKI_MAX_LEVELS + 1 and s * (n_slices + 1) < 126,
+             f"s={s}, n_slices={n_slices}, cut={cut}: the kernel takes 1 to "
+             f"{OZAKI_MAX_LEVELS} levels and normal f32 slice scales")
+    _require(max(d.stride()) < 2**31, "d's strides must fit in 32 bits")
+    out = torch.empty((rows, B), dtype=torch.float64, device=d.device)
+    if rows * B == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pycllp_ozaki_product_bl(
+            W.packed.data_ptr(), W.e.data_ptr(), d.data_ptr(), out.data_ptr(), rows, n, B,
+            d.stride(0), d.stride(1), s, n_slices, cut, stream,
+        )
+    _raise_on_error("ozaki_product_bl", err)
+    OZAKI_LAUNCHES += 1
+    return out
+
+
+def _ozaki_matmul(W, d, *, s, n_slices, cut):
+    """~2^(−s·(cut−1))-accurate ``W @ dᵀ`` in f64, as (rows, B).
+
+    ``W``: an :class:`OzakiOperand` from :func:`_ozaki_prepare`; ``d``:
+    (B, n), any strides, sliced per lane along n.  A CUDA ``d`` launches
+    ``ozaki_product_bl`` (or raises); a CPU ``d`` runs
+    :func:`_ozaki_matmul_plain`.
+    """
+    if d.device.type == "cpu":
+        return _ozaki_matmul_plain(W, d, s=s, n_slices=n_slices, cut=cut)
+    return _ozaki_product_bl_cuda(W, d.to(torch.float64), s, n_slices, cut)
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +434,8 @@ class PreparedDF(typing.NamedTuple):
     W: typing.Any  # (m², n) f64 self-outer-product, or None for 3-D A
     Wh: typing.Any  # f32 hi/lo split of W (the fast formation's GEMM inputs)
     Wl: typing.Any
-    Woz: typing.Any  # (per-group integer slice blocks, e_row) or None
-    Amv: typing.Any  # Ozaki slice groups of A — exact-GEMM f64 matvecs
+    Woz: typing.Any  # OzakiOperand of W, or None
+    Amv: typing.Any  # OzakiOperand of A — exact f64 matvecs
     Armv: typing.Any  # ... and of Aᵀ (different contraction length)
 
 
@@ -405,13 +498,13 @@ class DoubleSingleKernels(KernelSet):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
             return _mv(ctx.A, x)
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1])
-        return _ozaki_matmul(*ctx.Amv, x.T, s=s, n_slices=n_slices, cut=cut).T
+        return _ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
             return _rmv(ctx.A, y)
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2])
-        return _ozaki_matmul(*ctx.Armv, y.T, s=s, n_slices=n_slices, cut=cut).T
+        return _ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
 
     def factor(self, ctx, d, reg_eps):
         if not isinstance(ctx, PreparedDF):
@@ -429,7 +522,7 @@ class DoubleSingleKernels(KernelSet):
             M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()
         elif self.form == "ozaki":
             s, n_slices, cut = ozaki_params(ctx.A.shape[-1])
-            M = _ozaki_matmul(*ctx.Woz, d.T, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
+            M = _ozaki_matmul(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
         elif self.form == "fast":
             # three f32 GEMMs (full f32: the solver switches TF32 off); a d
             # beyond f32's range makes dh inf and NaNs the lane, as in the

@@ -43,8 +43,8 @@ class PreparedMixed(typing.NamedTuple):
     A: typing.Any  # (…, m, n) wide (f64) — residual/matvec precision
     Asq: typing.Any  # (…, m, n) wide, elementwise A² for diag(M)
     lo: typing.Any  # base.prepare(A.to(f32)) — factorization context
-    Amv: typing.Any = None  # Ozaki slice groups of A / Aᵀ: exact-GEMM
-    Armv: typing.Any = None  # f64 matvecs for a shared 2-D f64 A
+    Amv: typing.Any = None  # OzakiOperand of A / Aᵀ (groups and packed
+    Armv: typing.Any = None  # slices): exact f64 matvecs for a shared 2-D f64 A
 
 
 class MixedFactor(typing.NamedTuple):
@@ -103,7 +103,7 @@ class MixedPrecisionKernels(KernelSet):
         from pycllp_tpu_torch.ops.df64 import _ozaki_matmul, ozaki_mv_params
 
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1])
-        return _ozaki_matmul(*ctx.Amv, x.T, s=s, n_slices=n_slices, cut=cut).T
+        return _ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
@@ -111,7 +111,7 @@ class MixedPrecisionKernels(KernelSet):
         from pycllp_tpu_torch.ops.df64 import _ozaki_matmul, ozaki_mv_params
 
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2])
-        return _ozaki_matmul(*ctx.Armv, y.T, s=s, n_slices=n_slices, cut=cut).T
+        return _ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
 
     # -- factor in f32, refine in f64 --------------------------------------
     def factor(self, ctx, d, reg_eps):

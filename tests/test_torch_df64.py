@@ -8,8 +8,12 @@ versions of its CUDA kernels; the JAX Pallas kernels run in interpret mode.
 * ``ozaki_params`` / ``ozaki_mv_params``: equal to the reference's;
 * the slicing: ``_slice_rounds_bl_plain`` equals JAX ``_slice_rounds_bl``
   BITWISE (the CUDA kernel is held to the plain version bitwise on the card);
-* the Ozaki product: within 1e-14 of the output scale of the reference's,
-  at a 1e±30 spread of d;
+* the Ozaki product (matvec, transposed matvec, formation): within 1e-14
+  of the output scale of the reference's, at a 1e±30 spread of d with an
+  all-zero lane and a lane whose max is a power of two; the bf16 packing
+  of W's slices for the ``ozaki_product_bl`` kernel (main-cell and netlib
+  shapes) and the kernel's schedule, replayed on the CPU, bitwise equal
+  to the plain version;
 * ``DF64_FINISH_KERNELS``: backward error < 1e-11 at a 1e±12 spread
   (tests_tpu/smoke.py's contract), agreement with the reference's set
   < 1e-7 at 1e±3; the f32 rounding of δ; the NaN lane; per-instance A;
@@ -87,22 +91,157 @@ def test_slice_rounds_plain_bitwise_equal_to_pallas(r, B, which):
     np.testing.assert_array_equal(df64.slice_rounds_bl(*_t(hi, lo), s, n_slices).numpy(), got)
 
 
-def test_ozaki_matmul_matches_jax():
+def _ozaki_case(which, A):
+    """(W, Ozaki parameters) of one product kind on A (m, n): the matvec
+    (W = A, contraction n), the transposed matvec (W = Aᵀ, contraction m)
+    and the normal-matrix formation (W = A⊗A rows, contraction n)."""
+    m, n = A.shape
+    if which == "mv":
+        return A, df64.ozaki_mv_params(n)
+    if which == "rmv":
+        return np.ascontiguousarray(A.T), df64.ozaki_mv_params(m)
+    return (A[:, None, :] * A[None, :, :]).reshape(m * m, n), df64.ozaki_params(n)
+
+
+def _ozaki_lanes(B, n, rng):
+    """d (B, n) spread over 1e±30 (the solver caps d at 1e30), with lane 0
+    all zero (its max clamps to f32's tiny) and lane 1's max an exact power
+    of two (the ceil(log2) edge)."""
+    d = 10.0 ** rng.uniform(-30, 30, size=(B, n))
+    d[0] = 0.0
+    d[1] = rng.uniform(0.1, 1.0, n) * 2.0 ** 40
+    d[1, n // 2] = 2.0 ** 40
+    return d
+
+
+# the Ozaki products' error against the exact product, relative to each
+# lane's output scale: the formation captures 66 bits (1e-14, the
+# reference's contract); the matvecs 48 (OZAKI_MV_BITS): n·2⁻⁴⁸ ≈ 7e-14
+# of max|W|·max|d| at n = 20, a scale that the 1e±30 spread keeps near
+# the output's (read: 1.6e-14 mv, 8.1e-15 rmv)
+OZAKI_EXACT_RTOL = {"formation": 1e-14, "mv": 1e-13, "rmv": 1e-13}
+
+
+@pytest.mark.parametrize("which", ["formation", "mv", "rmv"])
+def test_ozaki_matmul_matches_jax(which):
     rng = np.random.default_rng(0)
     m, n, B = 8, 20, 128
-    A = rng.standard_normal((m, n))
-    W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
-    d = 10.0 ** rng.uniform(-30, 30, size=(n, B))
-    s, n_slices, cut = df64.ozaki_params(n)
+    W, (s, n_slices, cut) = _ozaki_case(which, rng.standard_normal((m, n)))
+    d = _ozaki_lanes(B, W.shape[1], rng)
     kw = dict(s=s, n_slices=n_slices, cut=cut)
     ref = np.asarray(ref_df64._ozaki_matmul(
-        *ref_df64._ozaki_prepare(jnp.asarray(W), **kw), jnp.asarray(d), **kw))
+        *ref_df64._ozaki_prepare(jnp.asarray(W), **kw), jnp.asarray(d.T), **kw))
     Wt, dt = _t(W, d)
-    got = df64._ozaki_matmul(*df64._ozaki_prepare(Wt, **kw), dt, **kw).numpy()
+    got = df64._ozaki_matmul(df64._ozaki_prepare(Wt, **kw), dt, **kw).numpy()
+    assert got.shape == ref.shape == (W.shape[0], B)
+    # the zero lane is an exact 0 in both; the others within 1e-14 of their scale
+    assert not got[:, 0].any() and not ref[:, 0].any()
+    got, ref, exact = got[:, 1:], ref[:, 1:], (W @ d.T)[:, 1:]
     scale = np.abs(ref).max(axis=0, keepdims=True)
     assert np.abs(got - ref).max(axis=0, keepdims=True).max() <= 1e-14 * scale.max()
     assert (np.abs(got - ref) / scale).max() <= 1e-14
-    assert (np.abs(got - W @ d) / scale).max() <= 1e-14
+    assert (np.abs(got - exact) / scale).max() <= OZAKI_EXACT_RTOL[which]
+
+
+def _netlib_A(name):
+    from pycllp_tpu_torch.io import netlib
+
+    std = netlib.load_fixture(name).lp.to_standard_form()[0]
+    return np.asarray(std.to_equality_form().A, np.float64)
+
+
+def _unpack_slices(packed, rows, n):
+    """Inverse of the kernel's fragment order (csrc/ozaki.cuh): packed
+    (rows_pad/16, n_slices, n_pad/16, 32, 8) → (n_slices, rows, n) f32.
+    Lane 4g + q holds rows (g, g + 8), columns (2q, 2q+1, 2q+8, 2q+9) as
+    a0 … a7 = (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1), (g, 2q+8), …"""
+    RT, ns, JS = packed.shape[:3]
+    P = packed.float().numpy().reshape(RT, ns, JS, 8, 4, 8)
+    out = np.empty((ns, RT * 16, JS * 16), np.float32)
+    for g in range(8):
+        for q in range(4):
+            for i, (dr, dc) in enumerate([(0, 0), (0, 1), (8, 0), (8, 1),
+                                          (0, 8), (0, 9), (8, 8), (8, 9)]):
+                out[:, g + dr::16, 2 * q + dc::16] = P[:, :, :, g, q, i].transpose(1, 0, 2)
+    return out[:, :rows, :n].copy(), out
+
+
+OZAKI_SHAPES = [(src, which) for src in ("64x128", "afiro", "sc50a", "adlittle")
+                for which in ("mv", "rmv", "formation")]
+
+
+@pytest.mark.parametrize("src,which", OZAKI_SHAPES)
+def test_ozaki_packed_slices_unpack_to_level_groups(src, which):
+    """_ozaki_prepare's bf16 packing (the kernel's A fragments) holds W's
+    f32 slices exactly: unpacked, it rebuilds every level group; each slice
+    is an integer of magnitude ≤ 2^s (so bf16 holds it), and the padding
+    rows and columns are zero.  Shapes: the main cell's A (64×128), netlib
+    m = 27/50/56 (afiro, sc50a, adlittle equality forms)."""
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((64, 128)) / np.sqrt(128) if src == "64x128" else _netlib_A(src)
+    W, (s, n_slices, cut) = _ozaki_case(which, A)
+    op = df64._ozaki_prepare(torch.from_numpy(W), s=s, n_slices=n_slices, cut=cut)
+    rows, n = W.shape
+    assert op.packed.dtype == torch.bfloat16 and op.packed.is_contiguous()
+    assert op.packed.shape == (-(-rows // 32) * 2, n_slices, -(-n // 16), 32, 8)
+    S, full = _unpack_slices(op.packed, rows, n)
+    assert np.array_equal(S, np.round(S)) and np.abs(S).max() <= 2.0 ** s
+    full[:, :rows, :n] = 0.0
+    assert not full.any()
+    levels = df64._group_levels(n_slices, cut)
+    assert len(op.groups) == len(levels) == cut - 1
+    for (_, ks), Wg in zip(levels, op.groups):
+        np.testing.assert_array_equal(np.concatenate([S[k - 1] for k in ks], axis=1), Wg.numpy())
+    # and the slices reassemble W to the captured width, or to the ~48
+    # bits of the f32 (hi, lo) pair they are cut from
+    approx = op.e.numpy() * sum(S[k].astype(np.float64) * 2.0 ** (-s * (k + 1))
+                                for k in range(n_slices))
+    width = min(s * n_slices - 1, 47)
+    assert np.abs(approx - W).max() <= 2.0 ** -width * np.abs(W).max()
+
+
+def test_ozaki_packing_constants_match_the_kernel_source():
+    """The packing's row padding and the levels the wrapper admits are the
+    kernel's (csrc/ozaki.cuh), and the launcher's instantiations cover
+    every level count up to that bound."""
+    from pycllp_tpu_torch.ops import _build
+
+    src = (_build._SRC_DIR / "ozaki.cuh").read_text()
+    assert f"kOzRowPad = {df64.OZAKI_ROW_PAD};" in src
+    assert f"kOzMaxLevels = {df64.OZAKI_MAX_LEVELS};" in src
+    assert "launch_ozaki_product_t<24, 1>" in src and "if (levels <= 16)" in src
+
+
+@pytest.mark.parametrize("which", ["mv", "rmv", "formation"])
+def test_ozaki_kernel_schedule_matches_plain_bitwise(which):
+    """The kernel's schedule, replayed on the CPU from the packed slices:
+    per-lane normalisation, slices l ≤ L = min(n_slices, cut − 1) of d,
+    one integer sum per level t over the pairs (k, l), k + l = t, both
+    ≤ L, then the f64 combination in level order and the scale.  It must
+    equal _ozaki_matmul_plain bit for bit, which is what the card holds
+    the kernel to (against the split route) at the main cell's shapes."""
+    rng = np.random.default_rng(12)
+    A = rng.standard_normal((16, 40))
+    W, (s, n_slices, cut) = _ozaki_case(which, A)
+    d = _ozaki_lanes(48, W.shape[1], rng)
+    Wt, dt = _t(W, d)
+    op = df64._ozaki_prepare(Wt, s=s, n_slices=n_slices, cut=cut)
+    want = df64._ozaki_matmul_plain(op, dt, s=s, n_slices=n_slices, cut=cut).numpy()
+    Ws, _ = _unpack_slices(op.packed, *W.shape)
+    mx = np.maximum(np.abs(d).max(axis=1), np.finfo(np.float32).tiny)
+    E = np.ceil(np.log2(mx))
+    hi, lo = df64._split_hi_lo(torch.from_numpy(d.T * np.exp2(-E)))
+    L = min(n_slices, cut - 1)
+    ds = df64._slice_rounds_bl_plain(hi.contiguous(), lo.contiguous(), s, L).numpy()
+    acc = None
+    for t in range(2, cut + 1):
+        G = sum(Ws[k - 1].astype(np.float64) @ ds[t - k - 1].astype(np.float64)
+                for k in range(1, L + 1) if 1 <= t - k <= L)
+        assert np.abs(G).max() <= 2.0 ** 24  # exact in an f32 accumulator
+        term = G.astype(np.float32).astype(np.float64) * 2.0 ** (-s * t)
+        acc = term if acc is None else acc + term
+    got = acc * (op.e.numpy() * np.exp2(E)[None, :])
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
 
 
 @pytest.mark.parametrize("m,n,B", [(16, 24, 128), (32, 48, 256)])
@@ -316,17 +455,18 @@ def test_mixed_per_instance_A_refines_each_rhs():
 def test_ozaki_gemm_refuses_tf32(monkeypatch):
     s, n_slices, cut = df64.ozaki_mv_params(6)
     W = torch.ones((4, 6), dtype=torch.float64)
-    groups = df64._ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
-    d = torch.ones((6, 3), dtype=torch.float64)
-    torch.testing.assert_close(df64._ozaki_matmul(*groups, d, s=s, n_slices=n_slices, cut=cut),
-                               W @ d)
+    op = df64._ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
+    d = torch.ones((3, 6), dtype=torch.float64)
+    torch.testing.assert_close(df64._ozaki_matmul(op, d, s=s, n_slices=n_slices, cut=cut),
+                               W @ d.T)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="TF32"):
-        df64._ozaki_matmul(*groups, d, s=s, n_slices=n_slices, cut=cut)
+        df64._ozaki_matmul(op, d, s=s, n_slices=n_slices, cut=cut)
 
 
 def test_cpu_tensors_never_launch_a_wide_kernel(monkeypatch):
-    for name in ("DF_CHOL_LAUNCHES", "DF_SOLVE_LAUNCHES", "SLICE_LAUNCHES"):
+    names = ("DF_CHOL_LAUNCHES", "DF_SOLVE_LAUNCHES", "SLICE_LAUNCHES", "OZAKI_LAUNCHES")
+    for name in names:
         monkeypatch.setattr(df64, name, 0)
     rng = np.random.default_rng(1)
     At, dt, rt = _t(rng.standard_normal((6, 10)), rng.uniform(0.5, 2, (8, 10)),
@@ -334,7 +474,10 @@ def test_cpu_tensors_never_launch_a_wide_kernel(monkeypatch):
     ctx = DF.prepare(At)
     DF.solve(DF.factor(ctx, dt, 1e-12), (rt, rt))
     DF.mv(ctx, dt)
-    assert (df64.DF_CHOL_LAUNCHES, df64.DF_SOLVE_LAUNCHES, df64.SLICE_LAUNCHES) == (0, 0, 0)
+    DF.rmv(ctx, rt)
+    mixed.MIXED_IR1_KERNELS.solve(mixed.MIXED_IR1_KERNELS.factor(
+        mixed.MIXED_IR1_KERNELS.prepare(At), dt, 1e-12), (rt,))
+    assert tuple(getattr(df64, name) for name in names) == (0, 0, 0, 0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -348,3 +491,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         df64._df_solve_bl_cuda(L, dinv, torch.ones(1, 4, 8, dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA tensor"):
         df64._slice_rounds_bl_cuda(torch.zeros(3, 5), torch.zeros(3, 5), 7, 7)
+    s, n_slices, cut = df64.ozaki_mv_params(5)
+    op = df64._ozaki_prepare(torch.ones(3, 5, dtype=torch.float64), s=s, n_slices=n_slices,
+                             cut=cut)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        df64._ozaki_product_bl_cuda(op, torch.ones(4, 5, dtype=torch.float64), s, n_slices, cut)
+    # the dispatching wrapper: CPU → plain version, no launch
+    torch.testing.assert_close(
+        df64._ozaki_matmul(op, torch.ones(4, 5, dtype=torch.float64), s=s, n_slices=n_slices,
+                           cut=cut), torch.full((3, 4), 5.0, dtype=torch.float64))
