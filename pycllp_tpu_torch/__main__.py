@@ -12,13 +12,34 @@ prints the reference's JSON (status, objective, iterations) and exits 0
 only on OPTIMAL; with ``--dtype`` unset the MPS data's float64 is the
 compute dtype (the reference switches on x64 for the same effect).
 ``info`` only reports, so it runs without a card.
+
+The reference's width variables ``PYCLLP_OZAKI_BITS`` and
+``PYCLLP_OZAKI_MV_BITS`` are read here, at the CLI's entry, and nowhere
+else in the package: they become the solver's ``ozaki_bits=`` /
+``ozaki_mv_bits=`` (solvers that run no Ozaki product take no width and
+ignore them, as the reference's do).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
+import os
 import sys
+
+# environment variable -> keyword of the registry solvers
+WIDTH_VARIABLES = (("PYCLLP_OZAKI_BITS", "ozaki_bits"), ("PYCLLP_OZAKI_MV_BITS", "ozaki_mv_bits"))
+
+
+def ozaki_widths(solver_cls, environ=os.environ) -> dict:
+    """The width keywords that ``environ`` sets, for a solver class that
+    takes them (the CUDA and plain HSD solvers); empty for the others."""
+    if solver_cls is None:  # an unknown name: get_solver says so
+        return {}
+    widths = {kw: int(environ[var]) for var, kw in WIDTH_VARIABLES if environ.get(var)}
+    params = inspect.signature(solver_cls).parameters
+    return {kw: v for kw, v in widths.items() if kw in params}
 
 
 def cmd_info(args) -> int:
@@ -51,6 +72,7 @@ def cmd_solve(args) -> int:
         dtype=args.dtype,
         finish_dtype=args.finish_dtype,
         device=args.device,
+        **ozaki_widths(tt.solver_registry.get(args.solver)),
     )
     solver.init(prob.lp)
     sol = solver.solve()

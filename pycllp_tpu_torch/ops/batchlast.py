@@ -52,9 +52,12 @@ import typing
 import torch
 
 from pycllp_tpu_torch.ops import _build
-from pycllp_tpu_torch.ops.reference import (
+# NormalFactor and ReferenceKernels are re-exported, as the reference's module does
+from pycllp_tpu_torch.ops.reference import (  # noqa: F401
     KernelSet,
+    NormalFactor,
     PreparedA,
+    ReferenceKernels,
     REFERENCE_KERNELS,
     _mv,
 )
@@ -572,15 +575,30 @@ class BatchLastKernels(KernelSet):
     :func:`facsol_bl` launch (M still formed by a matmul, as the
     reference forms it with XLA).  With both, ``factor_and_solve`` takes
     facsol and ``factor`` alone the fused form, as in the reference.
+
+    ``ozaki_bits`` / ``ozaki_mv_bits`` are the Ozaki widths of the wide
+    sets that :meth:`finish_kernels` hands the finish and the crossover
+    (the reference's ``PYCLLP_OZAKI_BITS`` / ``PYCLLP_OZAKI_MV_BITS``);
+    None is the default width, 66 / 48 bits.  A width that no contraction
+    length lets the Ozaki kernel run raises ``ValueError`` here.
     """
 
     name = "cuda_batchlast"
 
-    def __init__(self, fuse_form: bool = False, fuse_facsol: bool = False):
+    def __init__(self, fuse_form: bool = False, fuse_facsol: bool = False, *,
+                 ozaki_bits: int | None = None, ozaki_mv_bits: int | None = None):
         self.fuse_form = fuse_form
         self.fuse_facsol = fuse_facsol
         if fuse_form or fuse_facsol:
             self.name = f"cuda_batchlast{'_form' if fuse_form else ''}{'_facsol' if fuse_facsol else ''}"
+        if ozaki_bits is not None or ozaki_mv_bits is not None:
+            from pycllp_tpu_torch.ops.df64 import check_ozaki_width
+
+            ozaki_bits = None if ozaki_bits is None else check_ozaki_width(ozaki_bits, "ozaki_bits")
+            ozaki_mv_bits = (None if ozaki_mv_bits is None
+                             else check_ozaki_width(ozaki_mv_bits, "ozaki_mv_bits"))
+        self.ozaki_bits = ozaki_bits
+        self.ozaki_mv_bits = ozaki_mv_bits
 
     def prepare(self, A):
         if A.dim() != 2:
@@ -650,26 +668,34 @@ class BatchLastKernels(KernelSet):
         (:mod:`pycllp_tpu_torch.ops.mixed`), the crossover engine;
         ``"df64_fastform"``: the same with the fast formation, the
         reference's recorded negative result; ``"reference"``: the plain set.
+        At the default widths these are the modules' own sets; at other
+        widths, sets built at this set's ``ozaki_bits`` / ``ozaki_mv_bits``.
         """
         cache = self.__dict__.setdefault("_finish_kernels", {})
         fk = cache.get(which)
         if fk is None:
-            if which == "df64":
-                from pycllp_tpu_torch.ops.df64 import DF64_FINISH_KERNELS as fk
-            elif which == "df64_f64form":
-                from pycllp_tpu_torch.ops.df64 import DF64_F64FORM_KERNELS as fk
-            elif which == "df64_fastform":
-                from pycllp_tpu_torch.ops.df64 import DF64_FASTFORM_KERNELS as fk
-            elif which == "mixed":
-                from pycllp_tpu_torch.ops.mixed import MIXED_FINISH_KERNELS as fk
-            elif which == "mixed1":
-                from pycllp_tpu_torch.ops.mixed import MIXED_IR1_KERNELS as fk
-            elif which == "reference":
-                fk = REFERENCE_KERNELS
-            else:
-                raise ValueError(f"unknown finish kernel set {which!r}")
+            fk = REFERENCE_KERNELS if which == "reference" else self._wide_set(which)
             cache[which] = fk
         return fk
+
+    def _wide_set(self, which: str) -> KernelSet:
+        """The wide set named ``which``: the module's own at the default
+        widths, else one like it built at this set's widths."""
+        from pycllp_tpu_torch.ops import df64, mixed
+
+        own = {"df64": df64.DF64_FINISH_KERNELS, "df64_f64form": df64.DF64_F64FORM_KERNELS,
+               "df64_fastform": df64.DF64_FASTFORM_KERNELS, "mixed": mixed.MIXED_FINISH_KERNELS,
+               "mixed1": mixed.MIXED_IR1_KERNELS}
+        if which not in own:
+            raise ValueError(f"unknown finish kernel set {which!r}")
+        fk = own[which]
+        bits = df64.OZAKI_BITS if self.ozaki_bits is None else self.ozaki_bits
+        mv_bits = df64.OZAKI_MV_BITS if self.ozaki_mv_bits is None else self.ozaki_mv_bits
+        if (bits, mv_bits) == (df64.OZAKI_BITS, df64.OZAKI_MV_BITS):
+            return fk
+        if isinstance(fk, df64.DoubleSingleKernels):
+            return df64.DoubleSingleKernels(fk.form, bits=bits, mv_bits=mv_bits)
+        return mixed.MixedPrecisionKernels(fk.base, ir_steps=fk.ir_steps, mv_bits=mv_bits)
 
 
 BATCHLAST_KERNELS = BatchLastKernels()

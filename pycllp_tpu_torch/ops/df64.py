@@ -38,7 +38,16 @@ lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
 ``DF_SOLVE_SMEM_LAUNCHES``.
 
 The reference's environment knobs ``PYCLLP_OZAKI_BITS`` and
-``PYCLLP_OZAKI_MV_BITS`` are explicit ``bits=`` arguments here.
+``PYCLLP_OZAKI_MV_BITS`` are arguments here: ``bits=`` / ``mv_bits=`` of
+:class:`DoubleSingleKernels`, ``mv_bits=`` of
+:class:`~pycllp_tpu_torch.ops.mixed.MixedPrecisionKernels`, and
+``ozaki_bits=`` / ``ozaki_mv_bits=`` of
+:class:`~pycllp_tpu_torch.ops.batchlast.BatchLastKernels` and the registry
+solvers, which build their wide sets at those widths.  The library reads
+no environment variable; the CLI maps the two to those arguments.  The
+kernel takes at most ``OZAKI_MAX_LEVELS`` levels: a set whose widths give
+more for its A raises ``ValueError`` (on every device) before any
+iteration, where the reference has no cap.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ __all__ = [
     "slice_rounds_bl",
     "ozaki_params",
     "ozaki_mv_params",
+    "check_ozaki_width",
+    "check_ozaki_levels",
 ]
 
 # launch counters: one per kernel launch, nowhere else; the _SMEM counters
@@ -247,18 +258,22 @@ OZAKI_MV_BITS = 48  # captured width for the matvecs: their consumers (IR
 # residuals, the crossover's 1e-9 verification) need far less
 
 
-def ozaki_mv_params(n: int, bits: int = OZAKI_MV_BITS):
-    """(s, n_slices, cut) for the matvec paths (``OZAKI_MV_BITS`` wide)."""
-    return ozaki_params(n, bits)
+def ozaki_mv_params(n: int, bits: int | None = None):
+    """(s, n_slices, cut) for the matvec paths (``OZAKI_MV_BITS`` wide
+    unless ``bits`` says otherwise)."""
+    return ozaki_params(n, OZAKI_MV_BITS if bits is None else bits)
 
 
-def ozaki_params(n: int, bits: int = OZAKI_BITS):
-    """(s, n_slices, cut) for contraction length ``n``.
+def ozaki_params(n: int, bits: int | None = None):
+    """(s, n_slices, cut) for contraction length ``n``, ``bits`` wide
+    (default ``OZAKI_BITS``).
 
     A group GEMM accumulates ≤ n·n_slices integer products of magnitude
     ≤ 2^(2s); every partial sum must stay ≤ 2²⁴.  Pick the largest s that
     satisfies it (fewer slices → fewer GEMMs), with n_slices = ceil(bits/s).
     """
+    if bits is None:
+        bits = OZAKI_BITS
     for s in range(OZAKI_S, 2, -1):
         n_slices = -(-bits // s)
         if n * n_slices * (1 << (2 * s)) <= (1 << 24):
@@ -312,6 +327,39 @@ class OzakiOperand(typing.NamedTuple):
 
 OZAKI_ROW_PAD = 32  # packed rows: a multiple of the kernel's 32-row tile (csrc/ozaki.cuh)
 OZAKI_MAX_LEVELS = 24  # cut − 1 of the kernel's largest instantiation
+
+
+def _kernel_takes(s: int, n_slices: int) -> bool:
+    """Whether ``ozaki_product_bl`` runs ``n_slices`` s-bit slices: at most
+    ``OZAKI_MAX_LEVELS`` levels (cut − 1 = n_slices), and every slice scale
+    2^(s·k) a normal f32 power of two, as its wrapper requires."""
+    return 1 <= n_slices <= OZAKI_MAX_LEVELS and s * (n_slices + 1) < 126
+
+
+def check_ozaki_width(bits, what: str = "bits") -> int:
+    """``bits`` as an int, or ``ValueError`` when no contraction length
+    gives the kernel a product it runs (the width alone decides)."""
+    if isinstance(bits, bool) or int(bits) != bits or bits < 1:
+        raise ValueError(f"Ozaki width {what}={bits!r} must be a positive integer")
+    if not any(_kernel_takes(s, -(-int(bits) // s)) for s in range(OZAKI_S, 2, -1)):
+        raise ValueError(
+            f"Ozaki width {what}={bits} gives more levels than ozaki_product_bl takes at "
+            f"every contraction length: at most {OZAKI_MAX_LEVELS} levels, each slice scale "
+            f"below 2^126"
+        )
+    return int(bits)
+
+
+def check_ozaki_levels(n: int, bits: int, what: str = "bits") -> None:
+    """``ValueError`` when ``bits`` at contraction length ``n`` gives more
+    levels than ``ozaki_product_bl`` takes."""
+    s, n_slices, _ = ozaki_params(n, bits)
+    if not _kernel_takes(s, n_slices):
+        raise ValueError(
+            f"Ozaki width {what}={bits} at contraction length {n} gives {n_slices} levels of "
+            f"{s} bits: ozaki_product_bl takes at most {OZAKI_MAX_LEVELS} levels, each slice "
+            f"scale below 2^126"
+        )
 
 
 def _pack_slices(slices):
@@ -459,6 +507,12 @@ class DoubleSingleKernels(KernelSet):
     (``form="f64"``) or three f32 GEMMs on hi/lo splits (``form="fast"``),
     and handed to :func:`df_chol_bl` in f64.
 
+    ``bits`` is the Ozaki formation's width and ``mv_bits`` the matvecs'
+    (the reference's ``PYCLLP_OZAKI_BITS`` / ``PYCLLP_OZAKI_MV_BITS``).  A
+    width that gives more levels than the kernel takes raises
+    ``ValueError``: here when the width alone decides it, else in
+    :meth:`prepare` (:meth:`check_ozaki_levels`).
+
     ``form="fast"`` is the reference's recorded negative result, kept
     because a user can select it: its f32 accumulation gives M to ~1e-7
     relative, too coarse for the 1e-12 shift (the reference measured 15.8K
@@ -469,12 +523,23 @@ class DoubleSingleKernels(KernelSet):
 
     name = "cuda_df64"
 
-    def __init__(self, form: str = "ozaki"):
+    def __init__(self, form: str = "ozaki", *, bits: int = OZAKI_BITS,
+                 mv_bits: int = OZAKI_MV_BITS):
         if form not in ("ozaki", "f64", "fast"):
             raise ValueError(f"unknown formation {form!r}")
         self.form = form
+        self.bits = check_ozaki_width(bits, "bits")
+        self.mv_bits = check_ozaki_width(mv_bits, "mv_bits")
         if form != "ozaki":
             self.name = f"cuda_df64_{form}form"
+        if (self.bits, self.mv_bits) != (OZAKI_BITS, OZAKI_MV_BITS):
+            self.name = f"{self.name}(bits={self.bits}, mv_bits={self.mv_bits})"
+
+    def check_ozaki_levels(self, m: int, n: int) -> None:
+        if self.form == "ozaki":
+            check_ozaki_levels(n, self.bits, "bits")
+        check_ozaki_levels(n, self.mv_bits, "mv_bits")
+        check_ozaki_levels(m, self.mv_bits, "mv_bits")
 
     def prepare(self, A):
         A = A.to(torch.float64)
@@ -482,14 +547,15 @@ class DoubleSingleKernels(KernelSet):
             return PreparedDF(A=A, Asq=A * A, W=None, Wh=None, Wl=None, Woz=None, Amv=None,
                               Armv=None)
         m, n = A.shape
+        self.check_ozaki_levels(m, n)
         W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
         Wh, Wl = _split_hi_lo(W) if self.form == "fast" else (None, None)
         Woz = None
         if self.form == "ozaki":
-            s, n_slices, cut = ozaki_params(n)
+            s, n_slices, cut = ozaki_params(n, self.bits)
             Woz = _ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
-        sm, nm, cm = ozaki_mv_params(n)
-        sr, nr, cr = ozaki_mv_params(m)
+        sm, nm, cm = ozaki_mv_params(n, self.mv_bits)
+        sr, nr, cr = ozaki_mv_params(m, self.mv_bits)
         Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
         Armv = _ozaki_prepare(A.T, s=sr, n_slices=nr, cut=cr)
         return PreparedDF(A=A, Asq=A * A, W=W, Wh=Wh, Wl=Wl, Woz=Woz, Amv=Amv, Armv=Armv)
@@ -497,13 +563,13 @@ class DoubleSingleKernels(KernelSet):
     def mv(self, ctx, x):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
             return _mv(ctx.A, x)
-        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1])
+        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1], self.mv_bits)
         return _ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
             return _rmv(ctx.A, y)
-        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2])
+        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2], self.mv_bits)
         return _ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
 
     def factor(self, ctx, d, reg_eps):
@@ -521,7 +587,7 @@ class DoubleSingleKernels(KernelSet):
         if ctx.W is None:
             M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()
         elif self.form == "ozaki":
-            s, n_slices, cut = ozaki_params(ctx.A.shape[-1])
+            s, n_slices, cut = ozaki_params(ctx.A.shape[-1], self.bits)
             M = _ozaki_matmul(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
         elif self.form == "fast":
             # three f32 GEMMs (full f32: the solver switches TF32 off); a d

@@ -23,7 +23,8 @@ iterative refinement:
     v₀ = P⁻¹ r                      (P = f32 Cholesky of M+δI)
     vₖ₊₁ = vₖ + P⁻¹ (r − M̂ vₖ)      (residual in f64, M̂ = A·D·Aᵀ + δI)
 
-Shared-A f64 matvecs are Ozaki products (:mod:`pycllp_tpu_torch.ops.df64`).
+Shared-A f64 matvecs are Ozaki products (:mod:`pycllp_tpu_torch.ops.df64`),
+``mv_bits`` wide (the reference's ``PYCLLP_OZAKI_MV_BITS``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import typing
 
 import torch
 
+from pycllp_tpu_torch.ops import df64
 from pycllp_tpu_torch.ops.reference import KernelSet, _mv, _rmv
 
 __all__ = ["MixedPrecisionKernels", "MIXED_FINISH_KERNELS", "MIXED_IR1_KERNELS"]
@@ -68,6 +70,8 @@ class MixedPrecisionKernels(KernelSet):
         ir_steps: int = 3,
         lo_reg_floor: float = 2e-6,
         jacobi: bool = True,
+        *,
+        mv_bits: int = df64.OZAKI_MV_BITS,
     ):
         self.base = base
         self.ir_steps = ir_steps
@@ -80,19 +84,26 @@ class MixedPrecisionKernels(KernelSet):
         # from the ε_f32·κ contraction and makes the PSD shift relative
         # per row (shared-A batch-last contexts only)
         self.jacobi = jacobi
-        self.name = f"mixed_finish({base.name}, ir={ir_steps}{', jacobi' if jacobi else ''})"
+        # the width of the Ozaki matvecs (shared 2-D f64 A)
+        self.mv_bits = df64.check_ozaki_width(mv_bits, "mv_bits")
+        widths = "" if self.mv_bits == df64.OZAKI_MV_BITS else f", mv_bits={self.mv_bits}"
+        self.name = (f"mixed_finish({base.name}, ir={ir_steps}"
+                     f"{', jacobi' if jacobi else ''}{widths})")
+
+    def check_ozaki_levels(self, m: int, n: int) -> None:
+        df64.check_ozaki_levels(n, self.mv_bits, "mv_bits")
+        df64.check_ozaki_levels(m, self.mv_bits, "mv_bits")
 
     # -- wide-precision operator ------------------------------------------
     def prepare(self, A):
         Amv = Armv = None
         if A.dim() == 2 and A.dtype == torch.float64:
-            from pycllp_tpu_torch.ops.df64 import _ozaki_prepare, ozaki_mv_params
-
             m, n = A.shape
-            sm, nm, cm = ozaki_mv_params(n)
-            sr, nr, cr = ozaki_mv_params(m)
-            Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
-            Armv = _ozaki_prepare(A.T, s=sr, n_slices=nr, cut=cr)
+            self.check_ozaki_levels(m, n)
+            sm, nm, cm = df64.ozaki_mv_params(n, self.mv_bits)
+            sr, nr, cr = df64.ozaki_mv_params(m, self.mv_bits)
+            Amv = df64._ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
+            Armv = df64._ozaki_prepare(A.T, s=sr, n_slices=nr, cut=cr)
         return PreparedMixed(
             A=A, Asq=A * A, lo=self.base.prepare(A.to(torch.float32)), Amv=Amv, Armv=Armv,
         )
@@ -100,18 +111,14 @@ class MixedPrecisionKernels(KernelSet):
     def mv(self, ctx, x):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
             return _mv(ctx.A, x)
-        from pycllp_tpu_torch.ops.df64 import _ozaki_matmul, ozaki_mv_params
-
-        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1])
-        return _ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
+        s, n_slices, cut = df64.ozaki_mv_params(ctx.A.shape[-1], self.mv_bits)
+        return df64._ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
             return _rmv(ctx.A, y)
-        from pycllp_tpu_torch.ops.df64 import _ozaki_matmul, ozaki_mv_params
-
-        s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2])
-        return _ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
+        s, n_slices, cut = df64.ozaki_mv_params(ctx.A.shape[-2], self.mv_bits)
+        return df64._ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
 
     # -- factor in f32, refine in f64 --------------------------------------
     def factor(self, ctx, d, reg_eps):

@@ -91,6 +91,11 @@ class KernelSet:
         """Kernel set for the wide-dtype finish phase (default: self)."""
         return self
 
+    def check_ozaki_levels(self, m: int, n: int) -> None:
+        """Raise ``ValueError`` if this set's Ozaki widths give more levels
+        than ``ozaki_product_bl`` takes for a shared (m, n) A.  A set that
+        runs no Ozaki product takes every shape."""
+
     def __repr__(self):
         return f"KernelSet({self.name})"
 

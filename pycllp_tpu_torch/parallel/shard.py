@@ -28,6 +28,7 @@ import torch
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.parallel.collectives import all_gather, make_mesh, pmax
 from pycllp_tpu_torch.solvers.hsd import (
+    _check_finish_levels,
     _finish_dtype,
     _finish_opts_view,
     _full_precision_matmuls,
@@ -172,6 +173,7 @@ def sharded_hsd_solve_scan(
             res = _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev,
                                         bool(warm_chain))
         else:
+            _check_finish_levels(kset, opts, A)
             phase1_tol = max(opts.tol, opts.switch_tol)
             sflat = _hsd_scan_narrow_core(
                 A, b3, c3, _narrow_opts_view(opts, phase1_tol), kset, None, cap, bucket, dev,

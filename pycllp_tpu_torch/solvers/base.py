@@ -13,7 +13,7 @@ from typing import Type
 import numpy as np
 
 from pycllp_tpu_torch.models import EqualityLP, GeneralLP, StandardLP
-from pycllp_tpu_torch.solvers.options import Solution, SolverOptions
+from pycllp_tpu_torch.solvers.options import Solution, SolverOptions, Status  # noqa: F401 (re-exported)
 
 __all__ = [
     "BaseSolver",

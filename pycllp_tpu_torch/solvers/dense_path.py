@@ -53,14 +53,14 @@ def dense_path_solve_batched(
     c,
     opts: SolverOptions = SolverOptions(),
     kset: KernelSet = REFERENCE_KERNELS,
-    reduce_any=None,
+    reduce_any=torch.any,
     *,
     device="cuda",
 ):
     """Batched path-following solve; same output dict as ``hsd_solve_batched``
     (tensors on ``device``).  A CUDA request without a card raises.
     ``reduce_any`` reduces the loop predicate's RUNNING mask, as in
-    ``hsd_solve_batched`` (None: locally)."""
+    ``hsd_solve_batched`` (``torch.any`` or None: locally)."""
     dev = resolve_device(device)
     with _full_precision_matmuls():
         return _impl(A, b, c, opts, kset, dev, reduce_any)

@@ -536,6 +536,18 @@ def _crossover_kset(kset: KernelSet, fkset: KernelSet, opts: SolverOptions):
     return kset.finish_kernels(opts.crossover_kset)
 
 
+def _check_finish_levels(kset: KernelSet, opts: SolverOptions, A) -> None:
+    """Raise the finish and crossover sets' Ozaki level-cap ``ValueError``
+    for a shared 2-D ``A`` before the narrow phase runs; their ``prepare``
+    would raise it only after."""
+    shape = np.shape(A)
+    if len(shape) != 2:
+        return
+    fkset = kset.finish_kernels(opts.finish_kset)
+    for ks in (fkset, _crossover_kset(kset, fkset, opts)):
+        ks.check_ozaki_levels(*shape)
+
+
 def _crossover_state(
     fctx, b, c, state: HSDState, fkset: KernelSet, opts: SolverOptions, tol,
     reopen: bool = True,
@@ -893,9 +905,9 @@ def hsd_solve_batched(
     c,
     opts: SolverOptions = SolverOptions(),
     kset: KernelSet = REFERENCE_KERNELS,
-    reduce_any=None,
-    *,
+    reduce_any=torch.any,
     warm=None,
+    *,
     device="cuda",
 ):
     """Solve a batch of equality-form LPs ``min cᵀx, Ax = b, x ≥ 0``.
@@ -905,9 +917,10 @@ def hsd_solve_batched(
     A : (m, n) shared or (B, m, n) per-instance constraint matrices.
     b : (B, m); c : (B, n).  numpy arrays or tensors.
     reduce_any : mask reduction of the loop predicate (a callable taking
-        the (B,) RUNNING mask to a bool); None reduces locally.  The
-        sharded solve passes :class:`pycllp_tpu_torch.parallel.CollectiveAny`
-        so every rank's loops leave on the same iteration.
+        the (B,) RUNNING mask to a bool); ``torch.any`` or None reduces
+        locally.  The sharded solve passes
+        :class:`pycllp_tpu_torch.parallel.CollectiveAny` so every rank's
+        loops leave on the same iteration.
     warm : optional (x, y, z) starting point in UNSCALED equality
         coordinates, batched — typically the previous solve's solution on
         a nearby problem.  Overrides ``opts.init_point``.
@@ -926,6 +939,8 @@ def hsd_solve_batched(
 def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None):
     dtype = _resolve_dtype(opts, A, b, c)
     fdtype = _finish_dtype(opts, dtype)
+    if fdtype is not None:
+        _check_finish_levels(kset, opts, A)
     # With a finish phase configured, scaling and the phase-2 arrays are
     # built in the WIDE dtype from the original inputs; phase 1 sees the
     # rounded copies.  (Upcasting already-rounded phase-1 arrays would
@@ -1482,6 +1497,7 @@ def hsd_solve_scan(
                 min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
             )
         else:
+            _check_finish_levels(kset, opts, A)
             phase1_tol = max(opts.tol, opts.switch_tol)
             t0 = time.perf_counter()
             sflat = _hsd_scan_narrow_core(

@@ -5,14 +5,17 @@ same HSD core (:mod:`pycllp_tpu_torch.solvers.hsd`) and differ only in
 which :class:`KernelSet` feeds the hot path.  The registry names are the
 reference's (``hsd`` with alias ``jax_hsd``; ``hsd_pallas`` with aliases
 ``clhsd`` and ``pallas``), so ``get_solver(...)`` calls carry over
-unchanged, plus the keyword ``device=`` (default ``"cuda"``).
+unchanged, plus the keywords ``device=`` (default ``"cuda"``) and
+``ozaki_bits=`` / ``ozaki_mv_bits=`` (the reference's ``PYCLLP_OZAKI_BITS``
+/ ``PYCLLP_OZAKI_MV_BITS``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
+from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS, BatchLastKernels
+from pycllp_tpu_torch.ops.df64 import check_ozaki_width
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, KernelSet
 from pycllp_tpu_torch.solvers.base import BaseSolver, register_solver
 from pycllp_tpu_torch.solvers.hsd import hsd_solve_batched, hsd_solve_scan
@@ -62,6 +65,10 @@ class TorchHSDSolver(BaseSolver):
         compacted into one bucket that resumes warm.
     device : ``"cuda"`` (default) or ``"cpu"``; checked here, so a CUDA
         request without a card fails at construction.
+    ozaki_bits / ozaki_mv_bits : the Ozaki widths of the wide finish (None:
+        66 / 48 bits).  Checked here; the plain set's finish runs no Ozaki
+        product, so on this class they change nothing, as the reference's
+        variables change nothing on its plain solver.
     """
 
     name = "hsd"
@@ -76,15 +83,25 @@ class TorchHSDSolver(BaseSolver):
         compact_cap: int | None = None,
         compact_bucket: int = 8192,
         device="cuda",
+        ozaki_bits: int | None = None,
+        ozaki_mv_bits: int | None = None,
         **opt_kwargs,
     ):
         super().__init__(options, **opt_kwargs)
         self.device = resolve_device(device)
+        if ozaki_bits is not None or ozaki_mv_bits is not None:
+            self.kernels = self._kernels_at(ozaki_bits, ozaki_mv_bits)
         self.chunk = chunk
         self.compact_cap = compact_cap
         self.compact_bucket = compact_bucket
         self._warm = None  # (x, y, z) equality-coordinate solution of the
         # previous solve, kept when options.warm_start is set
+
+    def _kernels_at(self, bits, mv_bits) -> KernelSet:
+        for width, what in ((bits, "ozaki_bits"), (mv_bits, "ozaki_mv_bits")):
+            if width is not None:
+                check_ozaki_width(width, what)
+        return self.kernels
 
     def _init_impl(self, eq) -> None:
         self._warm = None  # new structure invalidates the warm point
@@ -126,9 +143,13 @@ class CudaHSDSolver(TorchHSDSolver):
 
     With ``device="cpu"`` the same set runs the kernels' plain PyTorch
     versions.  Per-instance (3-D) A forms M per instance; f64 routes the
-    factor to the reference set.
+    factor to the reference set.  ``ozaki_bits`` / ``ozaki_mv_bits`` build
+    the set's wide finish and crossover sets at those widths.
     """
 
     name = "hsd_pallas"
     aliases = ("clhsd", "pallas")
     kernels: KernelSet = BATCHLAST_KERNELS
+
+    def _kernels_at(self, bits, mv_bits) -> KernelSet:
+        return BatchLastKernels(ozaki_bits=bits, ozaki_mv_bits=mv_bits)

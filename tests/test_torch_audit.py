@@ -27,6 +27,23 @@ port's reading differs from it as the reference's own readings differ
 between batches.  The test holds both packages to the same status,
 iteration count and kind of end point, every reading within 1e-5, and the
 reference's reading on the two sides of 1e-6.
+
+The audit past the grid (``chip_smoke.py``'s off-grid audit of 120,000
+lanes) found two more OPTIMAL lanes above 1e-6 on the card: 380766
+(1.40e-6) and 819372 (1.23e-6).  Regenerated the same way:
+
+======  =====  ===================================  ==========================
+lane    batch  JAX reference                        port, reference set
+======  =====  ===================================  ==========================
+380766  alone  1.33e-6 (IPM end point, 12 its)      1.36e-6 (IPM end point)
+380766  64     1.38e-6 (IPM end point, 12 its)      1.32e-6 (IPM end point)
+819372  alone  3.23e-6 (IPM end point, 9 its)       4.39e-7 (IPM end point)
+819372  64     5.5e-14 (crossover vertex, 10 its)   1.98e-6 (IPM end point, 9)
+======  =====  ===================================  ==========================
+
+The reference ends each above the contract in at least one batch, so both
+are named with it; the test holds both packages OPTIMAL, every reading
+within 1e-5, and the reference's reading on its recorded side of 1e-6.
 """
 
 import numpy as np
@@ -91,9 +108,11 @@ def _numpy(out):
     return {k: np.asarray(v.cpu().numpy() if hasattr(v, "cpu") else v) for k, v in out.items()}
 
 
-@pytest.mark.parametrize("width", [1, 64])
-def test_config5_lane_over_contract(width):
-    lanes = [CONFIG5_LANE - width // 2 + j for j in range(width)]
+def _solve_around(lane: int, width: int):
+    """Config 5's lanes around ``lane`` (``width`` of them, ``lane`` at
+    width // 2) solved on the CPU in both packages at bench.py's options on
+    their reference sets: (reference, port, scipy's result for ``lane``)."""
+    lanes = [lane - width // 2 + j for j in range(width)]
     rows = [lane_of_random_lp(64, 64, CONFIG5_N, 3, i) for i in lanes]
     lp = StandardLP(A=rows[0][0], b=np.stack([r[1] for r in rows]),
                     c=np.stack([r[2] for r in rows]))
@@ -105,11 +124,17 @@ def test_config5_lane_over_contract(width):
                                         REF_KS, **kw))
     port = _numpy(port_hsd.hsd_solve_scan(A, b, c, SolverOptions(**BENCH_OPTIONS),
                                           REFERENCE_KERNELS, device="cpu", **kw))
-
     j = width // 2
     res = linprog(-np.asarray(lp.c[j], np.float64), A_ub=np.asarray(lp.A, np.float64),
                   b_ub=np.asarray(lp.b[j], np.float64), bounds=[(0, None)] * 64, method="highs")
     assert res.status == 0
+    return ref, port, res
+
+
+@pytest.mark.parametrize("width", [1, 64])
+def test_config5_lane_over_contract(width):
+    ref, port, res = _solve_around(CONFIG5_LANE, width)
+    j = width // 2
     rel = {}
     for name, out in (("reference", ref), ("port", port)):
         assert int(out["status"][j]) == int(Status.OPTIMAL), name
@@ -124,3 +149,21 @@ def test_config5_lane_over_contract(width):
         assert rel["reference"] <= CONTRACT, rel
     else:
         assert rel["reference"] > CONTRACT, rel
+
+
+# the reference's reading on the CPU above the contract?  (the table above)
+OFF_GRID_REFERENCE_ABOVE = {(380766, 1): True, (380766, 64): True, (819372, 1): True,
+                            (819372, 64): False}
+
+
+@pytest.mark.parametrize("lane,width", sorted(OFF_GRID_REFERENCE_ABOVE))
+def test_config5_off_grid_lane_over_contract(lane, width):
+    ref, port, res = _solve_around(lane, width)
+    j = width // 2
+    rel = {}
+    for name, out in (("reference", ref), ("port", port)):
+        assert int(out["status"][j]) == int(Status.OPTIMAL), name
+        assert float(out["rho_p"][j]) <= BENCH_OPTIONS["tol"], name
+        rel[name] = abs(-float(out["objective"][j]) + res.fun) / max(1.0, abs(res.fun))
+    assert max(rel.values()) < BAND, rel
+    assert (rel["reference"] > CONTRACT) == OFF_GRID_REFERENCE_ABOVE[lane, width], rel

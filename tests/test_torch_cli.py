@@ -5,10 +5,15 @@ reference CLI (``python -m pycllp_tpu --platform cpu solve f``, run in a
 subprocess so its JAX configuration stays out of this process) on the
 same MPS file: same status and iterations, objectives to 1e-8 relative.
 Exit codes: 0 on OPTIMAL, 1 otherwise; a CUDA request without a card
-raises; ``info`` runs without a card.
+raises; ``info`` runs without a card.  ``PYCLLP_OZAKI_BITS`` /
+``PYCLLP_OZAKI_MV_BITS`` reach the solver as ``ozaki_bits=`` /
+``ozaki_mv_bits=`` (read by the CLI alone), and the f32 + f64-finish
+``hsd_pallas`` solve of afiro at 56 / 40 bits gives the reference CLI's
+status and iterations under the same variables, objectives to 1e-6.
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -17,10 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+import pycllp_tpu_torch as port_pkg
+from pycllp_tpu_torch import __main__ as cli
 from pycllp_tpu_torch.__main__ import main
 from pycllp_tpu_torch.io import netlib
 from pycllp_tpu_torch.io.mps import write_mps
 from pycllp_tpu_torch.models import GeneralLP
+from pycllp_tpu_torch.ops import batchlast as bl
+from pycllp_tpu_torch.ops import df64
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -91,3 +100,50 @@ def test_info_runs_without_card():
     assert "'cpp_hsd', 'dense_path', 'hsd', 'hsd_pallas', 'schur', 'scipy'" in proc.stdout
     if not torch.cuda.is_available():
         assert "none (CPU only)" in proc.stdout
+
+
+def test_cli_maps_the_width_variables(monkeypatch, capsys, afiro_mps):
+    env = {"PYCLLP_OZAKI_BITS": "56", "PYCLLP_OZAKI_MV_BITS": "40"}
+    hsd_pallas = port_pkg.solver_registry["hsd_pallas"]
+    assert cli.ozaki_widths(hsd_pallas, env) == {"ozaki_bits": 56, "ozaki_mv_bits": 40}
+    assert cli.ozaki_widths(port_pkg.solver_registry["hsd"], env) == {
+        "ozaki_bits": 56, "ozaki_mv_bits": 40}
+    assert cli.ozaki_widths(port_pkg.solver_registry["scipy"], env) == {}  # runs no product
+    assert cli.ozaki_widths(hsd_pallas, {}) == {}
+    # the library itself reads no variable
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    assert bl.BatchLastKernels().finish_kernels() is df64.DF64_FINISH_KERNELS
+    assert df64.ozaki_params(128) == (6, 11, 12)
+    # the CLI's solve builds its solver at the widths, and they change its answer
+    argv = ["solve", afiro_mps, "--solver", "hsd_pallas", "--dtype", "float32",
+            "--finish-dtype", "float64"]
+    with monkeypatch.context() as mp:
+        for var in env:
+            mp.delenv(var)
+        assert cli.main(["--device", "cpu", *argv]) == 0
+        default = json.loads(capsys.readouterr().out)
+    built = []
+    real_get_solver = port_pkg.get_solver
+
+    def spy(name, **kwargs):
+        solver = real_get_solver(name, **kwargs)
+        built.append((kwargs, solver))
+        return solver
+
+    monkeypatch.setattr(port_pkg, "get_solver", spy)
+    rc = cli.main(["--device", "cpu", *argv])
+    port = json.loads(capsys.readouterr().out)
+    (kwargs, solver), = built
+    assert kwargs["ozaki_bits"] == 56 and kwargs["ozaki_mv_bits"] == 40
+    fk = solver.kernels.finish_kernels()
+    assert (fk.bits, fk.mv_bits) == (56, 40)
+    assert port["objective"] != default["objective"]
+    # the reference CLI under the same variables (its f64 finish needs x64 on)
+    proc = subprocess.run([sys.executable, "-m", "pycllp_tpu", "--platform", "cpu", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "JAX_ENABLE_X64": "1"})
+    ref = json.loads(proc.stdout)
+    assert rc == proc.returncode == 0 and port["status"] == ref["status"] == "OPTIMAL"
+    assert port["iterations"] == ref["iterations"]
+    assert abs(port["objective"] - ref["objective"]) <= 1e-6 * max(1.0, abs(ref["objective"]))

@@ -5,6 +5,9 @@
 * whole f64 solves (``hsd_solve_batched``, the no-cap and the narrow
   cap/compact ``hsd_solve_scan``) on the reference kernel sets: statuses
   and iteration counts identical, objectives to 1e-9;
+* ``warm`` passed as the seventh positional argument of
+  ``hsd_solve_batched``, as the reference takes it: the keyword call's
+  results, and the reference's;
 * the f32 registry solver ``hsd_pallas`` (CUDA set, run on the CPU
   through the kernels' plain versions) against the JAX ``hsd_pallas``
   (Pallas in interpret mode): at least 98% of statuses agree, and
@@ -111,6 +114,34 @@ def test_hsd_solve_batched_matches_jax_f64(init_point, shared_A):
     assert (np.asarray(ref_out["status"]) == int(ref_pkg.Status.OPTIMAL)).all()
     _assert_same_solve(ref_out, port_out)
     np.testing.assert_allclose(port_out["x"].numpy(), np.asarray(ref_out["x"]), rtol=1e-7, atol=1e-7)
+
+
+def test_warm_is_positional_as_in_the_reference():
+    """``hsd_solve_batched(A, b, c, opts, kset, reduce_any, warm)``: warm
+    as the seventh positional argument (the reference's order), with a
+    local reduce_any (None in the port, the reference's own jnp.any),
+    gives the keyword call's statuses and objectives bitwise, in both
+    packages, and the two packages agree as the f64 solves do."""
+    A, b, c = random_equality_lp(10, 24, nlp=16, seed=5)
+    ref_opts = ref_pkg.SolverOptions(tol=1e-8)
+    opts = interop.options_from_reference(dataclasses.asdict(ref_opts))
+    cold = _to_np(ref_hsd.hsd_solve_batched(A, b, c, ref_opts, REF_KS))
+    warm = tuple(np.array(cold[k]) for k in ("x", "y", "z"))  # writable copies
+    b2 = b * 1.05
+    ref_pos = ref_hsd.hsd_solve_batched(A, b2, c, ref_opts, REF_KS, jnp.any, warm)
+    ref_kw = ref_hsd.hsd_solve_batched(A, b2, c, ref_opts, REF_KS, warm=warm)
+    port_pos = port_hsd.hsd_solve_batched(A, b2, c, opts, REFERENCE_KERNELS, None, warm,
+                                          device="cpu")
+    port_kw = port_hsd.hsd_solve_batched(A, b2, c, opts, REFERENCE_KERNELS, warm=warm,
+                                         device="cpu")
+    for pos, kw in ((ref_pos, ref_kw), (port_pos, port_kw)):
+        pos, kw = _to_np(pos), _to_np(kw)
+        for key in ("status", "objective", "iterations"):
+            np.testing.assert_array_equal(pos[key], kw[key])
+    _assert_same_solve(ref_pos, port_pos)
+    # the warm point was used: a cold solve of the same data takes longer
+    cold2 = _to_np(port_hsd.hsd_solve_batched(A, b2, c, opts, REFERENCE_KERNELS, device="cpu"))
+    assert _to_np(port_pos)["iterations"].sum() < cold2["iterations"].sum()
 
 
 def test_hsd_solve_unbatched_matches_jax_f64():
