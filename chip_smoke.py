@@ -35,11 +35,16 @@ PyTorch version on the card, and drives the port's paths:
 5. the full main path — ``bench.py``'s default configuration: the same
    65,536 LPs through ``hsd_solve_scan`` with the wide f64 crossover
    finish and its drain tiers — audited to the 1e-6 contract on 2,048
-   lanes and every non-OPTIMAL one (the wide audit), then two more solves
-   under ``torch.profiler`` (device time by kernel, launches and the busy
-   share of each stage, GEMMs by shape): on the kernel route, and with
+   lanes and every non-OPTIMAL one (the wide audit), then three more
+   solves under ``torch.profiler`` (device time by kernel, launches and
+   the busy share of each stage, GEMMs by shape, the profiler's kernel
+   counts held to the launch counters): on the kernel route with the IPM
+   loops as replayed graphs and as the per-iteration host loop, and with
    every Ozaki product on the split route, each bitwise equal in statuses
-   and objectives to the main path; then the Ozaki widths set for a solve
+   and objectives to the main path; then the device-resident loop
+   (``device_loop``): the graph route against the host loop, bitwise, on
+   the main cell, the fused sets and netlib's padded batch, in turns, and
+   the block lengths 2, 3, 4 and 6; then the Ozaki widths set for a solve
    (``ozaki_widths``): the default widths given explicitly change no bit of
    the df64 probe or the main cell, the df64 probe at 56 bits runs to its
    end (its status mix and worst rho_p beside the 66-bit run's),
@@ -53,9 +58,11 @@ PyTorch version on the card, and drives the port's paths:
    ``BENCH_TOTAL=1000000``) over 1,000,000 scenarios on the fused-form
    set, run in a child process killed with SIGKILL after 8 windows, left
    with half a window and a stale temporary file on disk, resumed here,
-   and compared with an uninterrupted sweep; the wide audit, and the
+   and compared with an uninterrupted sweep, whose first window is solved
+   again on the per-iteration host loop (bitwise equal); the wide audit,
+   and the
    off-grid audit (every non-OPTIMAL lane and a seeded random sample of
-   120,000 lanes off the grid), to the 1e-6 contract but for the lanes
+   60,000 lanes off the grid), to the 1e-6 contract but for the lanes
    named in CONFIG5_OVER_CONTRACT;
 8. per-iteration metrics (``log_every=1``) of a 4,096-lane solve through
    ``metrics_to_jsonl``;
@@ -89,7 +96,9 @@ PyTorch version on the card, and drives the port's paths:
     f32 + f64 finish) on two gloo ranks with the replicated and the
     row-sharded factor, the registry's ``schur`` solver on a problem with
     an odd column count, each audited against HiGHS, and the row-sharded
-    FP64 Cholesky against ``torch.linalg.cholesky``.
+    FP64 Cholesky against ``torch.linalg.cholesky``;
+18. last, a loop body that reads a value back to the host inside its
+    block: its capture must raise.
 
 Ranks are processes started with the spawn method (``multiprocessing``)
 that meet through a ``file://`` store under ``build/``; each writes its
@@ -120,12 +129,14 @@ import json
 import multiprocessing
 import os
 import pickle
+import re
 import shutil
 import signal
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor, as_completed
 
 import numpy as np
@@ -145,6 +156,7 @@ from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.parallel.dchol import rowshard_cholesky, rowshard_cholesky_solve  # noqa: E402
+from pycllp_tpu_torch.solvers import _loop  # noqa: E402
 from pycllp_tpu_torch.solvers import hsd as hsd_mod  # noqa: E402
 from pycllp_tpu_torch.solvers.dense_path import dense_path_solve_batched  # noqa: E402
 from pycllp_tpu_torch.solvers.twopass import hsd_solve_two_pass  # noqa: E402
@@ -232,11 +244,13 @@ AUDIT_WORKERS = 8
 # config 5 audited beyond the grid: after the named lanes off the grid and
 # every non-OPTIMAL lane (no cap), the first OFF_GRID_LANES of a seeded random
 # permutation of the lanes off the 2,048-lane grid, fed to the pool in
-# batches.  The sample is what a budget of 120 s of pool wall audits on the
-# card's host (120,576 lanes in 124.1 s, 8 processes, H100 machine); a fixed
-# count keeps the audited lanes the same in every run, and no batch is taken
-# after OFF_GRID_CEILING_S of pool wall (a slower host audits a prefix).
-OFF_GRID_LANES = 120_000
+# batches.  The sample was first what a budget of 120 s of pool wall audits on
+# the card's host (120,576 lanes in 124.1 s, 8 processes, H100 machine); it is
+# halved, a prefix of the same permutation, to keep the whole script near half
+# its time limit as it grows.  A fixed count keeps the audited lanes the same
+# in every run, and no batch is taken after OFF_GRID_CEILING_S of pool wall (a
+# slower host audits a prefix).
+OFF_GRID_LANES = 60_000
 OFF_GRID_CEILING_S = 180.0
 OFF_GRID_BATCH = 256
 OFF_GRID_SEED = 11
@@ -453,8 +467,9 @@ def zero_counts() -> None:
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
     df64.OZAKI_LAUNCHES = 0
-    _PRODUCTS[0] = 0
+    _PRODUCTS.n = 0
     hsd_mod.HOST_STEPS = 0
+    _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
 
 
 def read_counts() -> dict:
@@ -462,7 +477,9 @@ def read_counts() -> dict:
             "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
             "slice_rounds_bl": df64.SLICE_LAUNCHES, "ozaki_product_bl": df64.OZAKI_LAUNCHES,
-            "ozaki_products": _PRODUCTS[0], "host_steps": hsd_mod.HOST_STEPS,
+            "ozaki_products": _PRODUCTS.n, "host_steps": hsd_mod.HOST_STEPS,
+            "gated_off": _loop.GATED_OFF_STEPS, "host_syncs": _loop.HOST_SYNCS,
+            "graph_captures": _loop.GRAPH_CAPTURES, "graph_replays": _loop.GRAPH_REPLAYS,
             "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
             "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
             "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
@@ -500,15 +517,18 @@ def check_smem_route(label: str, counts: dict) -> None:
 
 # every shared-A Ozaki product with lanes on the card, counted where the
 # kernel sets call it (df64._ozaki_matmul), in this process and in every
-# rank (which imports this module); zero_counts / read_counts reset and read it
-_PRODUCTS = [0]
+# rank (which imports this module); zero_counts / read_counts reset and read
+# it.  A product inside a captured block counts once a replay, as the
+# kernels' launch counters do (_loop.EXTRA_COUNTERS).
+_PRODUCTS = types.SimpleNamespace(n=0)
+_loop.EXTRA_COUNTERS.append((_PRODUCTS, "n"))
 _PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels), while phase_profile records
 
 
 def _counted_products(inner):
     def counted(W, d, *, s, n_slices, cut):
         if d.is_cuda and d.shape[0] and W.e.shape[0]:
-            _PRODUCTS[0] += 1
+            _PRODUCTS.n += 1
             if _PRODUCT_SHAPES["on"]:
                 _PRODUCT_SHAPES["shapes"].append((W.e.shape[0], d.shape[1], d.shape[0], cut - 1))
         return inner(W, d, s=s, n_slices=n_slices, cut=cut)
@@ -529,11 +549,15 @@ def split_ozaki_route():
     def split(W, d, s, n_slices, cut):
         return df64._ozaki_matmul_split(W, d, s=s, n_slices=n_slices, cut=cut)
 
+    # a cached graph replays the launches it captured: none may outlive the
+    # change of route, either way
+    _loop._clear_graphs()
     df64._ozaki_product_bl_cuda = split
     try:
         yield
     finally:
         df64._ozaki_product_bl_cuda = kernel
+        _loop._clear_graphs()
 
 
 @contextlib.contextmanager
@@ -1459,17 +1483,20 @@ def phase_narrow_path(smi: str) -> dict:
     t0 = time.perf_counter()
     sol = solver.solve()
     first_s = time.perf_counter() - t0
-    counts, steps = read_counts(), hsd_mod.HOST_STEPS
+    counts = read_counts()
+    steps, off = counts["host_steps"], counts["gated_off"]
     chol, solves = counts["chol_bl"], counts["solve_bl"]
     check_smem_route("narrow path", counts)
     say("narrow path", f"first solve {first_s:.3f}s; launches {counts}; "
-        f"host-loop iterations={steps}, Mehrotra starts={n_chunks}")
+        f"iterations={steps}, gated off={off}, Mehrotra starts={n_chunks}")
     check(chol > 0 and solves > 0, "a kernel of the narrow path was never launched")
-    check(chol == steps + n_chunks,
-          f"chol_bl launches {chol} != host iterations {steps} + Mehrotra starts {n_chunks}")
+    # a gated-off iteration launches what a running one does
+    check(chol == steps + off + n_chunks,
+          f"chol_bl launches {chol} != iterations {steps} + gated off {off} + Mehrotra starts "
+          f"{n_chunks}")
     # per iteration: the joint k=2 solve, the corrector, 3 KKT sweeps
-    check(solves == 5 * steps + n_chunks,
-          f"solve_bl launches {solves} != 5 x {steps} + {n_chunks}")
+    check(solves == 5 * (steps + off) + n_chunks,
+          f"solve_bl launches {solves} != 5 x ({steps} + {off}) + {n_chunks}")
 
     status = np.asarray(sol.status)
     check(sol.x.shape == (N_LP, N) and sol.objective.shape == (N_LP,), "solution shapes")
@@ -1535,6 +1562,9 @@ def phase_narrow_mix(smi: str, default_status) -> dict:
                         ("facsol", bl.BatchLastKernels(fuse_facsol=True))):
         solver.kernels = kset
         if label == "streaming_solve":
+            # cached graphs replay the design they captured: drop them
+            # around the forced design
+            _loop._clear_graphs()
             bl._solve_bl_cuda = streaming_solve
         try:
             zero_counts()
@@ -1542,6 +1572,8 @@ def phase_narrow_mix(smi: str, default_status) -> dict:
             counts = read_counts()
         finally:
             bl._solve_bl_cuda = solve_cuda
+            if label == "streaming_solve":
+                _loop._clear_graphs()
         if label == "streaming_solve":
             check(counts["solve_bl"] > 0 and counts["solve_bl_smem"] == 0,
                   f"streaming-solve run: solve_bl {counts['solve_bl']}, {counts['solve_bl_smem']} "
@@ -1772,12 +1804,14 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def _profiled_solve(route: str, A, b, c, opts) -> tuple:
+def _profiled_solve(route: str, A, b, c, opts, loop: str = "graph") -> tuple:
     """One main-cell solve under torch.profiler (stage_sync, the finish
     marked), on the kernel route or, ``route="split"``, with every Ozaki
-    product on the split route.  Returns (profiler, output, launch counts,
-    the Ozaki products' (rows, n, B, levels) and the slicing launches'
-    (r, B, n_slices), each in launch order)."""
+    product on the split route, its IPM loops on ``loop`` (the graph route
+    or the per-iteration host loop).  Returns (profiler, output, launch
+    counts, the Ozaki products' (rows, n, B, levels) and the slicing
+    launches' (r, B, n_slices), each in launch order: on the host loop,
+    one entry a launch)."""
     finish_core = hsd_mod._hsd_scan_finish_core
     slice_cuda = df64._slice_rounds_bl_cuda
     slice_shapes = []
@@ -1797,7 +1831,8 @@ def _profiled_solve(route: str, A, b, c, opts) -> tuple:
     _PRODUCT_SHAPES.update(on=True, shapes=[])
     zero_counts()
     try:
-        with split_ozaki_route() if route == "split" else contextlib.nullcontext():
+        with split_ozaki_route() if route == "split" else contextlib.nullcontext(), \
+                loop_route(loop):
             torch.cuda.synchronize()
             with contextlib.redirect_stderr(io.StringIO()), \
                     torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -1811,7 +1846,7 @@ def _profiled_solve(route: str, A, b, c, opts) -> tuple:
     return prof, out, read_counts(), list(_PRODUCT_SHAPES["shapes"]), slice_shapes
 
 
-def _stages(prof, smi: str, route: str) -> tuple[dict, list]:
+def _stages(prof, smi: str, label: str) -> tuple[dict, list]:
     """Device time by kernel, launches and busy share of the narrow stage
     and of the finish; returns (stages, the kernel events in time order)."""
     events = prof.events()
@@ -1846,7 +1881,7 @@ def _stages(prof, smi: str, route: str) -> tuple[dict, list]:
                          "launches": len(ks),
                          "by_kernel_ms": {k: round(v[0], 3) for k, v in top},
                          "by_kernel_launches": {k: v[1] for k, v in top}}
-        say("profile", f"{route} route, {stage} stage: device busy {busy:.1f} of {span:.1f} ms "
+        say("profile", f"{label} {stage} stage: device busy {busy:.1f} of {span:.1f} ms "
             f"(idle {1 - busy / span:.1%}), {len(ks)} kernels; " + ", ".join(
                 f"{k} {v[0]:.1f} ms/{v[1]}" for k, v in top[:9]) + f"; 'other' is e.g. {others}"
             f" on {smi}")
@@ -1898,30 +1933,42 @@ def phase_profile(smi: str, main_run: dict) -> dict:
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     stages = {}
-    for route in ("kernel", "split"):
-        prof, out, counts, products, slices = _profiled_solve(route, A, b, c, opts)
+    for name, route, loop in (("kernel", "kernel", "graph"), ("kernel_host", "kernel", "host"),
+                              ("split", "split", "host")):
+        prof, out, counts, products, slices = _profiled_solve(route, A, b, c, opts, loop)
         status = out["status"].cpu().numpy()
         obj = -out["objective"].cpu().numpy()
         same = np.array_equal(status, main_run["status"])
         bitwise = obj.dtype == main_run["objective"].dtype and \
             obj.tobytes() == main_run["objective"].tobytes()
-        say("profile", f"{route} route: statuses equal to the main path's {same}, objectives "
-            f"bitwise equal {bitwise}; {counts['ozaki_products']} Ozaki products, "
+        say("profile", f"{route} route, {loop} loop: statuses equal to the main path's {same}, "
+            f"objectives bitwise equal {bitwise}; {counts['ozaki_products']} Ozaki products, "
             f"ozaki_product_bl {counts['ozaki_product_bl']}, slice_rounds_bl "
-            f"{counts['slice_rounds_bl']}")
-        check(same and bitwise, f"the main cell on the {route} route differs from the main path")
+            f"{counts['slice_rounds_bl']}; {counts['host_steps']} iterations, "
+            f"{counts['gated_off']} gated off, {counts['graph_replays']} replays, "
+            f"{counts['graph_captures']} captures, {counts['host_syncs']} predicate reads")
+        check(same and bitwise, f"the main cell on the {route} route, {loop} loop, differs from "
+              "the main path")
         if route == "kernel":
             check(counts["ozaki_product_bl"] == counts["ozaki_products"] > 0
                   and counts["slice_rounds_bl"] == 0, f"kernel route: launches {counts}")
         else:
             check(counts["slice_rounds_bl"] == counts["ozaki_products"] > 0
                   and counts["ozaki_product_bl"] == 0, f"split route: launches {counts}")
-        st, kernels = _stages(prof, smi, route)
+        st, kernels = _stages(prof, smi, f"{route} route, {loop} loop,")
         st["counts"] = counts
+        # the profiler's kernels by name against the launch counters (on the
+        # graph route: the capture's counts times the replays)
+        for kname, group in PROFILE_NAMES.items():
+            seen = sum(st[x]["by_kernel_launches"].get(group, 0) for x in ("narrow", "finish"))
+            check(seen == counts[kname], f"profile {name}: the profiler saw {seen} {group} "
+                  f"launches, the counter {kname} {counts[kname]}")
+        say("profile", f"{name}: the profiler's kernel counts by name equal the launch counters: "
+            + ", ".join(f"{k} {counts[k]}" for k in PROFILE_NAMES if counts[k]))
         st["gemms_by_shape"] = gemms = _gemms_by_shape(prof)[:8]
         say("profile", f"{route} route, GEMMs by input shape (device ms / calls): " + "; ".join(
             f"{g['op']} {g['shapes']} {g['device_ms']:.2f}/{g['calls']}" for g in gemms))
-        if route == "kernel":
+        if name == "kernel_host":
             rows = _by_shape(kernels, "ozaki_product_kernel", products,
                              lambda r, k, B, lv: ozaki_bound(r, k, B, lv, lv + 1))
             say("profile", "ozaki_product_bl by shape (rows, n, B, levels): " + "; ".join(
@@ -1938,7 +1985,7 @@ def phase_profile(smi: str, main_run: dict) -> dict:
             say("profile", "device time per launch: " + ", ".join(
                 f"{k} {v:.1f} us" for k, v in per_launch.items()))
             st["per_launch_us"] = per_launch
-        else:
+        elif route == "split":
             # the (hi, lo) pair read, n_slices f32 bands written; 12 f32 operations a slice
             rows = _by_shape(kernels, "slice_rounds_kernel", slices, lambda r, B, ns: bound(
                 (8 + 4 * ns) * r * B, 12 * ns * r * B, torch.float32))
@@ -1946,14 +1993,203 @@ def phase_profile(smi: str, main_run: dict) -> dict:
                 f"{x['shape']} {x['launches']} launches, {x['mean_us']:.1f} us each, bound "
                 f"{x['bound_us']:.2f} us ({x['share']:.1%})" for x in rows))
             st["slice_rounds_by_shape"] = rows
-        stages[route] = st
-    k_fin, s_fin = stages["kernel"]["finish"], stages["split"]["finish"]
-    say("profile", f"the finish, split route -> kernel route: launches {s_fin['launches']} -> "
+        stages[name] = st
+    for stage in ("narrow", "finish"):
+        gr, ho = stages["kernel"][stage], stages["kernel_host"][stage]
+        say("profile", f"the {stage} stage, host loop -> graph route: launches {ho['launches']} "
+            f"-> {gr['launches']}, device busy {ho['device_ms']:.1f} -> {gr['device_ms']:.1f} ms, "
+            f"span {ho['span_ms']:.1f} -> {gr['span_ms']:.1f} ms, idle {ho['idle']:.1%} -> "
+            f"{gr['idle']:.1%} on {smi}")
+    k_fin, s_fin = stages["kernel_host"]["finish"], stages["split"]["finish"]
+    say("profile", f"the finish on the host loop, split route -> kernel route: launches {s_fin['launches']} -> "
         f"{k_fin['launches']}, device busy {s_fin['device_ms']:.1f} -> {k_fin['device_ms']:.1f} "
         f"ms, span {s_fin['span_ms']:.1f} -> {k_fin['span_ms']:.1f} ms, GEMM "
         f"{s_fin['by_kernel_ms'].get('gemm', 0.0):.1f} -> "
         f"{k_fin['by_kernel_ms'].get('gemm', 0.0):.1f} ms on {smi}")
     return stages
+
+
+# ---------------------------------------------------------------------------
+# the device-resident IPM loop: gated blocks replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the block lengths measured on the main cell; _loop.BLOCK is one of them
+LOOP_BLOCKS = (2, 3, 4, 6)
+LOOP_KEYS = ("x", "objective", "status", "iterations")
+
+
+@contextlib.contextmanager
+def loop_route(route: str, block: int | None = None):
+    """Run the solves inside on the graph route ("graph", the default, at
+    ``block`` iterations a block) or on the per-iteration host loop
+    ("host", the private ``hsd._HOST_LOOP``)."""
+    saved = hsd_mod._HOST_LOOP, _loop.BLOCK
+    hsd_mod._HOST_LOOP = route == "host"
+    _loop.BLOCK = block or saved[1]
+    try:
+        yield
+    finally:
+        hsd_mod._HOST_LOOP, _loop.BLOCK = saved
+
+
+def _loop_solve(solve, route: str, block: int | None = None) -> dict:
+    """One solve on ``route``, ended by the pull of its statuses: its
+    outputs (on the host), wall, peak device memory and counts (the whole
+    solve's, and at the narrow stage's end where the solve is a scan)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    err = io.StringIO()
+    with loop_route(route, block), narrow_stage_counts() as narrow, \
+            contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        out = solve()
+        out["status"].cpu()
+        wall = time.perf_counter() - t0
+    # the stage seconds a solve with stage_sync prints
+    stages = {m[0]: float(m[1]) for m in re.findall(r"\[scan\] (\w+) stage: ([0-9.]+)s",
+                                                       err.getvalue())}
+    return {"out": {k: v.cpu().numpy() for k, v in out.items()}, "wall": wall,
+            "mem_gib": torch.cuda.max_memory_allocated() / 2**30, "counts": read_counts(),
+            "narrow": dict(narrow), "stages": stages}
+
+
+def _same_outputs(a: dict, b: dict) -> bool:
+    return all(_same_bits(a[k], b[k]) for k in LOOP_KEYS)
+
+
+def _loop_cell(smi: str, label: str, solve) -> dict:
+    """One cell on both routes: a first solve each (the graph route's
+    captures its graphs; the cache is emptied first), then host, graph,
+    graph, host in turns.  Every solve's statuses, objectives, iterations
+    and x must equal the first host-loop solve's bit for bit."""
+    _loop._clear_graphs()
+    runs = [("graph", _loop_solve(solve, "graph")), ("host", _loop_solve(solve, "host"))]
+    runs += [(r, _loop_solve(solve, r)) for r in ("host", "graph", "graph", "host")]
+    ref = runs[1][1]["out"]
+    same = all(_same_outputs(run["out"], ref) for _, run in runs)
+    first_g, first_h = runs[0][1], runs[1][1]
+    g = [run for r, run in runs[2:] if r == "graph"]
+    h = [run for r, run in runs[2:] if r == "host"]
+    gc, hc = g[-1]["counts"], h[-1]["counts"]
+    st = ref["status"]
+    say("device_loop", f"{label}: graph route bitwise equal to the host loop (statuses, "
+        f"objectives, iterations, x; {len(runs)} solves) {same}; status mix {status_mix(st)}")
+    say("device_loop", f"{label}: walls in turns host/graph/graph/host "
+        f"{h[0]['wall']:.3f}/{g[0]['wall']:.3f}/{g[1]['wall']:.3f}/{h[1]['wall']:.3f} s; first "
+        f"solves graph {first_g['wall']:.3f} s ({first_g['counts']['graph_captures']} captures), "
+        f"host {first_h['wall']:.3f} s; peak memory graph {g[-1]['mem_gib']:.2f} GiB (first "
+        f"{first_g['mem_gib']:.2f}), host {h[-1]['mem_gib']:.2f} GiB on {smi}")
+    if g[-1]["stages"]:
+        say("device_loop", f"{label}: stage seconds (stage_sync) narrow/finish: graph "
+            + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}" for x in g)
+            + "; host " + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}"
+                                    for x in h) + f" on {smi}")
+    say("device_loop", f"{label}: a solve on the graph route: {gc['graph_captures']} captures, "
+        f"{gc['graph_replays']} replays, {gc['host_syncs']} predicate reads, {gc['host_steps']} "
+        f"iterations, {gc['gated_off']} gated off (block {_loop.BLOCK}); on the host loop "
+        f"{hc['host_syncs']} predicate reads, {hc['host_steps']} iterations; narrow stage "
+        f"reads graph/host {g[-1]['narrow'].get('host_syncs')}/{h[-1]['narrow'].get('host_syncs')}")
+    check(same, f"device_loop {label}: the graph route differs from the host loop")
+    check(gc["host_steps"] == hc["host_steps"],
+          f"device_loop {label}: iterations {gc['host_steps']} on the graph route, "
+          f"{hc['host_steps']} on the host loop")
+    check(gc["graph_captures"] == 0 and gc["graph_replays"] > 0,
+          f"device_loop {label}: a cached solve captured {gc['graph_captures']} graphs and "
+          f"replayed {gc['graph_replays']} blocks")
+    check(first_g["counts"]["graph_captures"] > 0, f"device_loop {label}: nothing was captured")
+    check(hc["graph_replays"] == hc["gated_off"] == 0, f"device_loop {label}: the host loop "
+          f"replayed {hc['graph_replays']} blocks")
+    check_smem_route(f"device_loop {label} (graph)", gc)
+    check_smem_route(f"device_loop {label} (host)", hc)
+    return {"same": same, "status": st, "walls": {"graph": [x["wall"] for x in g], "host": [x["wall"] for x in h],
+                                    "first_graph": first_g["wall"], "first_host": first_h["wall"]},
+            "mem_gib": {"graph": g[-1]["mem_gib"], "host": h[-1]["mem_gib"]},
+            "counts": {"graph": gc, "host": hc, "first_graph": first_g["counts"]},
+            "narrow": {"graph": g[-1]["narrow"], "host": h[-1]["narrow"]}}
+
+
+def _capture_fault_raises(smi: str) -> None:
+    """A body that reads a value back to the host cannot be captured: the
+    capture raises, and nothing falls back to an eager loop."""
+    def make_body(data):
+        def body(s):
+            if bool(s.k > 100):  # a host sync inside the loop body
+                return s
+            return s._replace(k=s.k + 1)
+        return body
+
+    state = hsd_mod.HSDState(*[torch.zeros((), dtype=torch.int32, device=CARD)]
+                             * len(hsd_mod.HSDState._fields))
+    limit = torch.full((), 5, dtype=torch.int32, device=CARD)
+    try:
+        _loop._device_while(lambda s, lim: s.k < lim, make_body, state, (), limit,
+                            key=("chip_smoke", "capture fault"))
+    except RuntimeError as e:
+        say("device_loop", f"a body that syncs inside its block: the capture raised "
+            f"({str(e).splitlines()[0][:100]}) on {smi}")
+    else:
+        raise RuntimeError("check failed: a capture of a body that syncs did not raise")
+    torch.cuda.synchronize()
+
+
+def phase_device_loop(smi: str, main_run: dict) -> dict:
+    """The gated blocks on the card against the per-iteration host loop
+    (hsd._HOST_LOOP), bitwise, on the main cell, the fused-form and
+    fuse_facsol sets and netlib's padded batch (per-instance A); the
+    block length over LOOP_BLOCKS on the main cell (wall, gated-off
+    share)."""
+    _, A, b, c = _bench_problem(N_LP)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    kw = {**SCAN_KW, "keys": LOOP_KEYS}
+
+    def scan(kset):
+        return lambda: hsd_mod.hsd_solve_scan(A, b, c, opts, kset, device="cuda", **kw)
+
+    # the main cell with a sync between the stages, for their seconds
+    cells = {"main": _loop_cell(smi, "main cell", lambda: hsd_mod.hsd_solve_scan(
+        A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda", stage_sync=True, **kw))}
+    check(np.array_equal(cells["main"]["status"], main_run["status"]),
+          "device_loop: the main cell's statuses differ from the main path's")
+    cells["fused_form"] = _loop_cell(smi, "fused-form set", scan(bl.BATCHLAST_FUSED_KERNELS))
+    cells["facsol"] = _loop_cell(smi, "fuse_facsol set",
+                                 scan(bl.BatchLastKernels(fuse_facsol=True)))
+    _, stds, buckets = _netlib_buckets()
+    A3, b3, c3 = (torch.from_numpy(v).to(CARD) for v in _netlib_padded(stds, buckets))
+    cells["netlib_padded"] = _loop_cell(
+        smi, f"netlib padded ({A3.shape[0]} lanes, per-instance {A3.shape[1]}x{A3.shape[2]})",
+        lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS, device="cuda"))
+    del A3, b3, c3
+
+    # the block length: the main cell on the graph route at each, its
+    # answer bitwise the host loop's
+    ref = None
+    sweep = {}
+    solve = scan(bl.BATCHLAST_KERNELS)
+    for block in LOOP_BLOCKS:
+        _loop._clear_graphs()
+        first = _loop_solve(solve, "graph", block)
+        runs = [_loop_solve(solve, "graph", block) for _ in range(2)]
+        ref = ref or _loop_solve(solve, "host")["out"]
+        cnt = runs[-1]["counts"]
+        share = cnt["gated_off"] / max(1, cnt["gated_off"] + cnt["host_steps"])
+        sweep[block] = {"walls": [r["wall"] for r in runs], "first": first["wall"],
+                        "gated_off": cnt["gated_off"], "share": share,
+                        "syncs": cnt["host_syncs"], "narrow_syncs": runs[-1]["narrow"]["host_syncs"],
+                        "same": all(_same_outputs(r["out"], ref) for r in [first] + runs)}
+        say("device_loop", f"block {block}: main cell walls {runs[0]['wall']:.3f}/"
+            f"{runs[1]['wall']:.3f} s (first, with captures, {first['wall']:.3f} s); "
+            f"{cnt['host_steps']} iterations, {cnt['gated_off']} gated off ({share:.1%}); "
+            f"{cnt['host_syncs']} predicate reads ({sweep[block]['narrow_syncs']} in the narrow "
+            f"stage); bitwise the host loop's {sweep[block]['same']} on {smi}")
+        check(sweep[block]["same"], f"device_loop: block {block} differs from the host loop")
+    best = min(sweep, key=lambda k: min(sweep[k]["walls"]))
+    say("device_loop", f"fastest block on the main cell: {best} (the shipped block: "
+        f"{_loop.BLOCK}) on {smi}; conditional graph nodes "
+        f"(CUDAGraph.begin_capture_to_if_node) in torch {torch.__version__}: "
+        f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
+    _loop._clear_graphs()
+    return {"cells": cells, "blocks": sweep}
 
 
 # the Ozaki widths set for a solve (the reference's PYCLLP_OZAKI_BITS /
@@ -2122,36 +2358,37 @@ def phase_fused_paths(smi: str, ref_status) -> tuple[dict, dict]:
     form = _scan_path(smi, bl.BATCHLAST_FUSED_KERNELS, "fused-form path", ("second",), ref_status)
     _audit_main("fused-form path", form["lp"], form["objective"], form["status"])
     nar, tot = form["narrow"], form["total"]
-    steps = nar["host_steps"]
-    check(nar["fused_factor_bl"] == steps + n_chunks,
-          f"fused_factor_bl launches {nar['fused_factor_bl']} in the narrow stage != host "
-          f"iterations {steps} + Mehrotra starts {n_chunks}")
+    steps, off = nar["host_steps"], nar["gated_off"]
+    check(nar["fused_factor_bl"] == steps + off + n_chunks,
+          f"fused_factor_bl launches {nar['fused_factor_bl']} in the narrow stage != iterations "
+          f"{steps} + gated off {off} + Mehrotra starts {n_chunks}")
     check(tot["fused_factor_bl"] == nar["fused_factor_bl"],
           "fused_factor_bl was launched in the finish")
     check(nar["chol_bl"] == 0, f"chol_bl launched {nar['chol_bl']} times in the fused narrow stage")
-    check(nar["solve_bl"] == 5 * steps + n_chunks,
-          f"narrow solve_bl launches {nar['solve_bl']} != 5 x {steps} + {n_chunks}")
-    say("fused-form path", f"narrow stage: fused_factor_bl {nar['fused_factor_bl']} = {steps} host "
-        f"iterations + {n_chunks} Mehrotra starts, all {tot['fused_factor_bl_smem']} on the "
-        f"lane-group design; finish: chol_bl {tot['chol_bl']}, solve_bl "
-        f"{tot['solve_bl'] - nar['solve_bl']}, {tot['host_steps'] - steps} host iterations")
+    check(nar["solve_bl"] == 5 * (steps + off) + n_chunks,
+          f"narrow solve_bl launches {nar['solve_bl']} != 5 x ({steps} + {off}) + {n_chunks}")
+    say("fused-form path", f"narrow stage: fused_factor_bl {nar['fused_factor_bl']} = {steps} "
+        f"iterations + {off} gated off + {n_chunks} Mehrotra starts, all "
+        f"{tot['fused_factor_bl_smem']} on the lane-group design; finish: chol_bl "
+        f"{tot['chol_bl']}, solve_bl {tot['solve_bl'] - nar['solve_bl']}, "
+        f"{tot['host_steps'] - steps} iterations")
 
     facsol = _scan_path(smi, bl.BatchLastKernels(fuse_facsol=True), "facsol path", ("second",),
                         ref_status)
     _audit_main("facsol path", facsol["lp"], facsol["objective"], facsol["status"])
     nar, tot = facsol["narrow"], facsol["total"]
-    steps = nar["host_steps"]
-    check(nar["facsol_bl"] == steps + n_chunks,
-          f"facsol_bl launches {nar['facsol_bl']} in the narrow stage != host iterations "
-          f"{steps} + Mehrotra starts {n_chunks}")
+    steps, off = nar["host_steps"], nar["gated_off"]
+    check(nar["facsol_bl"] == steps + off + n_chunks,
+          f"facsol_bl launches {nar['facsol_bl']} in the narrow stage != iterations {steps} + "
+          f"gated off {off} + Mehrotra starts {n_chunks}")
     check(tot["facsol_bl"] == nar["facsol_bl"], "facsol_bl was launched in the finish")
     check(nar["chol_bl"] == 0, f"chol_bl launched {nar['chol_bl']} times in the facsol narrow stage")
     # per iteration the corrector and 3 KKT sweeps; the joint k=2 solve is in facsol
-    check(nar["solve_bl"] == 4 * steps,
-          f"narrow solve_bl launches {nar['solve_bl']} != 4 x {steps}")
-    say("facsol path", f"narrow stage: facsol_bl {nar['facsol_bl']} = {steps} host iterations + "
-        f"{n_chunks} Mehrotra starts, all {tot['facsol_bl_smem']} on the lane-group design, "
-        f"solve_bl {nar['solve_bl']} = 4 x {steps}; finish: chol_bl "
+    check(nar["solve_bl"] == 4 * (steps + off),
+          f"narrow solve_bl launches {nar['solve_bl']} != 4 x ({steps} + {off})")
+    say("facsol path", f"narrow stage: facsol_bl {nar['facsol_bl']} = {steps} iterations + {off} "
+        f"gated off + {n_chunks} Mehrotra starts, all {tot['facsol_bl_smem']} on the lane-group "
+        f"design, solve_bl {nar['solve_bl']} = 4 x ({steps} + {off}); finish: chol_bl "
         f"{tot['chol_bl']}, solve_bl {tot['solve_bl'] - nar['solve_bl']}")
     return form, facsol
 
@@ -2298,6 +2535,21 @@ def phase_sweep(smi: str) -> dict:
         f"{bool(np.array_equal(resumed.iterations, whole.iterations))}")
     check(same_status, "resumed and uninterrupted sweeps disagree on a status")
     check(rel.max() <= SWEEP_OBJ_RTOL, f"resumed vs uninterrupted objective rel {rel.max():.3e}")
+
+    # (5b) the first window again on the per-iteration host loop: the graph
+    # route's answers, bit for bit
+    first = window * chunk
+    zero_counts()
+    t0 = time.perf_counter()
+    with loop_route("host"):
+        host = scenario_sweep(A, b[:first], c[:first], opts, **kw)
+    host_s = time.perf_counter() - t0
+    same_host = all(_same_bits(getattr(host, k), getattr(whole, k)[:first])
+                    for k in ("status", "objective", "iterations"))
+    say("config 5", f"the first window ({window} chunks) on the host loop: {host_s:.3f}s (the "
+        f"graph route's first window {windows[0]:.3f}s); statuses, objectives and iterations "
+        f"bitwise the uninterrupted sweep's {same_host}")
+    check(same_host, "config 5: the first window on the host loop differs from the graph route's")
 
     # (6) the status mix and the wide audit
     say("config 5", f"status mix {status_mix(whole.status)}; OPTIMAL "
@@ -2601,19 +2853,15 @@ def _timed_solve(A, b, c, opts, dev):
     return out["objective"].cpu().numpy(), status, wall, counts
 
 
-def phase_netlib(smi: str, dev) -> dict:
-    """Config 4 as bench.py's run_netlib builds it, at 8,192 replicas per
-    fixture: one shared-A solve per bucket, then the padded heterogeneous
-    batch (per-instance A) of the same replicas."""
-    opts = SolverOptions(**BENCH_OPTIONS)
+def _netlib_buckets():
+    """Config 4's replicas as bench.py's run_netlib builds them: per
+    bucket (one fixture each), its index, A, b (scaled per replica), c
+    and the scales; and the fixtures' names and standard forms."""
     names = netlib.fixture_names()
     stds = [_netlib_eq(nm)[0] for nm in names]
     rng = np.random.default_rng(7)
-    buckets = sorted(netlib.bucket_problems(stds).items())
-    say("netlib", f"buckets { {k: [names[i] for i in v] for k, v in buckets} }")
-    counts = {k: 0 for k in SOURCES}
-    bucketed, walls, order, scales = [], [], [], []
-    for _, idxs in buckets:
+    out = []
+    for _, idxs in sorted(netlib.bucket_problems(stds).items()):
         check(len(idxs) == 1, "a netlib bucket holds more than one structure")
         i = idxs[0]
         eq = stds[i].to_equality_form()
@@ -2622,6 +2870,38 @@ def phase_netlib(smi: str, dev) -> dict:
         b = np.asarray(eq.b, np.float32).reshape(1, -1) * scale
         c = np.ascontiguousarray(np.broadcast_to(np.asarray(eq.c, np.float32).reshape(1, -1),
                                                  (NETLIB_REPS, eq.c.shape[-1])))
+        out.append((i, A, b, c, scale[:, 0]))
+    return names, stds, out
+
+
+def _netlib_padded(stds, buckets):
+    """The padded heterogeneous batch of the buckets' replicas, in bucket
+    order: per-instance equality-form A3, b3 and c3 (f32, on the host)."""
+    order = [i for i, *_ in buckets]
+    A_pad, b_pad, c_pad, _, _ = netlib.pad_and_mask([stds[i] for i in order], np.float32)
+    mp = A_pad.shape[1]
+    eye = np.broadcast_to(np.eye(mp, dtype=np.float32), (len(order), mp, mp))
+    A_eq = np.concatenate([A_pad, eye], axis=2)
+    c_eq = np.concatenate([-c_pad, np.zeros((len(order), mp), np.float32)], axis=1)
+    lane_of = np.repeat(np.arange(len(order)), NETLIB_REPS)
+    A3 = np.ascontiguousarray(A_eq[lane_of])
+    b3 = b_pad[lane_of].copy()
+    for k, (i, *_, scale) in enumerate(buckets):
+        b3[k * NETLIB_REPS:(k + 1) * NETLIB_REPS, :stds[i].nrows] *= scale[:, None]
+    c3 = np.ascontiguousarray(c_eq[lane_of])
+    return A3, b3, c3
+
+
+def phase_netlib(smi: str, dev) -> dict:
+    """Config 4 as bench.py's run_netlib builds it, at 8,192 replicas per
+    fixture: one shared-A solve per bucket, then the padded heterogeneous
+    batch (per-instance A) of the same replicas."""
+    opts = SolverOptions(**BENCH_OPTIONS)
+    names, stds, buckets = _netlib_buckets()
+    say("netlib", f"buckets {[names[i] for i, *_ in buckets]}")
+    counts = {k: 0 for k in SOURCES}
+    bucketed, walls = [], []
+    for i, A, b, c, _ in buckets:
         obj, status, wall, cnt = _timed_solve(A, torch.from_numpy(b).to(dev),
                                               torch.from_numpy(c).to(dev), opts, dev)
         check(cnt["chol_bl"] > 0 and cnt["solve_bl"] > 0,
@@ -2636,24 +2916,12 @@ def phase_netlib(smi: str, dev) -> dict:
         _audit_netlib(f"netlib {names[i]}", A, b, c, obj, status)
         bucketed.append((obj, status))
         walls.append(wall)
-        order.append(i)
-        scales.append(scale[:, 0])
-    total = NETLIB_REPS * len(order)
-    say("netlib", f"bucketed batch: {total} LPs over {len(order)} buckets in {sum(walls):.3f}s = "
+    total = NETLIB_REPS * len(buckets)
+    say("netlib", f"bucketed batch: {total} LPs over {len(buckets)} buckets in {sum(walls):.3f}s = "
         f"{total / sum(walls):.1f} LP/s on {smi}")
 
     # the padded heterogeneous batch of the same replicas: per-instance A
-    A_pad, b_pad, c_pad, _, _ = netlib.pad_and_mask([stds[i] for i in order], np.float32)
-    mp = A_pad.shape[1]
-    eye = np.broadcast_to(np.eye(mp, dtype=np.float32), (len(order), mp, mp))
-    A_eq = np.concatenate([A_pad, eye], axis=2)
-    c_eq = np.concatenate([-c_pad, np.zeros((len(order), mp), np.float32)], axis=1)
-    lane_of = np.repeat(np.arange(len(order)), NETLIB_REPS)
-    A3 = np.ascontiguousarray(A_eq[lane_of])
-    b3 = b_pad[lane_of].copy()
-    for k, i in enumerate(order):
-        b3[k * NETLIB_REPS:(k + 1) * NETLIB_REPS, :stds[i].nrows] *= scales[k][:, None]
-    c3 = np.ascontiguousarray(c_eq[lane_of])
+    A3, b3, c3 = _netlib_padded(stds, buckets)
     say("netlib padded", f"{A3.shape[0]} lanes, per-instance A {A3.shape[1]}x{A3.shape[2]} "
         f"({A3.nbytes / 2**30:.2f} GiB in f32)")
     obj, status, wall, cnt = _timed_solve(torch.from_numpy(A3).to(dev), torch.from_numpy(b3).to(dev),
@@ -3322,6 +3590,7 @@ def main() -> None:
     probe = phase_probes()
     main_run = phase_main_path(smi)
     profile = phase_profile(smi, main_run)
+    phase_device_loop(smi, main_run)
     widths = phase_ozaki_widths(dev, smi, probe, main_run)
     form, facsol = phase_fused_paths(smi, main_run["status"])
     sweep_counts = phase_sweep(smi)
@@ -3338,6 +3607,7 @@ def main() -> None:
     if torch.cuda.device_count() > 1:  # one rank a card over NCCL
         phase_sweep_parallel(smi, backend="nccl")
     phase_big_lp(smi)
+    _capture_fault_raises(smi)  # last: it leaves a failed capture behind
     # launches: each kernel's count on the full main path that runs it (the
     # default set's, or the fused set's for the fused kernels; the slicing
     # pass runs only on the split route, the main cell's profiled solve with
@@ -3383,7 +3653,7 @@ def main() -> None:
             report[-1].update({"split_ms": r["split_ms"], "netlib_split_ms": held[name]["split_ms"]})
         if name == "ozaki_product_bl":
             report[-1].update({"split_ms": r["split_ms"], "by_shape": r["by_shape"],
-                               "profiled_by_shape": profile["kernel"]["ozaki_by_shape"]})
+                               "profiled_by_shape": profile["kernel_host"]["ozaki_by_shape"]})
         # device time of the kernel in the profiled main-path solve, by stage
         # (the slicing pass's in the split route's)
         group = PROFILE_NAMES.get(name)

@@ -40,14 +40,14 @@ def options_from_reference(fields: dict) -> SolverOptions:
 
 def state_from_numpy(fields: dict, device="cuda") -> HSDState:
     """An ``HSDState`` on ``device`` from ``{field: ndarray}`` (dtypes kept;
-    the scalar loop counter ``k`` becomes a Python int)."""
+    the scalar loop counter ``k`` becomes a 0-d int32 tensor, as the
+    reference carries it)."""
     dev = resolve_device(device)
     missing = set(HSDState._fields) - set(fields)
     if missing:
         raise ValueError(f"state is missing fields {sorted(missing)}")
     return HSDState(**{
-        f: int(np.asarray(fields[f])) if f == "k"
-        else torch.from_numpy(np.array(fields[f])).to(dev)
+        f: torch.from_numpy(np.array(fields[f], dtype=np.int32 if f == "k" else None)).to(dev)
         for f in HSDState._fields
     })
 
@@ -55,6 +55,6 @@ def state_from_numpy(fields: dict, device="cuda") -> HSDState:
 def state_to_numpy(state: HSDState) -> dict:
     """``{field: ndarray}`` from an ``HSDState`` (``k`` as an int32 scalar)."""
     return {
-        f: np.int32(v) if f == "k" else v.detach().cpu().numpy()
+        f: np.int32(int(v)) if f == "k" else v.detach().cpu().numpy()
         for f, v in state._asdict().items()
     }

@@ -9,12 +9,21 @@ IPM continuation) polishes every lane to the full ``tol``.
 
 What differs from the reference, and why:
 
-* ``lax.while_loop`` becomes a host loop whose predicate
-  ``(k < maxiter) & any(status == RUNNING)`` syncs once per iteration;
-  ``lax.scan`` over chunks becomes a Python loop over chunks, and every
-  ``lax.cond`` a Python branch on a value read back from the device.
-  The loop counter ``k`` is a Python int.  ``maxiter`` stays absolute in
-  ``k``, and a compacted bucket resumes at ``k = cap``.
+* ``lax.while_loop`` becomes blocks of gated iterations
+  (:func:`pycllp_tpu_torch.solvers._loop._device_while`): the predicate
+  ``(k < maxiter) & any(status == RUNNING)`` is computed on the device,
+  an iteration whose predicate is false keeps the state's bits, and the
+  host reads the predicate once a block; on the card each block is a
+  replayed CUDA graph.  The loop counter ``k`` is a 0-d int32 tensor on
+  the state's device, as in the reference's carry, and a budget may be
+  an int or such a tensor.  Two routes keep a host loop that reads the
+  predicate every iteration: ``log_every`` (its records are read back
+  each iteration, where the reference calls back under ``lax.cond``) and
+  a collective ``reduce_any`` (a gloo collective cannot be captured, and
+  every rank must advance ``k`` in lockstep).  ``lax.scan`` over chunks
+  becomes a Python loop over chunks, and every ``lax.cond`` a Python
+  branch on a value read back from the device.  ``maxiter`` stays
+  absolute in ``k``, and a compacted bucket resumes at ``k = cap``.
 * The device is explicit (``device=``, default ``"cuda"``); no tensor
   moves to another device on its own.
 * f32 matmuls run in full f32 (TF32 pinned off for the solve, the
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_tpu_torch.solvers import _loop
 from pycllp_tpu_torch.solvers.options import SolverOptions, Status
 from pycllp_tpu_torch.utils.device import resolve_device
 from pycllp_tpu_torch.utils.logging import iteration_record
@@ -60,9 +70,14 @@ _UNBOUNDED = int(Status.UNBOUNDED)
 _NUMERICAL = int(Status.NUMERICAL)
 _STALLED = int(Status.STALLED)
 
-# Host-loop iterations run by _run_phase, one per loop body.  Counted like
-# the kernels' launch counters, so a caller can tie launches to iterations.
+# IPM iterations run by _run_phase: the iterations whose k advanced (read
+# once a phase from the change in k on the gated route, one per body on the
+# host loop).  Counted like the kernels' launch counters, so a caller can tie
+# launches to iterations.
 HOST_STEPS = 0
+# True runs every phase as the per-iteration host loop (the route that
+# log_every and a collective reduce_any take), for on-card comparisons
+_HOST_LOOP = False
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -75,7 +90,7 @@ class HSDState(NamedTuple):
     kappa: torch.Tensor  # (B,)
     status: torch.Tensor  # (B,) int32
     iterations: torch.Tensor  # (B,) int32 — iterations spent while active
-    k: int  # global loop counter (host int)
+    k: torch.Tensor  # () int32 — global loop counter, on the state's device
     rp0: torch.Tensor  # (B,) initial-residual norms for relative indicators
     rd0: torch.Tensor
     rg0: torch.Tensor
@@ -332,100 +347,136 @@ def _any_running(status, reduce_any) -> bool:
     return bool(mask.any()) if reduce_any is None else bool(reduce_any(mask))
 
 
+def _phase_cond(s: HSDState, maxiter):
+    """The reference's loop predicate, reduced locally, on the device."""
+    return (s.k < maxiter) & (s.status == _RUNNING).any()
+
+
 def _run_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
-    dtype, tol: float, maxiter: int, reduce_any=None,
+    dtype, tol: float, maxiter, reduce_any=None,
 ) -> HSDState:
     """Run the masked IPM loop until all lanes finish or ``k == maxiter``.
 
-    The reference's ``lax.while_loop`` as a host loop: the predicate is
-    read back from the device once per iteration.  ``k < maxiter`` is
-    tested first, so ``reduce_any`` (a collective) runs on every rank at
-    the same ``k``.
+    ``maxiter`` is an int or a 0-d int tensor (a budget such as
+    ``k + finish_cap``).  The reference's ``lax.while_loop`` runs as
+    blocks of gated iterations (:func:`_loop._device_while`; on the card,
+    replayed CUDA graphs) whose predicate stays on the device.  With
+    ``opts.log_every`` or a collective ``reduce_any`` (neither None nor
+    ``torch.any``) it is a host loop that reads the predicate every
+    iteration: ``k < maxiter`` is tested first, so ``reduce_any`` runs on
+    every rank at the same ``k``.
     """
     global HOST_STEPS
-    step = _make_step_fn(ctx, b, c, opts, kset, dtype)
     patience = opts.stall_patience
 
-    def body(s: HSDState) -> HSDState:
-        rp, rd, rg, mu = _residuals(ctx, b, c, s.x, s.y, s.z, s.tau, s.kappa, kset)
-        by = (b * s.y).sum(-1)
-        ind = _indicators(rp, rd, rg, mu, s.tau, s.kappa, by, s.rp0, s.rd0, s.rg0, s.mu0)
-        status = _classify(ind, s.tau, s.kappa, s.status, tol)
-        running = status == _RUNNING
+    def make_body(data):
+        ctx, b, c = data
+        step = _make_step_fn(ctx, b, c, opts, kset, dtype)
 
-        # best-iterate bookkeeping (finite scores only)
-        score = torch.maximum(torch.maximum(ind.rho_p, ind.rho_d), ind.rho_A)
-        was_running = (s.status == _RUNNING) & torch.isfinite(score)
-        improved = was_running & (score < s.best_score)
-        imn = improved[..., None]
-        best_x = torch.where(imn, s.x, s.best_x)
-        best_y = torch.where(imn, s.y, s.best_y)
-        best_z = torch.where(imn, s.z, s.best_z)
-        best_tau = torch.where(improved, s.tau, s.best_tau)
-        best_kappa = torch.where(improved, s.kappa, s.best_kappa)
-        best_score = torch.where(improved, score, s.best_score)
-        # the stall clock only resets on MATERIAL progress (opts.stall_rtol
-        # relative drop); with the default 0.0 this equals `improved`
-        if opts.stall_rtol:
-            material = was_running & (score < s.best_score * (1.0 - opts.stall_rtol))
-        else:
-            material = improved
-        best_k = torch.where(material, s.k, s.best_k)
+        def body(s: HSDState) -> HSDState:
+            return _iteration(ctx, b, c, s, opts, kset, step, tol, patience)
 
-        # stall cutoff: no best-score progress for `patience` iterations →
-        # stop spending FLOPs on this lane (its best iterate is kept)
-        stalled = running & (s.k - best_k >= patience)
-        status = torch.where(stalled, _STALLED, status)
-        active = status == _RUNNING
+        return body
 
-        if opts.log_every and s.k % opts.log_every == 0:
-            _log_iteration(s, ind, mu, active)
-
-        xn, yn, zn, taun, kappan = step(s.x, s.y, s.z, s.tau, s.kappa, rp, rd, rg, mu)
-
-        # numerical guard: a lane whose step went non-finite keeps its old
-        # iterate and is flagged NUMERICAL (the f32 breakdown path).
-        finite = (
-            torch.isfinite(xn).all(dim=-1)
-            & torch.isfinite(yn).all(dim=-1)
-            & torch.isfinite(zn).all(dim=-1)
-            & torch.isfinite(taun)
-            & torch.isfinite(kappan)
-            & (taun > 0)
-            & (kappan >= 0)
-        )
-        status = torch.where(active & ~finite, _NUMERICAL, status)
-        take = active & finite
-
-        tn = take[..., None]
-        return HSDState(
-            x=torch.where(tn, xn, s.x),
-            y=torch.where(tn, yn, s.y),
-            z=torch.where(tn, zn, s.z),
-            tau=torch.where(take, taun, s.tau),
-            kappa=torch.where(take, kappan, s.kappa),
-            status=status,
-            iterations=torch.where(take, s.iterations + 1, s.iterations),
-            k=s.k + 1,
-            rp0=s.rp0,
-            rd0=s.rd0,
-            rg0=s.rg0,
-            mu0=s.mu0,
-            best_x=best_x,
-            best_y=best_y,
-            best_z=best_z,
-            best_tau=best_tau,
-            best_kappa=best_kappa,
-            best_score=best_score,
-            best_k=best_k,
-        )
-
-    s = state
-    while s.k < maxiter and _any_running(s.status, reduce_any):
-        s = body(s)
-        HOST_STEPS += 1
+    local = reduce_any is None or reduce_any is torch.any
+    if opts.log_every or not local or _HOST_LOOP:
+        body = make_body((ctx, b, c))
+        k, limit = int(state.k), int(maxiter)
+        s = state
+        while k < limit:
+            _loop.HOST_SYNCS += 1
+            if not _any_running(s.status, reduce_any):
+                break
+            s = body(s)
+            k += 1
+            HOST_STEPS += 1
+        return s
+    if not isinstance(maxiter, torch.Tensor):
+        maxiter = torch.full((), maxiter, dtype=torch.int32, device=state.k.device)
+    s, steps = _loop._device_while(
+        _phase_cond, make_body, state, (ctx, b, c), maxiter,
+        key=("hsd._run_phase", opts, kset, dtype, tol),
+    )
+    HOST_STEPS += steps
     return s
+
+
+def _iteration(ctx, b, c, s: HSDState, opts, kset, step, tol, patience) -> HSDState:
+    """The loop body: classify, track the best iterate and the stall clock,
+    take the Newton step (``step``) on the lanes still RUNNING."""
+    rp, rd, rg, mu = _residuals(ctx, b, c, s.x, s.y, s.z, s.tau, s.kappa, kset)
+    by = (b * s.y).sum(-1)
+    ind = _indicators(rp, rd, rg, mu, s.tau, s.kappa, by, s.rp0, s.rd0, s.rg0, s.mu0)
+    status = _classify(ind, s.tau, s.kappa, s.status, tol)
+    running = status == _RUNNING
+
+    # best-iterate bookkeeping (finite scores only)
+    score = torch.maximum(torch.maximum(ind.rho_p, ind.rho_d), ind.rho_A)
+    was_running = (s.status == _RUNNING) & torch.isfinite(score)
+    improved = was_running & (score < s.best_score)
+    imn = improved[..., None]
+    best_x = torch.where(imn, s.x, s.best_x)
+    best_y = torch.where(imn, s.y, s.best_y)
+    best_z = torch.where(imn, s.z, s.best_z)
+    best_tau = torch.where(improved, s.tau, s.best_tau)
+    best_kappa = torch.where(improved, s.kappa, s.best_kappa)
+    best_score = torch.where(improved, score, s.best_score)
+    # the stall clock only resets on MATERIAL progress (opts.stall_rtol
+    # relative drop); with the default 0.0 this equals `improved`
+    if opts.stall_rtol:
+        material = was_running & (score < s.best_score * (1.0 - opts.stall_rtol))
+    else:
+        material = improved
+    best_k = torch.where(material, s.k, s.best_k)
+
+    # stall cutoff: no best-score progress for `patience` iterations →
+    # stop spending FLOPs on this lane (its best iterate is kept)
+    stalled = running & (s.k - best_k >= patience)
+    status = torch.where(stalled, _STALLED, status)
+    active = status == _RUNNING
+
+    if opts.log_every and int(s.k) % opts.log_every == 0:
+        _log_iteration(s, ind, mu, active)
+
+    xn, yn, zn, taun, kappan = step(s.x, s.y, s.z, s.tau, s.kappa, rp, rd, rg, mu)
+
+    # numerical guard: a lane whose step went non-finite keeps its old
+    # iterate and is flagged NUMERICAL (the f32 breakdown path).
+    finite = (
+        torch.isfinite(xn).all(dim=-1)
+        & torch.isfinite(yn).all(dim=-1)
+        & torch.isfinite(zn).all(dim=-1)
+        & torch.isfinite(taun)
+        & torch.isfinite(kappan)
+        & (taun > 0)
+        & (kappan >= 0)
+    )
+    status = torch.where(active & ~finite, _NUMERICAL, status)
+    take = active & finite
+
+    tn = take[..., None]
+    return HSDState(
+        x=torch.where(tn, xn, s.x),
+        y=torch.where(tn, yn, s.y),
+        z=torch.where(tn, zn, s.z),
+        tau=torch.where(take, taun, s.tau),
+        kappa=torch.where(take, kappan, s.kappa),
+        status=status,
+        iterations=torch.where(take, s.iterations + 1, s.iterations),
+        k=s.k + 1,
+        rp0=s.rp0,
+        rd0=s.rd0,
+        rg0=s.rg0,
+        mu0=s.mu0,
+        best_x=best_x,
+        best_y=best_y,
+        best_z=best_z,
+        best_tau=best_tau,
+        best_kappa=best_kappa,
+        best_score=best_score,
+        best_k=best_k,
+    )
 
 
 def _log_iteration(s: HSDState, ind: _Indicators, mu, active) -> None:
@@ -446,7 +497,7 @@ def _log_iteration(s: HSDState, ind: _Indicators, mu, active) -> None:
 
 def _run_narrow_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
-    dtype, tol: float, maxiter: int, reduce_any=None,
+    dtype, tol: float, maxiter, reduce_any=None,
 ) -> HSDState:
     """Narrow IPM phase with the ``kkt_warmup`` refine schedule: the first
     ``kkt_warmup`` iterations run with ``kkt_refine=0``, then the loop
@@ -454,9 +505,9 @@ def _run_narrow_phase(
     are absolute in ``k``, so resumed states skip the warmup)."""
     w = opts.kkt_warmup
     if opts.kkt_refine and w:
+        cap = maxiter.clamp(max=w) if isinstance(maxiter, torch.Tensor) else min(w, maxiter)
         state = _run_phase(
-            ctx, b, c, state, opts.replace(kkt_refine=0), kset, dtype, tol,
-            min(w, maxiter), reduce_any,
+            ctx, b, c, state, opts.replace(kkt_refine=0), kset, dtype, tol, cap, reduce_any,
         )
     return _run_phase(ctx, b, c, state, opts, kset, dtype, tol, maxiter, reduce_any)
 
@@ -611,7 +662,7 @@ def _restart_merge(state: HSDState, fresh: HSDState, retry) -> HSDState:
         kappa=torch.where(retry, fresh.kappa, state.kappa),
         status=torch.where(retry, _RUNNING, state.status),
         iterations=state.iterations,
-        k=0,
+        k=torch.zeros_like(state.k),
         rp0=torch.where(retry, fresh.rp0, state.rp0),
         rd0=torch.where(retry, fresh.rd0, state.rd0),
         rg0=torch.where(retry, fresh.rg0, state.rg0),
@@ -637,6 +688,16 @@ def _retry_mask(status):
     return (status == _RUNNING) | (status == _STALLED) | (status == _NUMERICAL)
 
 
+def _k_tensor(k: int, dev) -> torch.Tensor:
+    """The loop counter ``k`` as a state holds it: a 0-d int32 tensor."""
+    return torch.full((), k, dtype=torch.int32, device=dev)
+
+
+def _best_k_at(state: HSDState) -> torch.Tensor:
+    """Every lane's stall clock set to the state's ``k``."""
+    return state.k.expand_as(state.best_k).clone()
+
+
 def _take(state: HSDState, idx) -> HSDState:
     """Gather the lanes ``idx`` of every per-lane field (``k`` is shared)."""
     return HSDState(*[v if f == "k" else v[idx] for f, v in zip(HSDState._fields, state)])
@@ -650,7 +711,7 @@ def _scatter(state: HSDState, sub: HSDState, idx, resumed) -> HSDState:
     for name, v in state._asdict().items():
         v2 = getattr(sub, name)
         if name == "k":
-            merged[name] = max(v, v2)
+            merged[name] = torch.maximum(v, v2)
             continue
         mask = resumed.reshape(resumed.shape + (1,) * (v2.dim() - 1))
         out = v.clone()
@@ -740,7 +801,7 @@ def _fresh_state(
             x=x0, y=y0, z=z0, tau=tau0, kappa=kappa0,
             status=full((B,), _RUNNING, torch.int32),
             iterations=full((B,), 0, torch.int32),
-            k=0,
+            k=_k_tensor(0, dev),
             rp0=_norm(rp_b), rd0=_norm(rd_b), rg0=rg_b.abs(), mu0=mu_b,
             best_x=x0, best_y=y0, best_z=z0, best_tau=tau0, best_kappa=kappa0,
             best_score=full((B,), big),
@@ -763,7 +824,7 @@ def _fresh_state(
         kappa=kappa0,
         status=full((B,), _RUNNING, torch.int32),
         iterations=full((B,), 0, torch.int32),
-        k=0,
+        k=_k_tensor(0, dev),
         rp0=_norm(rp),
         rd0=_norm(rd),
         rg0=rg.abs(),
@@ -988,7 +1049,7 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None
     state = _cast_state(state, fdtype)
     state = state._replace(
         best_score=torch.full_like(state.best_score, torch.finfo(fdtype).max),
-        best_k=torch.full_like(state.best_k, state.k),
+        best_k=_best_k_at(state),
     )
     if opts.finish_mode == "crossover":
         # one wide basis solve finishes accepted lanes as OPTIMAL;
@@ -1122,7 +1183,7 @@ def _compact_resume(
         # restart the stall clock at the resume point: gathered lanes carry
         # a best_k from their own (earlier) clock, and k may have jumped
         # past it
-        state2 = state2._replace(best_k=torch.full_like(state2.best_k, state2.k))
+        state2 = state2._replace(best_k=_best_k_at(state2))
     state2 = _run_phase(ctx, b_sf[idx], c_sf[idx], state2, opts, kset, dtype, tol, maxiter)
     return _scatter(sflat, state2, idx, resumed)
 
@@ -1238,7 +1299,7 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
     # every still-RUNNING lane's chunk ran to exactly `cap` (an early-
     # exiting chunk has no running lanes), so stage 2 resumes at k = cap
     sflat = HSDState(**{
-        f: cap if f == "k" else torch.cat([getattr(s, f) for s in states])
+        f: _k_tensor(cap, dev) if f == "k" else torch.cat([getattr(s, f) for s in states])
         for f in HSDState._fields
     })
     del states
@@ -1285,7 +1346,7 @@ def _hsd_scan_finish_core(
     sflat = _fold_to_best(ctx, b_sf, c_sf, sflat, kset)
     sflat = _cast_state(sflat, wide)
     sflat = sflat._replace(
-        k=0,
+        k=torch.zeros_like(sflat.k),
         best_score=torch.full_like(sflat.best_score, torch.finfo(wide).max),
         best_k=torch.zeros_like(sflat.best_k),
     )
@@ -1325,7 +1386,7 @@ def _hsd_scan_finish_core(
         rows = slice(kk * chunk, (kk + 1) * chunk)
         parts.append(stage3(_take(sflat, rows), b_sfw[rows], c_sfw[rows]))  # each from k = 0
     sflat = HSDState(**{
-        f: base_k if f == "k" else torch.cat([getattr(p, f) for p in parts])
+        f: _k_tensor(base_k, dev) if f == "k" else torch.cat([getattr(p, f) for p in parts])
         for f in HSDState._fields
     })
     del parts
@@ -1374,7 +1435,7 @@ def _hsd_scan_finish_core(
 
         # tier 1: short wide IPM → wide cross (budgets relative to st2.k)
         def tier1(b2, c2, st2):
-            st2 = st2._replace(best_k=torch.full_like(st2.best_k, st2.k))
+            st2 = st2._replace(best_k=_best_k_at(st2))
             st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
                              st2.k + finish_cap)
             st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
@@ -1388,7 +1449,7 @@ def _hsd_scan_finish_core(
         # reopen=False in the rescue keeps rejects STALLED, so each lane
         # gets the deep treatment exactly once
         def tier2(b2, c2, st2):
-            st2 = st2._replace(best_k=torch.full_like(st2.best_k, st2.k))
+            st2 = st2._replace(best_k=_best_k_at(st2))
             st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
                              st2.k + opts.finish_maxiter)
             if opts.finish_restart:

@@ -160,7 +160,7 @@ def test_compact_resume_restart_matches_jax():
                                     1e-8, 25, 24, restart=True)
     np.testing.assert_array_equal(port.status.numpy(), np.asarray(ref.status))
     np.testing.assert_array_equal(port.iterations.numpy(), np.asarray(ref.iterations))
-    assert port.k == int(ref.k)
+    assert port.k.dtype == torch.int32 and int(port.k) == int(ref.k)
     st = port.status.numpy()
     assert (st[:24] == OPTIMAL).all()  # restarted or resumed, then converged
     assert (st[24:30] == RUNNING).all() and (st[30:] == OPTIMAL).all()  # overflow / untouched

@@ -82,7 +82,8 @@ def test_newton_step_matches_jax_f64():
     ref_new = ref_step(state.x, state.y, state.z, state.tau, state.kappa, *res)
 
     s = interop.state_from_numpy(fields, device="cpu")
-    assert s.k == 2 and s.status.dtype == torch.int32
+    assert s.k.dim() == 0 and s.k.dtype == torch.int32 and int(s.k) == 2
+    assert s.status.dtype == torch.int32
     assert interop.state_to_numpy(s).keys() == fields.keys()
     pctx = REFERENCE_KERNELS.prepare(torch.from_numpy(A))
     bt, ct = torch.from_numpy(b), torch.from_numpy(c)
@@ -99,7 +100,8 @@ def test_newton_step_matches_jax_f64():
         np.testing.assert_allclose(getattr(fold, name).numpy(), np.asarray(getattr(ref_fold, name)),
                                    rtol=1e-12, atol=0, err_msg=name)
     narrow = port_hsd._cast_state(s, torch.float32)
-    assert narrow.x.dtype == torch.float32 and narrow.status.dtype == torch.int32 and narrow.k == 2
+    assert narrow.x.dtype == torch.float32 and narrow.status.dtype == torch.int32
+    assert narrow.k.dtype == torch.int32 and int(narrow.k) == 2
 
 
 @pytest.mark.parametrize(
