@@ -136,7 +136,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 from concurrent.futures import ProcessPoolExecutor, as_completed
 
 import numpy as np
@@ -244,13 +243,11 @@ AUDIT_WORKERS = 8
 # config 5 audited beyond the grid: after the named lanes off the grid and
 # every non-OPTIMAL lane (no cap), the first OFF_GRID_LANES of a seeded random
 # permutation of the lanes off the 2,048-lane grid, fed to the pool in
-# batches.  The sample was first what a budget of 120 s of pool wall audits on
-# the card's host (120,576 lanes in 124.1 s, 8 processes, H100 machine); it is
-# halved, a prefix of the same permutation, to keep the whole script near half
-# its time limit as it grows.  A fixed count keeps the audited lanes the same
-# in every run, and no batch is taken after OFF_GRID_CEILING_S of pool wall (a
-# slower host audits a prefix).
-OFF_GRID_LANES = 60_000
+# batches.  The sample is what a budget of 120 s of pool wall audits on the
+# card's host (120,576 lanes in 124.1 s, 8 processes, H100 machine).  A fixed
+# count keeps the audited lanes the same in every run, and no batch is taken
+# after OFF_GRID_CEILING_S of pool wall (a slower host audits a prefix).
+OFF_GRID_LANES = 120_000
 OFF_GRID_CEILING_S = 180.0
 OFF_GRID_BATCH = 256
 OFF_GRID_SEED = 11
@@ -466,8 +463,7 @@ def zero_counts() -> None:
     bl.FUSED_FACTOR_SMEM_LAUNCHES = bl.FACSOL_SMEM_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
-    df64.OZAKI_LAUNCHES = 0
-    _PRODUCTS.n = 0
+    df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
     _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
 
@@ -477,7 +473,7 @@ def read_counts() -> dict:
             "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
             "slice_rounds_bl": df64.SLICE_LAUNCHES, "ozaki_product_bl": df64.OZAKI_LAUNCHES,
-            "ozaki_products": _PRODUCTS.n, "host_steps": hsd_mod.HOST_STEPS,
+            "ozaki_products": df64.OZAKI_MATMUL_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
             "gated_off": _loop.GATED_OFF_STEPS, "host_syncs": _loop.HOST_SYNCS,
             "graph_captures": _loop.GRAPH_CAPTURES, "graph_replays": _loop.GRAPH_REPLAYS,
             "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
@@ -515,28 +511,23 @@ def check_smem_route(label: str, counts: dict) -> None:
           f"ozaki_product_bl launches, {counts['slice_rounds_bl']} slice_rounds_bl launches")
 
 
-# every shared-A Ozaki product with lanes on the card, counted where the
-# kernel sets call it (df64._ozaki_matmul), in this process and in every
-# rank (which imports this module); zero_counts / read_counts reset and read
-# it.  A product inside a captured block counts once a replay, as the
-# kernels' launch counters do (_loop.EXTRA_COUNTERS).
-_PRODUCTS = types.SimpleNamespace(n=0)
-_loop.EXTRA_COUNTERS.append((_PRODUCTS, "n"))
-_PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels), while phase_profile records
+# the shape of every shared-A Ozaki product with lanes on the card, where the
+# kernel sets call it (df64._ozaki_matmul), while a phase records them; the
+# products themselves are counted by df64.OZAKI_MATMUL_LAUNCHES (a product
+# inside a captured block once a replay)
+_PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels)
 
 
-def _counted_products(inner):
-    def counted(W, d, *, s, n_slices, cut):
-        if d.is_cuda and d.shape[0] and W.e.shape[0]:
-            _PRODUCTS.n += 1
-            if _PRODUCT_SHAPES["on"]:
-                _PRODUCT_SHAPES["shapes"].append((W.e.shape[0], d.shape[1], d.shape[0], cut - 1))
+def _logged_products(inner):
+    def logged(W, d, *, s, n_slices, cut):
+        if _PRODUCT_SHAPES["on"] and d.is_cuda and d.shape[0] and W.e.shape[0]:
+            _PRODUCT_SHAPES["shapes"].append((W.e.shape[0], d.shape[1], d.shape[0], cut - 1))
         return inner(W, d, s=s, n_slices=n_slices, cut=cut)
 
-    return counted
+    return logged
 
 
-df64._ozaki_matmul = _counted_products(df64._ozaki_matmul)
+df64._ozaki_matmul = _logged_products(df64._ozaki_matmul)
 
 
 @contextlib.contextmanager
@@ -2013,34 +2004,41 @@ def phase_profile(smi: str, main_run: dict) -> dict:
 # the device-resident IPM loop: gated blocks replayed as CUDA graphs
 # ---------------------------------------------------------------------------
 
-# the block lengths measured on the main cell; _loop.BLOCK is one of them
-LOOP_BLOCKS = (2, 3, 4, 6)
+# the block lengths measured on the main cell: the shipped _loop.BLOCK and
+# the runner-up of the choice among 2, 3, 4 and 6 (PERF.md §6)
+LOOP_BLOCKS = (3, 4)
 LOOP_KEYS = ("x", "objective", "status", "iterations")
 
 
 @contextlib.contextmanager
-def loop_route(route: str, block: int | None = None):
+def loop_route(route: str, block: int | None = None, per_instance: int | None = None):
     """Run the solves inside on the graph route ("graph", the default, at
-    ``block`` iterations a block) or on the per-iteration host loop
-    ("host", the private ``hsd._HOST_LOOP``)."""
-    saved = hsd_mod._HOST_LOOP, _loop.BLOCK
+    ``block`` iterations a block on shared A and ``per_instance`` on
+    per-instance A) or on the per-iteration host loop ("host", the private
+    ``hsd._HOST_LOOP``)."""
+    saved = hsd_mod._HOST_LOOP, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE
     hsd_mod._HOST_LOOP = route == "host"
     _loop.BLOCK = block or saved[1]
+    _loop.BLOCK_PER_INSTANCE = per_instance or saved[2]
     try:
         yield
     finally:
-        hsd_mod._HOST_LOOP, _loop.BLOCK = saved
+        hsd_mod._HOST_LOOP, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE = saved
 
 
-def _loop_solve(solve, route: str, block: int | None = None) -> dict:
+def _loop_solve(solve, route: str, block: int | None = None,
+                per_instance: int | None = None) -> dict:
     """One solve on ``route``, ended by the pull of its statuses: its
-    outputs (on the host), wall, peak device memory and counts (the whole
-    solve's, and at the narrow stage's end where the solve is a scan)."""
+    outputs (on the host), wall, peak device memory (allocated, and
+    reserved from an emptied cache: the captured graphs' pool and static
+    buffers included) and counts (the whole solve's, and at the narrow
+    stage's end where the solve is a scan)."""
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     err = io.StringIO()
-    with loop_route(route, block), narrow_stage_counts() as narrow, \
+    with loop_route(route, block, per_instance), narrow_stage_counts() as narrow, \
             contextlib.redirect_stderr(err):
         t0 = time.perf_counter()
         out = solve()
@@ -2050,7 +2048,8 @@ def _loop_solve(solve, route: str, block: int | None = None) -> dict:
     stages = {m[0]: float(m[1]) for m in re.findall(r"\[scan\] (\w+) stage: ([0-9.]+)s",
                                                        err.getvalue())}
     return {"out": {k: v.cpu().numpy() for k, v in out.items()}, "wall": wall,
-            "mem_gib": torch.cuda.max_memory_allocated() / 2**30, "counts": read_counts(),
+            "mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30, "counts": read_counts(),
             "narrow": dict(narrow), "stages": stages}
 
 
@@ -2058,17 +2057,19 @@ def _same_outputs(a: dict, b: dict) -> bool:
     return all(_same_bits(a[k], b[k]) for k in LOOP_KEYS)
 
 
-def _loop_cell(smi: str, label: str, solve) -> dict:
-    """One cell on both routes: a first solve each (the graph route's
-    captures its graphs; the cache is emptied first), then host, graph,
-    graph, host in turns.  Every solve's statuses, objectives, iterations
-    and x must equal the first host-loop solve's bit for bit."""
+def _loop_cell(smi: str, label: str, solve, block: int | None = None) -> dict:
+    """One cell on both routes: a first solve each (the host loop's with
+    no graph cached, so its memory is the host route's alone; then the
+    graph route's, which captures its graphs), then host, graph, graph,
+    host in turns.  Every solve's statuses, objectives, iterations and x
+    must equal the first host-loop solve's bit for bit.  ``block``: the
+    block length the cell runs at, for the report."""
     _loop._clear_graphs()
-    runs = [("graph", _loop_solve(solve, "graph")), ("host", _loop_solve(solve, "host"))]
+    runs = [("host", _loop_solve(solve, "host")), ("graph", _loop_solve(solve, "graph"))]
     runs += [(r, _loop_solve(solve, r)) for r in ("host", "graph", "graph", "host")]
-    ref = runs[1][1]["out"]
+    ref = runs[0][1]["out"]
     same = all(_same_outputs(run["out"], ref) for _, run in runs)
-    first_g, first_h = runs[0][1], runs[1][1]
+    first_g, first_h = runs[1][1], runs[0][1]
     g = [run for r, run in runs[2:] if r == "graph"]
     h = [run for r, run in runs[2:] if r == "host"]
     gc, hc = g[-1]["counts"], h[-1]["counts"]
@@ -2078,8 +2079,11 @@ def _loop_cell(smi: str, label: str, solve) -> dict:
     say("device_loop", f"{label}: walls in turns host/graph/graph/host "
         f"{h[0]['wall']:.3f}/{g[0]['wall']:.3f}/{g[1]['wall']:.3f}/{h[1]['wall']:.3f} s; first "
         f"solves graph {first_g['wall']:.3f} s ({first_g['counts']['graph_captures']} captures), "
-        f"host {first_h['wall']:.3f} s; peak memory graph {g[-1]['mem_gib']:.2f} GiB (first "
-        f"{first_g['mem_gib']:.2f}), host {h[-1]['mem_gib']:.2f} GiB on {smi}")
+        f"host {first_h['wall']:.3f} s; peak memory allocated graph {g[-1]['mem_gib']:.2f} GiB "
+        f"(first {first_g['mem_gib']:.2f}), host {h[-1]['mem_gib']:.2f} GiB; reserved graph "
+        f"{g[-1]['reserved_gib']:.2f} GiB (first {first_g['reserved_gib']:.2f}), host "
+        f"{h[-1]['reserved_gib']:.2f} GiB (first, no graph cached, {first_h['mem_gib']:.2f} "
+        f"allocated, {first_h['reserved_gib']:.2f} reserved) on {smi}")
     if g[-1]["stages"]:
         say("device_loop", f"{label}: stage seconds (stage_sync) narrow/finish: graph "
             + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}" for x in g)
@@ -2087,7 +2091,7 @@ def _loop_cell(smi: str, label: str, solve) -> dict:
                                     for x in h) + f" on {smi}")
     say("device_loop", f"{label}: a solve on the graph route: {gc['graph_captures']} captures, "
         f"{gc['graph_replays']} replays, {gc['host_syncs']} predicate reads, {gc['host_steps']} "
-        f"iterations, {gc['gated_off']} gated off (block {_loop.BLOCK}); on the host loop "
+        f"iterations, {gc['gated_off']} gated off (block {block or _loop.BLOCK}); on the host loop "
         f"{hc['host_syncs']} predicate reads, {hc['host_steps']} iterations; narrow stage "
         f"reads graph/host {g[-1]['narrow'].get('host_syncs')}/{h[-1]['narrow'].get('host_syncs')}")
     check(same, f"device_loop {label}: the graph route differs from the host loop")
@@ -2104,7 +2108,9 @@ def _loop_cell(smi: str, label: str, solve) -> dict:
     check_smem_route(f"device_loop {label} (host)", hc)
     return {"same": same, "status": st, "walls": {"graph": [x["wall"] for x in g], "host": [x["wall"] for x in h],
                                     "first_graph": first_g["wall"], "first_host": first_h["wall"]},
-            "mem_gib": {"graph": g[-1]["mem_gib"], "host": h[-1]["mem_gib"]},
+            "mem_gib": {"graph": g[-1]["mem_gib"], "host": first_h["mem_gib"]},
+            "reserved_gib": {"graph": g[-1]["reserved_gib"], "host": first_h["reserved_gib"]},
+            "ref": ref,
             "counts": {"graph": gc, "host": hc, "first_graph": first_g["counts"]},
             "narrow": {"graph": g[-1]["narrow"], "host": h[-1]["narrow"]}}
 
@@ -2123,7 +2129,7 @@ def _capture_fault_raises(smi: str) -> None:
                              * len(hsd_mod.HSDState._fields))
     limit = torch.full((), 5, dtype=torch.int32, device=CARD)
     try:
-        _loop._device_while(lambda s, lim: s.k < lim, make_body, state, (), limit,
+        _loop._device_while(lambda s, lim: s.k < lim, make_body, state, (), limit, _loop.BLOCK,
                             key=("chip_smoke", "capture fault"))
     except RuntimeError as e:
         say("device_loop", f"a body that syncs inside its block: the capture raised "
@@ -2133,12 +2139,40 @@ def _capture_fault_raises(smi: str) -> None:
     torch.cuda.synchronize()
 
 
+def _per_instance_blocks(smi: str, solve, ref: dict) -> dict:
+    """Per-instance A at the shipped _loop.BLOCK_PER_INSTANCE against the
+    shared-A block _loop.BLOCK: a first solve each (its captures), then
+    cached solves in turns; each bitwise the host loop's (``ref``)."""
+    shipped, other = _loop.BLOCK_PER_INSTANCE, _loop.BLOCK
+    _loop._clear_graphs()
+    runs = {blk: [_loop_solve(solve, "graph", per_instance=blk)] for blk in (shipped, other)}
+    for blk in (shipped, other, other, shipped):
+        runs[blk].append(_loop_solve(solve, "graph", per_instance=blk))
+    out = {}
+    for blk, rs in runs.items():
+        cnt = rs[-1]["counts"]
+        out[blk] = {"walls": [r["wall"] for r in rs[1:]], "first": rs[0]["wall"],
+                    "gated_off": cnt["gated_off"], "syncs": cnt["host_syncs"],
+                    "steps": cnt["host_steps"], "reserved_gib": rs[-1]["reserved_gib"],
+                    "same": all(_same_outputs(r["out"], ref) for r in rs)}
+        say("device_loop", f"per-instance A at block {blk}{' (shipped)' if blk == shipped else ''}: "
+            f"walls {'/'.join(f'{w:.3f}' for w in out[blk]['walls'])} s in turns (first, with "
+            f"captures, {out[blk]['first']:.3f} s); {out[blk]['steps']} iterations, "
+            f"{out[blk]['gated_off']} gated off, {out[blk]['syncs']} predicate reads; peak "
+            f"reserved {out[blk]['reserved_gib']:.2f} GiB; bitwise the host loop's "
+            f"{out[blk]['same']} on {smi}")
+        check(out[blk]["same"], f"device_loop: per-instance A at block {blk} differs from the "
+              "host loop")
+    _loop._clear_graphs()
+    return out
+
+
 def phase_device_loop(smi: str, main_run: dict) -> dict:
     """The gated blocks on the card against the per-iteration host loop
     (hsd._HOST_LOOP), bitwise, on the main cell, the fused-form and
-    fuse_facsol sets and netlib's padded batch (per-instance A); the
-    block length over LOOP_BLOCKS on the main cell (wall, gated-off
-    share)."""
+    fuse_facsol sets and netlib's padded batch (per-instance A, also at
+    the shared-A block); the block length over LOOP_BLOCKS on the main
+    cell (wall, gated-off share)."""
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     kw = {**SCAN_KW, "keys": LOOP_KEYS}
@@ -2158,7 +2192,11 @@ def phase_device_loop(smi: str, main_run: dict) -> dict:
     A3, b3, c3 = (torch.from_numpy(v).to(CARD) for v in _netlib_padded(stds, buckets))
     cells["netlib_padded"] = _loop_cell(
         smi, f"netlib padded ({A3.shape[0]} lanes, per-instance {A3.shape[1]}x{A3.shape[2]})",
-        lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS, device="cuda"))
+        lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS, device="cuda"),
+        block=_loop.BLOCK_PER_INSTANCE)
+    cells["netlib_padded"]["blocks"] = _per_instance_blocks(
+        smi, lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS,
+                                               device="cuda"), cells["netlib_padded"]["ref"])
     del A3, b3, c3
 
     # the block length: the main cell on the graph route at each, its

@@ -33,7 +33,9 @@ Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_ozaki_matmul_plain`).  The wrappers take the plain version only
 for CPU tensors; for a CUDA tensor they launch the kernel or raise.  Each
 launch adds one to ``DF_CHOL_LAUNCHES``, ``DF_SOLVE_LAUNCHES``,
-``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, and a factor or solve on the
+``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, each Ozaki product with lanes
+sent to the card one to ``OZAKI_MATMUL_LAUNCHES`` (whatever route runs
+it: one ``ozaki_product_bl`` launch), and a factor or solve on the
 lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
 ``DF_SOLVE_SMEM_LAUNCHES``.
 
@@ -90,6 +92,7 @@ DF_CHOL_SMEM_LAUNCHES = 0
 DF_SOLVE_SMEM_LAUNCHES = 0
 SLICE_LAUNCHES = 0
 OZAKI_LAUNCHES = 0
+OZAKI_MATMUL_LAUNCHES = 0
 
 # ---------------------------------------------------------------------------
 # double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
@@ -466,8 +469,10 @@ def _ozaki_matmul(W, d, *, s, n_slices, cut):
     ``ozaki_product_bl`` (or raises); a CPU ``d`` runs
     :func:`_ozaki_matmul_plain`.
     """
+    global OZAKI_MATMUL_LAUNCHES
     if d.device.type == "cpu":
         return _ozaki_matmul_plain(W, d, s=s, n_slices=n_slices, cut=cut)
+    OZAKI_MATMUL_LAUNCHES += bool(d.shape[0] and W.e.shape[0])
     return _ozaki_product_bl_cuda(W, d.to(torch.float64), s, n_slices, cut)
 
 

@@ -20,11 +20,18 @@ and the loop counter on the device:
   is read out after the last.  The first block of a new key runs eagerly
   on a side stream (the warm-up of PyTorch's capture recipe: it loads the
   kernel library and sets the kernels' attributes before any capture),
-  and the graph is captured right after it.  Graphs are kept in a bounded
-  cache across calls, keyed by the caller's key, the block length and the
-  shapes, dtypes and strides of every tensor, and share one memory pool
-  (no two replay at once).  A capture or replay that fails raises; there
-  is no fallback to an eager loop.
+  and the graph is captured right after it.  A capture or replay that
+  fails raises; there is no fallback to an eager loop.
+* Graphs are kept in a bounded cache across calls (``GRAPH_CACHE_SIZE``,
+  least recently used dropped first), keyed by the caller's key, the
+  block length and the shapes, dtypes and strides of every tensor, and
+  share one memory pool.  No two replay at once, so the graphs over one
+  state spec share one set of static state buffers, and those over one
+  data spec one set of static data buffers: a call holds one copy of its
+  problem on the card besides its own, whatever number of phases it
+  runs, and keeps it while a graph over it is cached.  The data is copied
+  in only when it is not the very tensors, unmodified, copied last; the
+  caller's tensors are held by weak reference, never kept alive.
 * On the CPU the same block runs eagerly, line for line the code that the
   card captures.
 
@@ -35,22 +42,28 @@ changed between calls: code that swaps a kernel wrapper for a run calls
 :func:`_clear_graphs` before and after it.
 
 The launch counters (``*_LAUNCHES`` of :mod:`pycllp_tpu_torch.ops.batchlast`
-and :mod:`pycllp_tpu_torch.ops.df64`, and any in :data:`EXTRA_COUNTERS`)
-are added to by Python at the call that issues a launch, so at capture
-only: the capture's increments are taken back, and every replay adds
-them again, so a counter counts the launches that ran.
+and :mod:`pycllp_tpu_torch.ops.df64`) are added to by Python at the call
+that issues a launch, so at capture only: the capture's increments are
+taken back, and every replay adds them again, so a counter counts the
+launches that ran.
 """
 
 from __future__ import annotations
 
 import collections
+import weakref
 
 import torch
 
-# gated iterations a block: chosen on the card from {2, 3, 4, 6} by the main
-# cell's wall and its gated-off share (PERF.md §6); the narrow cap of
-# 12 and tier 1's budget of 3 are whole blocks
+# gated iterations a block where the lanes share A: chosen on the card from
+# {2, 3, 4, 6} by the main cell's wall and its gated-off share (PERF.md §6);
+# the narrow cap of 12 and tier 1's budget of 3 are whole blocks
 BLOCK = 3
+# ... and where each lane has its own A: one, a predicate read an iteration
+# as on the host loop and nothing gated off.  Such a batch keeps the card
+# busy, so a gated-off iteration costs what a running one does (netlib's
+# padded batch, PERF.md §6)
+BLOCK_PER_INSTANCE = 1
 # captured graphs kept across calls (least recently used dropped first)
 GRAPH_CACHE_SIZE = 32
 
@@ -63,11 +76,8 @@ HOST_SYNCS = 0
 GRAPH_CAPTURES = 0
 GRAPH_REPLAYS = 0
 
-# further (namespace, attribute) launch counters that replays add to, for
-# counters kept outside the kernel modules
-EXTRA_COUNTERS: list = []
-
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_STATIC: dict = {}
 _POOLS: dict = {}
 _SIDE_STREAMS: dict = {}
 
@@ -106,7 +116,7 @@ def _counters() -> list:
     from pycllp_tpu_torch.ops import batchlast, df64
 
     return [(mod, name) for mod in (batchlast, df64) for name in vars(mod)
-            if name.endswith("_LAUNCHES")] + list(EXTRA_COUNTERS)
+            if name.endswith("_LAUNCHES")]
 
 
 def _gated(cond, body, s, limit, steps):
@@ -129,22 +139,54 @@ def _flag(more, steps):
     return torch.stack((more.to(torch.int32), steps))
 
 
+class _Static:
+    """Static buffers for the trees of one spec, shared by the graphs over
+    it (they replay one at a time, each after loading its own inputs)."""
+
+    def __init__(self, tree):
+        self.tree = _map(torch.empty_like, tree)
+        self.sources: list = []
+
+    def load(self, tree, *, always: bool) -> None:
+        """Copy ``tree`` in; unless ``always``, only where the buffers do not
+        hold the very tensors, unmodified, that were copied last."""
+        srcs = _flatten(tree)
+        if not always and len(srcs) == len(self.sources) and all(
+                ref() is t and t._version == v for (ref, v), t in zip(self.sources, srcs)):
+            return
+        for dst, src in zip(_flatten(self.tree), srcs):
+            dst.copy_(src)
+        self.sources = [] if always else [(weakref.ref(t), t._version) for t in srcs]
+
+
+def _static(kind: str, tree):
+    """The static buffers of ``tree``'s spec, made on first use: (key, buffers)."""
+    key = (kind, _spec(tree))
+    if key not in _STATIC:
+        _STATIC[key] = _Static(tree)
+    return key, _STATIC[key]
+
+
 class _Graph:
-    """One captured block over static buffers: the state, the data, the
-    budget, the count of iterations that ran and the flag the host reads."""
+    """One captured block over static buffers: the state and the data (each
+    shared with the other graphs of its spec), the budget, the count of
+    iterations that ran and the flag the host reads."""
 
     def __init__(self, cond, make_body, state, data, limit, block: int):
         self.cond, self.block = cond, block
-        self.state = _map(torch.clone, state)
-        self.data = _map(torch.clone, data)
+        self.state_key, self._state = _static("state", state)
+        self.data_key, self._data = _static("data", data)
         self.limit = limit.clone()
-        self.sources = [(t, t._version) for t in _flatten(data)]
-        self.body = make_body(self.data)
+        self.body = make_body(self._data.tree)
         dev = limit.device
         self.steps = torch.zeros((), dtype=torch.int32, device=dev)
         self.flag = torch.zeros(2, dtype=torch.int32, device=dev)
         self.graph = None
         self.deltas: list = []
+
+    @property
+    def state(self):
+        return self._state.tree
 
     def run_block(self) -> None:
         """The block on the static buffers, written back into them: what
@@ -158,15 +200,8 @@ class _Graph:
         self.flag.copy_(_flag(more, steps))
 
     def load(self, state, data, limit) -> None:
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-        # the data (problem and kernel context) is copied only when it is
-        # not the very tensors, unmodified, that were copied last
-        sources = [(t, t._version) for t in _flatten(data)]
-        if any(a is not b or va != vb for (a, va), (b, vb) in zip(sources, self.sources)):
-            for dst, src in zip(_flatten(self.data), _flatten(data)):
-                dst.copy_(src)
-            self.sources = sources
+        self._state.load(state, always=True)
+        self._data.load(data, always=False)
         self.limit.copy_(limit)
         self.steps.zero_()
 
@@ -226,7 +261,17 @@ def _clear_graphs() -> None:
     pool whose graphs are all gone takes no new capture: the next capture
     gets a new one)."""
     _GRAPHS.clear()
+    _STATIC.clear()
     _POOLS.clear()
+
+
+def _evict() -> None:
+    """Keep ``GRAPH_CACHE_SIZE`` graphs, and the static buffers they use."""
+    while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    live = {k for g in _GRAPHS.values() for k in (g.state_key, g.data_key)}
+    for key in [k for k in _STATIC if k not in live]:
+        del _STATIC[key]
 
 
 def _eager(cond, body, state, limit, block: int):
@@ -246,12 +291,12 @@ def _replayed(cond, make_body, state, data, limit, block: int, key):
     blocks = 0
     if entry is None:
         entry = _Graph(cond, make_body, state, data, limit, block)
+        entry.load(state, data, limit)
         entry.warm_up()
         blocks = 1
         entry.capture()
         _GRAPHS[full_key] = entry
-        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
-            _GRAPHS.popitem(last=False)
+        _evict()
         more, steps = entry.flag.tolist()
     else:
         _GRAPHS.move_to_end(full_key)
@@ -264,20 +309,18 @@ def _replayed(cond, make_body, state, data, limit, block: int, key):
     return type(state)(*[t.clone() for t in entry.state]), steps, blocks
 
 
-def _device_while(cond, make_body, state, data, limit, *, block: int | None = None, key=()):
+def _device_while(cond, make_body, state, data, limit, block: int, key=()):
     """``lax.while_loop(cond, body, state)`` in blocks of gated iterations.
 
     ``state`` is a flat named tuple of tensors; ``cond(state, limit)`` gives
     a 0-d bool tensor and ``make_body(data)`` the loop body, built over
     ``data`` (a tree of tensors: on the card, its static copy); ``limit``
-    is a 0-d tensor the predicate reads (the budget).  ``key`` names the
-    body for the graph cache: everything, besides the shapes, that decides
-    the kernels it launches.  Returns ``(state, iterations run)``.
+    is a 0-d tensor the predicate reads (the budget), and ``block`` the
+    gated iterations a block.  ``key`` names the body for the graph cache:
+    everything, besides the shapes, that decides the kernels it launches.
+    Returns ``(state, iterations run)``.
     """
     global GATED_OFF_STEPS, HOST_SYNCS
-    block = BLOCK if block is None else int(block)
-    if block < 1:
-        raise ValueError(f"a block holds at least one iteration, got {block}")
     if limit.device.type == "cuda":
         state, steps, blocks = _replayed(cond, make_body, state, data, limit, block, key)
     else:

@@ -13,8 +13,9 @@ What differs from the reference, and why:
   (:func:`pycllp_tpu_torch.solvers._loop._device_while`): the predicate
   ``(k < maxiter) & any(status == RUNNING)`` is computed on the device,
   an iteration whose predicate is false keeps the state's bits, and the
-  host reads the predicate once a block; on the card each block is a
-  replayed CUDA graph.  The loop counter ``k`` is a 0-d int32 tensor on
+  host reads the predicate once a block (``_loop.BLOCK`` iterations where
+  the lanes share A, ``_loop.BLOCK_PER_INSTANCE`` where each has its
+  own); on the card each block is a replayed CUDA graph.  The loop counter ``k`` is a 0-d int32 tensor on
   the state's device, as in the reference's carry, and a budget may be
   an int or such a tensor.  Two routes keep a host loop that reads the
   predicate every iteration: ``log_every`` (its records are read back
@@ -361,7 +362,9 @@ def _run_phase(
     ``maxiter`` is an int or a 0-d int tensor (a budget such as
     ``k + finish_cap``).  The reference's ``lax.while_loop`` runs as
     blocks of gated iterations (:func:`_loop._device_while`; on the card,
-    replayed CUDA graphs) whose predicate stays on the device.  With
+    replayed CUDA graphs) whose predicate stays on the device: blocks of
+    ``_loop.BLOCK`` on shared A, of ``_loop.BLOCK_PER_INSTANCE`` on
+    per-instance A.  With
     ``opts.log_every`` or a collective ``reduce_any`` (neither None nor
     ``torch.any``) it is a host loop that reads the predicate every
     iteration: ``k < maxiter`` is tested first, so ``reduce_any`` runs on
@@ -394,8 +397,11 @@ def _run_phase(
         return s
     if not isinstance(maxiter, torch.Tensor):
         maxiter = torch.full((), maxiter, dtype=torch.int32, device=state.k.device)
+    # a gated-off iteration costs little where the lanes share A (the host
+    # paces the card) and a running one's where each lane has its own
+    block = _loop.BLOCK if ctx.A.dim() == 2 else _loop.BLOCK_PER_INSTANCE
     s, steps = _loop._device_while(
-        _phase_cond, make_body, state, (ctx, b, c), maxiter,
+        _phase_cond, make_body, state, (ctx, b, c), maxiter, block,
         key=("hsd._run_phase", opts, kset, dtype, tol),
     )
     HOST_STEPS += steps

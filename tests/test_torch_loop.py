@@ -15,10 +15,18 @@
   (``lax.while_loop``), int and traced budgets: statuses, iterations and
   ``k`` equal, iterates to 1e-10 mid-trajectory;
 * the two routes that keep the host loop, ``log_every`` and a collective
-  ``reduce_any``: one predicate read an iteration.
+  ``reduce_any``: one predicate read an iteration;
+* the block length by A's layout: per-instance A runs blocks of
+  ``BLOCK_PER_INSTANCE`` whatever ``BLOCK`` is, bitwise the host loop;
+* the graphs' static buffers: one set a spec, shared by the graphs over
+  it and dropped with the last of them, the data copied in only when it
+  changed, the caller's tensors never kept alive.
 """
 
+import collections
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -47,9 +55,12 @@ NARROW = SolverOptions(dtype="float32", tol=1e-6, maxiter=40, stall_patience=3, 
 F64 = SolverOptions(tol=1e-8, init_point="mehrotra", kkt_refine=1)
 
 
-def _narrow_problem():
-    """f32 data on the batch-last set; lane 5's b holds a NaN (→ NUMERICAL)."""
+def _narrow_problem(per_instance=False):
+    """f32 data on the batch-last set; lane 5's b holds a NaN (→ NUMERICAL).
+    ``per_instance``: A as (B, m, n), a copy a lane."""
     A, b, c = random_equality_lp(8, 20, nlp=24, seed=3)
+    if per_instance:
+        A = np.ascontiguousarray(np.broadcast_to(A, (b.shape[0],) + A.shape))
     A, b, c = (torch.from_numpy(v.astype(np.float32)) for v in (A, b, c))
     b[5, 2] = float("nan")
     ctx = BATCHLAST_KERNELS.prepare(A)
@@ -88,9 +99,9 @@ def _assert_bitwise(out, ref):
         assert _bits(a) == _bits(r), f"{name} differs"
 
 
-def _case(name):
+def _case(name, per_instance=False):
     """(args of _run_phase or _run_narrow_phase, narrow?) of a named case."""
-    ctx, b, c, state = _narrow_problem()
+    ctx, b, c, state = _narrow_problem(per_instance)
     ks, dt = BATCHLAST_KERNELS, torch.float32
     if name == "narrow":  # to the end: OPTIMAL, STALLED and NUMERICAL lanes
         return (ctx, b, c, state, NARROW, ks, dt, NARROW.tol, 40), False
@@ -243,5 +254,74 @@ def test_loop_helpers_map_trees():
     assert type(clone[0]) is type(ctx) and clone[0].Wp is None and clone[2] is None
     assert _loop._spec(clone) == _loop._spec(tree)
     assert _loop._spec((torch.zeros(4, 2).T,)) != _loop._spec((torch.zeros(2, 4),))
-    with pytest.raises(ValueError, match="at least one iteration"):
-        _loop._device_while(port_hsd._phase_cond, None, None, (), torch.zeros(()), block=0)
+
+
+@pytest.mark.parametrize("per_instance", [1, 3])
+@pytest.mark.parametrize("case", ["narrow", "ragged"])
+def test_per_instance_a_runs_its_own_block(monkeypatch, case, per_instance):
+    """On per-instance A the block is ``BLOCK_PER_INSTANCE`` (here 1 or 3),
+    not ``BLOCK`` (here 4): one read a block of it, bitwise the host loop."""
+    args, _ = _case(case, per_instance=True)
+    assert args[0].A.dim() == 3
+    ref, ref_counts = _phase(monkeypatch, None, *args)
+    monkeypatch.setattr(_loop, "BLOCK_PER_INSTANCE", per_instance)
+    out, counts = _phase(monkeypatch, 4, *args)
+    _assert_bitwise(out, ref)
+    n = int(out.k)
+    assert counts["steps"] == ref_counts["steps"] == n > 0
+    assert counts["syncs"] == -(-n // per_instance)
+    assert counts["gated_off"] == counts["syncs"] * per_instance - n
+    if per_instance == 1:
+        assert counts["gated_off"] == 0
+
+
+def test_static_buffers_copy_what_changed_and_hold_no_tensor():
+    """The data is copied in when the tensors differ or were modified since
+    the last copy, skipped otherwise; the state (``always``) every time;
+    the buffers keep no caller's tensor alive."""
+    a, v = torch.arange(6.0).reshape(2, 3), torch.ones(4)
+    st = _loop._Static((a, v))
+    buf_a, buf_v = st.tree
+    assert buf_a.data_ptr() != a.data_ptr() and buf_a.stride() == a.stride()
+    st.load((a, v), always=False)
+    assert torch.equal(buf_a, a) and torch.equal(buf_v, v)
+    buf_v.fill_(-1.0)  # a marker: a skipped load leaves it
+    st.load((a, v), always=False)
+    assert (buf_v == -1.0).all()
+    v.add_(1.0)  # modified in place: copied again
+    st.load((a, v), always=False)
+    assert torch.equal(buf_v, v)
+    st.load((a, v.clone()), always=False)  # another tensor, the same values
+    buf_v.fill_(-1.0)
+    st.load((a, v), always=True)
+    assert torch.equal(buf_v, v)
+    ref = weakref.ref(a)
+    del a
+    gc.collect()
+    assert ref() is None
+
+
+def test_graphs_share_static_buffers_by_spec(monkeypatch):
+    """Graphs over one state spec share its buffers, and over one data spec
+    the data's, whatever their keys; evicting the last graph over a spec
+    drops its buffers."""
+    monkeypatch.setattr(_loop, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(_loop, "_STATIC", {})
+    monkeypatch.setattr(_loop, "GRAPH_CACHE_SIZE", 2)
+    ctx, b, c, state = _narrow_problem()
+    limit = torch.full((), 5, dtype=torch.int32)
+
+    def graph(key, st, data):
+        g = _loop._Graph(port_hsd._phase_cond, lambda d: None, st, data, limit, 2)
+        _loop._GRAPHS[key] = g
+        _loop._evict()
+        return g
+
+    g1 = graph("a", state, (ctx, b, c))
+    g2 = graph("b", state, (ctx, b, c))
+    assert g1._state is g2._state and g1._data is g2._data and len(_loop._STATIC) == 2
+    g3 = graph("c", state, (ctx, b[:12], c[:12]))  # new data spec; evicts "a"
+    assert g3._state is g1._state and g3._data is not g1._data and len(_loop._STATIC) == 3
+    graph("d", state._replace(k=state.k[None]), (ctx, b[:12], c[:12]))  # evicts "b"
+    assert list(_loop._GRAPHS) == ["c", "d"] and len(_loop._STATIC) == 3
+    assert g1.data_key not in _loop._STATIC
