@@ -41,10 +41,13 @@ PyTorch version on the card, and drives the port's paths:
    counts held to the launch counters): on the kernel route with the IPM
    loops as replayed graphs and as the per-iteration host loop, and with
    every Ozaki product on the split route, each bitwise equal in statuses
-   and objectives to the main path; then the device-resident loop
-   (``device_loop``): the graph route against the host loop, bitwise, on
-   the main cell, the fused sets and netlib's padded batch, in turns, and
-   the block lengths 2, 3, 4 and 6; then the Ozaki widths set for a solve
+   and objectives to the main path; then the device-resident loop and the
+   stage graphs (``device_loop``): three routes (the scan stages'
+   straight-line segments and the IPM loops' blocks as replayed graphs;
+   the loops' graphs with eager segments; the per-iteration host loop),
+   bitwise, on the main cell, the fused sets and netlib's padded batch, in
+   turns, with each stage's span split by what kept the card busy or idle
+   (``stage_split``), and the block lengths 3 and 4; then the Ozaki widths set for a solve
    (``ozaki_widths``): the default widths given explicitly change no bit of
    the df64 probe or the main cell, the df64 probe at 56 bits runs to its
    end (its status mix and worst rho_p beside the 66-bit run's),
@@ -58,8 +61,9 @@ PyTorch version on the card, and drives the port's paths:
    ``BENCH_TOTAL=1000000``) over 1,000,000 scenarios on the fused-form
    set, run in a child process killed with SIGKILL after 8 windows, left
    with half a window and a stale temporary file on disk, resumed here,
-   and compared with an uninterrupted sweep, whose first window is solved
-   again on the per-iteration host loop (bitwise equal); the wide audit,
+   and compared with an uninterrupted sweep, which captures no graph after
+   its first window, and whose first window is solved again on the three
+   routes (bitwise equal); the wide audit,
    and the
    off-grid audit (every non-OPTIMAL lane and a seeded random sample of
    60,000 lanes off the grid), to the 1e-6 contract but for the lanes
@@ -97,8 +101,8 @@ PyTorch version on the card, and drives the port's paths:
     row-sharded factor, the registry's ``schur`` solver on a problem with
     an odd column count, each audited against HiGHS, and the row-sharded
     FP64 Cholesky against ``torch.linalg.cholesky``;
-18. last, a loop body that reads a value back to the host inside its
-    block: its capture must raise.
+18. last, a straight-line segment (in a process of its own) and a loop
+    body that read a value back to the host: each capture must raise.
 
 Ranks are processes started with the spawn method (``multiprocessing``)
 that meet through a ``file://`` store under ``build/``; each writes its
@@ -466,6 +470,7 @@ def zero_counts() -> None:
     df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
     _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
+    _loop.STAGE_READS = _loop.SEGMENT_CALLS = 0
 
 
 def read_counts() -> dict:
@@ -476,6 +481,7 @@ def read_counts() -> dict:
             "ozaki_products": df64.OZAKI_MATMUL_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
             "gated_off": _loop.GATED_OFF_STEPS, "host_syncs": _loop.HOST_SYNCS,
             "graph_captures": _loop.GRAPH_CAPTURES, "graph_replays": _loop.GRAPH_REPLAYS,
+            "stage_reads": _loop.STAGE_READS, "segment_calls": _loop.SEGMENT_CALLS,
             "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
             "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
             "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
@@ -1757,10 +1763,13 @@ def _scan_path(smi: str, kset, label: str, reps: tuple, ref_status=None, m: int 
 
     for rep in reps:
         torch.cuda.synchronize()
+        zero_counts()
         t0 = time.perf_counter()
         out2 = hsd_mod.hsd_solve_scan(A, b, c, opts, kset, device="cuda", **SCAN_KW)
         status2 = out2["status"].cpu().numpy()
         wall = time.perf_counter() - t0
+        check(_loop.GRAPH_CAPTURES == 0, f"{label}: the {rep} solve captured "
+              f"{_loop.GRAPH_CAPTURES} graphs")
         vs = "" if ref_status is None else (
             f"; status agreement with the default set's main path "
             f"{(status2 == ref_status).mean():.4%}")
@@ -1798,8 +1807,8 @@ def _kernel_group(name: str) -> str:
 def _profiled_solve(route: str, A, b, c, opts, loop: str = "graph") -> tuple:
     """One main-cell solve under torch.profiler (stage_sync, the finish
     marked), on the kernel route or, ``route="split"``, with every Ozaki
-    product on the split route, its IPM loops on ``loop`` (the graph route
-    or the per-iteration host loop).  Returns (profiler, output, launch
+    product on the split route, on the route ``loop`` of ``loop_route``
+    (graph, loops or host).  Returns (profiler, output, launch
     counts, the Ozaki products' (rows, n, B, levels) and the slicing
     launches' (r, B, n_slices), each in launch order: on the host loop,
     one entry a launch)."""
@@ -1837,17 +1846,26 @@ def _profiled_solve(route: str, A, b, c, opts, loop: str = "graph") -> tuple:
     return prof, out, read_counts(), list(_PRODUCT_SHAPES["shapes"]), slice_shapes
 
 
+# the host ranges the profiled solves mark (record_function), mirrored on the
+# device timeline: the finish, the predicate reads and the graph replays
+ANNOTATIONS = ("finish stage", "predicate read", "loop replay", "segment replay")
+
+
+def _device_kernels(events) -> list:
+    """The device kernels of a trace, by start: copies and fills run on the
+    copy engines, not the SMs, and the host's annotations are mirrored on
+    the device timeline."""
+    return sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset")) and e.name not in ANNOTATIONS),
+                  key=lambda e: e.time_range.start)
+
+
 def _stages(prof, smi: str, label: str) -> tuple[dict, list]:
     """Device time by kernel, launches and busy share of the narrow stage
     and of the finish; returns (stages, the kernel events in time order)."""
     events = prof.events()
     finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    # kernels only: copies and fills run on the copy engines, not the SMs,
-    # and the stage's own annotation is mirrored on the device timeline
-    kernels = sorted((e for e in device
-                      if not e.name.startswith(("Memcpy", "Memset")) and e.name != "finish stage"),
-                     key=lambda e: e.time_range.start)
+    kernels = _device_kernels(events)
     check(len(kernels) > 0, "the profiler saw no device kernel")
     stages = {}
     for stage, sel in (("narrow", lambda e: e.time_range.start < finish_at),
@@ -1877,6 +1895,124 @@ def _stages(prof, smi: str, label: str) -> tuple[dict, list]:
                 f"{k} {v[0]:.1f} ms/{v[1]}" for k, v in top[:9]) + f"; 'other' is e.g. {others}"
             f" on {smi}")
     return stages, kernels
+
+
+# the runtime calls that launch device kernels: one graph launch, or one kernel
+GRAPH_LAUNCH = "cudaGraphLaunch"
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+# the host and device clocks of a trace agree to within microseconds: a kernel
+# that starts this long before the call of its correlation id was not launched
+# by it
+CLOCK_SKEW_US = 1000.0
+
+
+def _intervals(events, name: str) -> list:
+    """The host ranges of the record_function ``name``, by start."""
+    return sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.name == name and e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def _overlap(lo: float, hi: float, ranges: list) -> float:
+    """The length of [lo, hi] that the (sorted, disjoint) ``ranges`` cover."""
+    return sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in ranges if a < hi and b > lo)
+
+
+def _enclosing(t: float, ranges: list, names: list) -> str | None:
+    for (a, b), name in zip(ranges, names):
+        if a <= t <= b:
+            return name
+    return None
+
+
+def _span_split(prof, smi: str, label: str) -> dict:
+    """Each stage's span on the device (first kernel's start to last
+    kernel's end) split into busy time by what launched the kernel (an
+    eager launch, a replay of a stage segment's graph, a replay of an IPM
+    loop block's graph) and idle time by where the gap lies: between two
+    kernels of one graph replay (its nodes' gaps), under a predicate read
+    of the host (``_loop._host_read``), or elsewhere (the host dispatching
+    eager launches and graph replays).  A kernel is matched to its launch
+    by the profiler's correlation id; a graph launch to the replay range
+    (``_loop._replay``'s record_function) that encloses it."""
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
+    reads = _intervals(events, "predicate read")
+    rep = sorted([(r, "segment") for r in _intervals(events, "segment replay")]
+                 + [(r, "loop") for r in _intervals(events, "loop replay")])
+    rep_ranges, rep_names = [r for r, _ in rep], [n for _, n in rep]
+    launch = {}  # correlation id -> (what launched it, the call's host start)
+    graph_calls = {}  # correlation id of a graph launch -> (its host start, its host duration)
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        if e.name == GRAPH_LAUNCH:
+            launch[e.id] = (_enclosing(e.time_range.start, rep_ranges, rep_names) or "graph",
+                            e.time_range.start)
+            graph_calls[e.id] = (e.time_range.start, e.time_range.end - e.time_range.start)
+        elif e.name in KERNEL_LAUNCHES:
+            launch[e.id] = ("eager", e.time_range.start)
+    kernels = _device_kernels(events)
+    out = {}
+    for stage, sel in (("narrow", lambda e: e.time_range.start < finish_at),
+                       ("finish", lambda e: e.time_range.start >= finish_at)):
+        ks = [e for e in kernels if sel(e)]
+        busy = {"eager": 0.0, "segment": 0.0, "loop": 0.0, "graph": 0.0, "unmatched": 0.0}
+        idle = {"in_graph": 0.0, "read": 0.0, "dispatch": 0.0}
+        # the dispatch gaps by the launcher of the kernel that ends them
+        before = dict.fromkeys(busy, 0.0)
+        n = dict.fromkeys(busy, 0)
+        # per graph launch: the host's time in the call, and from the call's
+        # start to the graph's first kernel
+        first = {}
+        reach, last = float("-inf"), None
+        for e in ks:
+            start, end = e.time_range.start, e.time_range.end
+            kind, called = launch.get(e.id, ("unmatched", start))
+            if called > start + CLOCK_SKEW_US:  # a kernel starts after its launch: not its call
+                kind = "unmatched"
+            if kind not in ("eager", "unmatched") and e.id not in first:
+                first[e.id] = (kind, start - graph_calls[e.id][0], graph_calls[e.id][1])
+            if last is not None and start > reach:
+                gap = start - reach
+                if kind not in ("eager", "unmatched") and e.id == last.id:
+                    idle["in_graph"] += gap
+                else:
+                    r = _overlap(reach, start, reads)
+                    idle["read"] += r
+                    idle["dispatch"] += gap - r
+                    before[kind] += gap - r
+            busy[kind] += max(0.0, end - max(start, reach))
+            n[kind] += 1
+            reach, last = max(reach, end), e
+        launches = {}
+        for kind, delay, call in first.values():
+            g = launches.setdefault(kind, [0, 0.0, 0.0])
+            g[0] += 1
+            g[1] += call / 1e3
+            g[2] += delay / 1e3
+        span = (reach - ks[0].time_range.start) / 1e3
+        row = {"span_ms": span, "busy_ms": {k: v / 1e3 for k, v in busy.items()},
+               "idle_ms": {k: v / 1e3 for k, v in idle.items()}, "kernels": n,
+               "dispatch_before_ms": {k: v / 1e3 for k, v in before.items() if v},
+               "graph_launches": {k: {"n": v[0], "call_ms": v[1], "to_first_kernel_ms": v[2]}
+                                  for k, v in launches.items()},
+               "reads": sum(1 for a, _ in reads if (a >= finish_at) == (stage == "finish")),
+               "read_host_ms": sum(b - a for a, b in reads
+                                   if (a >= finish_at) == (stage == "finish")) / 1e3}
+        out[stage] = row
+        say("stage_split", f"{label} {stage}: span {span:.1f} ms = busy "
+            + ", ".join(f"{k} {v:.1f}" for k, v in row["busy_ms"].items() if v)
+            + " + idle " + ", ".join(f"{k} {v:.1f}" for k, v in row["idle_ms"].items())
+            + f" ms; kernels " + ", ".join(f"{k} {v}" for k, v in n.items() if v)
+            + f"; {row['reads']} predicate reads, {row['read_host_ms']:.1f} ms of host time in "
+            f"them; dispatch gaps before " + ", ".join(
+                f"{k} {v:.1f}" for k, v in row["dispatch_before_ms"].items())
+            + " ms; graph launches " + ", ".join(
+                f"{k} {v['n']} ({v['call_ms']:.1f} ms in the call, {v['to_first_kernel_ms']:.1f} "
+                f"ms from the call to the first kernel)" for k, v in row["graph_launches"].items())
+            + f" on {smi}")
+    return out
 
 
 def _by_shape(kernels, group: str, shapes: list, bound_of) -> list:
@@ -1924,8 +2060,8 @@ def phase_profile(smi: str, main_run: dict) -> dict:
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     stages = {}
-    for name, route, loop in (("kernel", "kernel", "graph"), ("kernel_host", "kernel", "host"),
-                              ("split", "split", "host")):
+    for name, route, loop in (("kernel", "kernel", "graph"), ("kernel_loops", "kernel", "loops"),
+                              ("kernel_host", "kernel", "host"), ("split", "split", "host")):
         prof, out, counts, products, slices = _profiled_solve(route, A, b, c, opts, loop)
         status = out["status"].cpu().numpy()
         obj = -out["objective"].cpu().numpy()
@@ -1948,6 +2084,8 @@ def phase_profile(smi: str, main_run: dict) -> dict:
                   and counts["ozaki_product_bl"] == 0, f"split route: launches {counts}")
         st, kernels = _stages(prof, smi, f"{route} route, {loop} loop,")
         st["counts"] = counts
+        if route == "kernel":
+            st["split"] = _span_split(prof, smi, f"{loop} route")
         # the profiler's kernels by name against the launch counters (on the
         # graph route: the capture's counts times the replays)
         for kname, group in PROFILE_NAMES.items():
@@ -1986,11 +2124,12 @@ def phase_profile(smi: str, main_run: dict) -> dict:
             st["slice_rounds_by_shape"] = rows
         stages[name] = st
     for stage in ("narrow", "finish"):
-        gr, ho = stages["kernel"][stage], stages["kernel_host"][stage]
-        say("profile", f"the {stage} stage, host loop -> graph route: launches {ho['launches']} "
-            f"-> {gr['launches']}, device busy {ho['device_ms']:.1f} -> {gr['device_ms']:.1f} ms, "
-            f"span {ho['span_ms']:.1f} -> {gr['span_ms']:.1f} ms, idle {ho['idle']:.1%} -> "
-            f"{gr['idle']:.1%} on {smi}")
+        gr, lo, ho = (stages[k][stage] for k in ("kernel", "kernel_loops", "kernel_host"))
+        say("profile", f"the {stage} stage, host loop -> loops route -> graph route: launches "
+            f"{ho['launches']} -> {lo['launches']} -> {gr['launches']}, device busy "
+            f"{ho['device_ms']:.1f} -> {lo['device_ms']:.1f} -> {gr['device_ms']:.1f} ms, span "
+            f"{ho['span_ms']:.1f} -> {lo['span_ms']:.1f} -> {gr['span_ms']:.1f} ms, idle "
+            f"{ho['idle']:.1%} -> {lo['idle']:.1%} -> {gr['idle']:.1%} on {smi}")
     k_fin, s_fin = stages["kernel_host"]["finish"], stages["split"]["finish"]
     say("profile", f"the finish on the host loop, split route -> kernel route: launches {s_fin['launches']} -> "
         f"{k_fin['launches']}, device busy {s_fin['device_ms']:.1f} -> {k_fin['device_ms']:.1f} "
@@ -2004,6 +2143,9 @@ def phase_profile(smi: str, main_run: dict) -> dict:
 # the device-resident IPM loop: gated blocks replayed as CUDA graphs
 # ---------------------------------------------------------------------------
 
+# the IPM loops' predicate reads of a main-cell solve on the loops' graphs
+# with eager segments (PERF.md §5): no straight-line segment may add one
+LOOP_MAIN_READS = 44
 # the block lengths measured on the main cell: the shipped _loop.BLOCK and
 # the runner-up of the choice among 2, 3, 4 and 6 (PERF.md §6)
 LOOP_BLOCKS = (3, 4)
@@ -2012,29 +2154,36 @@ LOOP_KEYS = ("x", "objective", "status", "iterations")
 
 @contextlib.contextmanager
 def loop_route(route: str, block: int | None = None, per_instance: int | None = None):
-    """Run the solves inside on the graph route ("graph", the default, at
-    ``block`` iterations a block on shared A and ``per_instance`` on
-    per-instance A) or on the per-iteration host loop ("host", the private
-    ``hsd._HOST_LOOP``)."""
-    saved = hsd_mod._HOST_LOOP, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE
+    """Run the solves inside on one of three routes: "graph" (the default:
+    the IPM loops as gated blocks replayed as graphs, at ``block``
+    iterations a block on shared A and ``per_instance`` on per-instance A,
+    and the scan stages' straight-line segments replayed as graphs),
+    "loops" (the loops' graphs, the segments eager: the private
+    ``hsd._EAGER_SEGMENTS``) or "host" (the per-iteration host loop and
+    eager segments: ``hsd._HOST_LOOP``)."""
+    saved = hsd_mod._HOST_LOOP, hsd_mod._EAGER_SEGMENTS, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE
     hsd_mod._HOST_LOOP = route == "host"
-    _loop.BLOCK = block or saved[1]
-    _loop.BLOCK_PER_INSTANCE = per_instance or saved[2]
+    hsd_mod._EAGER_SEGMENTS = route == "loops"
+    _loop.BLOCK = block or saved[2]
+    _loop.BLOCK_PER_INSTANCE = per_instance or saved[3]
     try:
         yield
     finally:
-        hsd_mod._HOST_LOOP, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE = saved
+        hsd_mod._HOST_LOOP, hsd_mod._EAGER_SEGMENTS, _loop.BLOCK, _loop.BLOCK_PER_INSTANCE = saved
 
 
 def _loop_solve(solve, route: str, block: int | None = None,
-                per_instance: int | None = None) -> dict:
+                per_instance: int | None = None, empty: bool = True) -> dict:
     """One solve on ``route``, ended by the pull of its statuses: its
     outputs (on the host), wall, peak device memory (allocated, and
     reserved from an emptied cache: the captured graphs' pool and static
     buffers included) and counts (the whole solve's, and at the narrow
-    stage's end where the solve is a scan)."""
+    stage's end where the solve is a scan).  ``empty=False`` keeps the
+    allocator's cache (a wall without its cudaMalloc calls; reserved then
+    includes what earlier solves left cached)."""
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    if empty:
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     err = io.StringIO()
@@ -2057,62 +2206,81 @@ def _same_outputs(a: dict, b: dict) -> bool:
     return all(_same_bits(a[k], b[k]) for k in LOOP_KEYS)
 
 
+ROUTES = ("host", "loops", "graph")
+
+
 def _loop_cell(smi: str, label: str, solve, block: int | None = None) -> dict:
-    """One cell on both routes: a first solve each (the host loop's with
-    no graph cached, so its memory is the host route's alone; then the
-    graph route's, which captures its graphs), then host, graph, graph,
-    host in turns.  Every solve's statuses, objectives, iterations and x
-    must equal the first host-loop solve's bit for bit.  ``block``: the
-    block length the cell runs at, for the report."""
+    """One cell on the three routes (``loop_route``): a first solve each
+    (the host loop's with no graph cached, so its memory is the host
+    route's alone; then the loops route's, which captures the loops'
+    graphs; then the graph route's, which captures its segments), then
+    host, loops, graph, graph, loops, host in turns.  Every solve's
+    statuses, objectives, iterations and x must equal the first host-loop
+    solve's bit for bit.  ``block``: the block length the cell runs at,
+    for the report."""
     _loop._clear_graphs()
-    runs = [("host", _loop_solve(solve, "host")), ("graph", _loop_solve(solve, "graph"))]
-    runs += [(r, _loop_solve(solve, r)) for r in ("host", "graph", "graph", "host")]
+    runs = [(r, _loop_solve(solve, r)) for r in ROUTES]
+    runs += [(r, _loop_solve(solve, r, empty=False)) for r in ROUTES + ROUTES[::-1]]
+    # peak memory with every route's graphs cached, each from an emptied cache
+    mem = {r: _loop_solve(solve, r) for r in ROUTES}
     ref = runs[0][1]["out"]
-    same = all(_same_outputs(run["out"], ref) for _, run in runs)
-    first_g, first_h = runs[1][1], runs[0][1]
-    g = [run for r, run in runs[2:] if r == "graph"]
-    h = [run for r, run in runs[2:] if r == "host"]
-    gc, hc = g[-1]["counts"], h[-1]["counts"]
+    same = all(_same_outputs(run["out"], ref) for _, run in runs + list(mem.items()))
+    first = {r: run for r, run in runs[:3]}
+    by = {r: [run for rr, run in runs[3:] if rr == r] for r in ROUTES}
+    cnt = {r: by[r][-1]["counts"] for r in ROUTES}
+    gc, hc = cnt["graph"], cnt["host"]
     st = ref["status"]
-    say("device_loop", f"{label}: graph route bitwise equal to the host loop (statuses, "
-        f"objectives, iterations, x; {len(runs)} solves) {same}; status mix {status_mix(st)}")
-    say("device_loop", f"{label}: walls in turns host/graph/graph/host "
-        f"{h[0]['wall']:.3f}/{g[0]['wall']:.3f}/{g[1]['wall']:.3f}/{h[1]['wall']:.3f} s; first "
-        f"solves graph {first_g['wall']:.3f} s ({first_g['counts']['graph_captures']} captures), "
-        f"host {first_h['wall']:.3f} s; peak memory allocated graph {g[-1]['mem_gib']:.2f} GiB "
-        f"(first {first_g['mem_gib']:.2f}), host {h[-1]['mem_gib']:.2f} GiB; reserved graph "
-        f"{g[-1]['reserved_gib']:.2f} GiB (first {first_g['reserved_gib']:.2f}), host "
-        f"{h[-1]['reserved_gib']:.2f} GiB (first, no graph cached, {first_h['mem_gib']:.2f} "
-        f"allocated, {first_h['reserved_gib']:.2f} reserved) on {smi}")
-    if g[-1]["stages"]:
-        say("device_loop", f"{label}: stage seconds (stage_sync) narrow/finish: graph "
-            + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}" for x in g)
-            + "; host " + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}"
-                                    for x in h) + f" on {smi}")
-    say("device_loop", f"{label}: a solve on the graph route: {gc['graph_captures']} captures, "
-        f"{gc['graph_replays']} replays, {gc['host_syncs']} predicate reads, {gc['host_steps']} "
-        f"iterations, {gc['gated_off']} gated off (block {block or _loop.BLOCK}); on the host loop "
-        f"{hc['host_syncs']} predicate reads, {hc['host_steps']} iterations; narrow stage "
-        f"reads graph/host {g[-1]['narrow'].get('host_syncs')}/{h[-1]['narrow'].get('host_syncs')}")
-    check(same, f"device_loop {label}: the graph route differs from the host loop")
-    check(gc["host_steps"] == hc["host_steps"],
-          f"device_loop {label}: iterations {gc['host_steps']} on the graph route, "
-          f"{hc['host_steps']} on the host loop")
-    check(gc["graph_captures"] == 0 and gc["graph_replays"] > 0,
-          f"device_loop {label}: a cached solve captured {gc['graph_captures']} graphs and "
-          f"replayed {gc['graph_replays']} blocks")
-    check(first_g["counts"]["graph_captures"] > 0, f"device_loop {label}: nothing was captured")
+    say("device_loop", f"{label}: graph and loops routes bitwise equal to the host loop "
+        f"(statuses, objectives, iterations, x; {len(runs)} solves) {same}; status mix "
+        f"{status_mix(st)}")
+    say("device_loop", f"{label}: walls in turns host/loops/graph/graph/loops/host " + "/".join(
+        f"{run['wall']:.3f}" for _, run in runs[3:]) + " s (the allocator's cache kept); first "
+        "solves, from an emptied cache, " + ", ".join(
+            f"{r} {first[r]['wall']:.3f} s ({first[r]['counts']['graph_captures']} captures, "
+            f"{first[r]['mem_gib']:.2f} / {first[r]['reserved_gib']:.2f} GiB allocated / "
+            "reserved)" for r in ROUTES) + "; peak memory allocated / reserved from an emptied cache, "
+        "every route's graphs cached: " + ", ".join(
+            f"{r} {mem[r]['mem_gib']:.2f} / {mem[r]['reserved_gib']:.2f} GiB ({mem[r]['wall']:.3f} s)"
+            for r in ROUTES) + f" (host first, no graph cached, {first['host']['mem_gib']:.2f} / "
+        f"{first['host']['reserved_gib']:.2f}) on {smi}")
+    if by["graph"][-1]["stages"]:
+        say("device_loop", f"{label}: stage seconds (stage_sync) narrow/finish: " + "; ".join(
+            f"{r} " + ", ".join(f"{x['stages']['narrow']:.3f}/{x['stages']['finish']:.3f}"
+                                for x in by[r]) for r in ROUTES) + f" on {smi}")
+    say("device_loop", f"{label}: a solve: " + "; ".join(
+        f"{r} {cnt[r]['graph_captures']} captures, {cnt[r]['graph_replays']} replays, "
+        f"{cnt[r]['host_syncs']} loop predicate reads + {cnt[r]['stage_reads']} stage reads, "
+        f"{cnt[r]['segment_calls']} segments, {cnt[r]['host_steps']} iterations, "
+        f"{cnt[r]['gated_off']} gated off" for r in ROUTES)
+        + f" (block {block or _loop.BLOCK}); narrow stage loop reads " + "/".join(
+            str(by[r][-1]["narrow"].get("host_syncs")) for r in ROUTES)
+        + f"; {len(_loop._GRAPHS)} graphs cached")
+    check(same, f"device_loop {label}: the graph or loops route differs from the host loop")
+    for r in ("loops", "graph"):
+        check(cnt[r]["host_steps"] == hc["host_steps"],
+              f"device_loop {label}: iterations {cnt[r]['host_steps']} on the {r} route, "
+              f"{hc['host_steps']} on the host loop")
+        check(cnt[r]["graph_captures"] == 0 and cnt[r]["graph_replays"] > 0,
+              f"device_loop {label}: a cached solve on the {r} route captured "
+              f"{cnt[r]['graph_captures']} graphs and replayed {cnt[r]['graph_replays']}")
+        check(first[r]["counts"]["graph_captures"] > 0 or r == "graph" and not gc["segment_calls"],
+              f"device_loop {label}: nothing was captured on the {r} route")
+        check(cnt[r]["host_syncs"] + cnt[r]["stage_reads"]
+              <= cnt["loops"]["host_syncs"] + cnt["loops"]["stage_reads"],
+              f"device_loop {label}: the {r} route reads more predicates than the loops route")
     check(hc["graph_replays"] == hc["gated_off"] == 0, f"device_loop {label}: the host loop "
-          f"replayed {hc['graph_replays']} blocks")
-    check_smem_route(f"device_loop {label} (graph)", gc)
-    check_smem_route(f"device_loop {label} (host)", hc)
-    return {"same": same, "status": st, "walls": {"graph": [x["wall"] for x in g], "host": [x["wall"] for x in h],
-                                    "first_graph": first_g["wall"], "first_host": first_h["wall"]},
-            "mem_gib": {"graph": g[-1]["mem_gib"], "host": first_h["mem_gib"]},
-            "reserved_gib": {"graph": g[-1]["reserved_gib"], "host": first_h["reserved_gib"]},
-            "ref": ref,
-            "counts": {"graph": gc, "host": hc, "first_graph": first_g["counts"]},
-            "narrow": {"graph": g[-1]["narrow"], "host": h[-1]["narrow"]}}
+          f"replayed {hc['graph_replays']} graphs")
+    for r in ROUTES:
+        check_smem_route(f"device_loop {label} ({r})", cnt[r])
+    return {"same": same, "status": st, "ref": ref,
+            "walls": {r: [x["wall"] for x in by[r]] for r in ROUTES}
+            | {f"first_{r}": first[r]["wall"] for r in ROUTES},
+            "mem_gib": {r: mem[r]["mem_gib"] for r in ROUTES}
+            | {"host_first": first["host"]["mem_gib"]},
+            "reserved_gib": {r: mem[r]["reserved_gib"] for r in ROUTES}
+            | {"host_first": first["host"]["reserved_gib"]},
+            "counts": cnt | {f"first_{r}": first[r]["counts"] for r in ROUTES},
+            "narrow": {r: by[r][-1]["narrow"] for r in ROUTES}}
 
 
 def _capture_fault_raises(smi: str) -> None:
@@ -2137,6 +2305,38 @@ def _capture_fault_raises(smi: str) -> None:
     else:
         raise RuntimeError("check failed: a capture of a body that syncs did not raise")
     torch.cuda.synchronize()
+
+
+# a segment that reads a value back to the host, run in a process of its own
+# (a failed capture leaves its process's capture state behind)
+SEGMENT_FAULT = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from pycllp_tpu_torch.solvers import _loop
+
+def fn(state, data):
+    (x,) = state
+    return x + 1 if bool(x.sum() > 0) else x  # a host read inside the segment
+
+try:
+    _loop._segment(fn, (torch.ones(4, device="cuda"),), (), ("chip_smoke", "capture fault"))
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0][:100])
+else:
+    print("returned")
+"""
+
+
+def _segment_fault_raises(smi: str) -> None:
+    """A straight-line segment that reads a value back to the host cannot be
+    captured: the capture raises, and nothing falls back to eager code."""
+    res = subprocess.run([sys.executable, "-c", SEGMENT_FAULT, ROOT], capture_output=True,
+                         text=True, timeout=300)
+    line = res.stdout.strip().splitlines()[-1] if res.stdout.strip() else res.stderr[-300:]
+    say("device_loop", f"a segment that syncs: {line} (exit {res.returncode}) on {smi}")
+    check(res.returncode == 0 and line.startswith("raised:"),
+          "a capture of a segment that syncs did not raise")
 
 
 def _per_instance_blocks(smi: str, solve, ref: dict) -> dict:
@@ -2168,11 +2368,12 @@ def _per_instance_blocks(smi: str, solve, ref: dict) -> dict:
 
 
 def phase_device_loop(smi: str, main_run: dict) -> dict:
-    """The gated blocks on the card against the per-iteration host loop
-    (hsd._HOST_LOOP), bitwise, on the main cell, the fused-form and
-    fuse_facsol sets and netlib's padded batch (per-instance A, also at
-    the shared-A block); the block length over LOOP_BLOCKS on the main
-    cell (wall, gated-off share)."""
+    """The three routes on the card (``loop_route``: the stage graphs, the
+    loops' graphs with eager segments, the per-iteration host loop),
+    bitwise, on the main cell, the fused-form and fuse_facsol sets and
+    netlib's padded batch (per-instance A, also at the shared-A block); the
+    block length over LOOP_BLOCKS on the main cell (wall, gated-off
+    share)."""
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     kw = {**SCAN_KW, "keys": LOOP_KEYS}
@@ -2185,6 +2386,9 @@ def phase_device_loop(smi: str, main_run: dict) -> dict:
         A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda", stage_sync=True, **kw))}
     check(np.array_equal(cells["main"]["status"], main_run["status"]),
           "device_loop: the main cell's statuses differ from the main path's")
+    reads = cells["main"]["counts"]["graph"]["host_syncs"]
+    check(reads <= LOOP_MAIN_READS, f"device_loop: the main cell's IPM loops read {reads} "
+          f"predicates on the graph route (the loops' graphs alone: {LOOP_MAIN_READS})")
     cells["fused_form"] = _loop_cell(smi, "fused-form set", scan(bl.BATCHLAST_FUSED_KERNELS))
     cells["facsol"] = _loop_cell(smi, "fuse_facsol set",
                                  scan(bl.BatchLastKernels(fuse_facsol=True)))
@@ -2546,10 +2750,22 @@ def phase_sweep(smi: str) -> dict:
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    whole = scenario_sweep(A, b, c, opts, progress=lambda done, total: marks.append(
-        time.perf_counter()), **kw)
+    captured = []  # graphs captured by the end of each window, and their keys
+    cached = set(_loop._GRAPHS)
+
+    def progress(done, total):
+        marks.append(time.perf_counter())
+        captured.append((_loop.GRAPH_CAPTURES, set(_loop._GRAPHS) - cached))
+
+    whole = scenario_sweep(A, b, c, opts, progress=progress, **kw)
     whole_s = time.perf_counter() - t0
     counts = read_counts()
+    late = [_graph_name(k) for k in captured[-1][1] - captured[0][1]]
+    captured = [n for n, _ in captured]
+    say("config 5", f"uninterrupted sweep: {captured[0]} graphs captured in its first window, "
+        f"{captured[-1] - captured[0]} after it {late}; {len(_loop._GRAPHS)} graphs cached")
+    check(captured[-1] == captured[0], f"config 5: the uninterrupted sweep captured "
+          f"{captured[-1] - captured[0]} graphs after its first window")
     check_smem_route("config 5", counts)
     for name in ("fused_factor_bl", "solve_bl", "ozaki_product_bl"):
         check(counts[name] > 0, f"{name} was never launched in the config-5 sweep")
@@ -2574,20 +2790,28 @@ def phase_sweep(smi: str) -> dict:
     check(same_status, "resumed and uninterrupted sweeps disagree on a status")
     check(rel.max() <= SWEEP_OBJ_RTOL, f"resumed vs uninterrupted objective rel {rel.max():.3e}")
 
-    # (5b) the first window again on the per-iteration host loop: the graph
-    # route's answers, bit for bit
+    # (5b) the first window again, as one hsd_solve_scan, on the three routes:
+    # x too, and the uninterrupted sweep's answers, bit for bit
     first = window * chunk
-    zero_counts()
-    t0 = time.perf_counter()
-    with loop_route("host"):
-        host = scenario_sweep(A, b[:first], c[:first], opts, **kw)
-    host_s = time.perf_counter() - t0
-    same_host = all(_same_bits(getattr(host, k), getattr(whole, k)[:first])
-                    for k in ("status", "objective", "iterations"))
-    say("config 5", f"the first window ({window} chunks) on the host loop: {host_s:.3f}s (the "
-        f"graph route's first window {windows[0]:.3f}s); statuses, objectives and iterations "
-        f"bitwise the uninterrupted sweep's {same_host}")
-    check(same_host, "config 5: the first window on the host loop differs from the graph route's")
+    scan_kw = {k: v for k, v in SWEEP_KW.items() if k != "window_chunks"}
+    outs = {}
+    for route in ("graph", "loops", "host"):
+        zero_counts()
+        t0 = time.perf_counter()
+        with loop_route(route):
+            out = hsd_mod.hsd_solve_scan(A, b[:first], c[:first], opts,
+                                         bl.BATCHLAST_FUSED_KERNELS, device="cuda",
+                                         keys=LOOP_KEYS, **scan_kw)
+            outs[route] = {k: v.cpu().numpy() for k, v in out.items()}
+        route_s = time.perf_counter() - t0
+        same = all(_same_bits(outs[route][k], getattr(whole, k)[:first])
+                   for k in ("status", "objective", "iterations"))
+        say("config 5", f"the first window ({window} chunks) on the {route} route: {route_s:.3f}s "
+            f"({_loop.GRAPH_CAPTURES} captures; the sweep's first window {windows[0]:.3f}s); "
+            f"statuses, objectives and iterations bitwise the uninterrupted sweep's {same}, x "
+            f"bitwise the graph route's {_same_bits(outs[route]['x'], outs['graph']['x'])}")
+        check(same and _same_bits(outs[route]["x"], outs["graph"]["x"]),
+              f"config 5: the first window on the {route} route differs")
 
     # (6) the status mix and the wide audit
     say("config 5", f"status mix {status_mix(whole.status)}; OPTIMAL "
@@ -2601,6 +2825,12 @@ def phase_sweep(smi: str) -> dict:
     off_grid_audit("config 5", lp, -whole.objective, whole.status,
                    {i: v for i, v in CONFIG5_OVER_CONTRACT.items() if i not in grid})
     return counts
+
+
+def _graph_name(key) -> str:
+    """The name a cached graph's key gives: a segment's function, a loop's
+    caller."""
+    return str(key[1][0] if key[0] == "segment" else key[0][0])
 
 
 def phase_metrics() -> None:
@@ -3645,6 +3875,7 @@ def main() -> None:
     if torch.cuda.device_count() > 1:  # one rank a card over NCCL
         phase_sweep_parallel(smi, backend="nccl")
     phase_big_lp(smi)
+    _segment_fault_raises(smi)
     _capture_fault_raises(smi)  # last: it leaves a failed capture behind
     # launches: each kernel's count on the full main path that runs it (the
     # default set's, or the fused set's for the fused kernels; the slicing

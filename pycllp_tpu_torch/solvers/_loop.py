@@ -1,5 +1,6 @@
-"""The reference's ``lax.while_loop`` on the card: gated iterations in
-blocks, each block a replayed CUDA graph.
+"""The reference's ``jax.jit`` programs on the card: ``lax.while_loop`` as
+gated iterations in blocks, each block a replayed CUDA graph, and the
+straight-line code between the loops as replayed CUDA graphs too.
 
 :func:`_device_while` runs ``state = body(state)`` while ``cond(state)``
 holds, as ``lax.while_loop(cond, body, state)`` does, with the predicate
@@ -35,6 +36,14 @@ and the loop counter on the device:
 * On the CPU the same block runs eagerly, line for line the code that the
   card captures.
 
+:func:`_segment` runs a straight-line call ``out = fn(state, data)`` (a
+stage's code between two host reads) the same way: captured once a key
+into a graph over static buffers, replayed after, eager on the CPU.  Its
+inputs are copied in only where they are not the very tensors, unmodified,
+copied last (a segment never writes its inputs), and its outputs are
+copied out of the graph's output buffers, which the segments of one output
+spec share.
+
 A graph replays the launches it captured.  Whatever decides them must be
 in the key (the kernel set and the options are, in
 :func:`pycllp_tpu_torch.solvers.hsd._run_phase`'s), not in module state
@@ -64,17 +73,24 @@ BLOCK = 3
 # busy, so a gated-off iteration costs what a running one does (netlib's
 # padded batch, PERF.md §6)
 BLOCK_PER_INSTANCE = 1
-# captured graphs kept across calls (least recently used dropped first)
-GRAPH_CACHE_SIZE = 32
+# captured graphs kept across calls (least recently used dropped first): a
+# main-cell solve caches 17 a kernel set (5 loop blocks, 12 segments), and
+# config 5's sweep 43 with its ragged last window; 128 holds the main path's
+# three sets and the sweep together, so a second solve captures nothing
+GRAPH_CACHE_SIZE = 128
 
 # gated iterations that ran with their predicate false (their result discarded)
 GATED_OFF_STEPS = 0
 # predicate reads by the host: one a block here, one an iteration on the
 # host loop of pycllp_tpu_torch.solvers.hsd._run_phase
 HOST_SYNCS = 0
-# graphs captured and blocks replayed
+# graphs captured and replayed (the loops' blocks and the stages' segments)
 GRAPH_CAPTURES = 0
 GRAPH_REPLAYS = 0
+# the stages' own predicate reads (the reference's lax.cond predicates and
+# the drain rounds' loop predicate), and their straight-line segments run
+STAGE_READS = 0
+SEGMENT_CALLS = 0
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
 _STATIC: dict = {}
@@ -83,9 +99,11 @@ _SIDE_STREAMS: dict = {}
 
 
 def _flatten(tree) -> list:
-    """The tensors of a tree of (named) tuples, lists, tensors and None."""
+    """The tensors of a tree of (named) tuples, lists, dicts, tensors and None."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
     if isinstance(tree, (tuple, list)):
         return [t for x in tree for t in _flatten(x)]
     return []
@@ -99,6 +117,8 @@ def _map(fn, tree):
         return type(tree)(*[_map(fn, x) for x in tree])
     if isinstance(tree, (tuple, list)):
         return type(tree)(_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
     return tree
 
 
@@ -109,7 +129,24 @@ def _spec(tree):
         return (tuple(tree.shape), tree.dtype, tree.stride(), str(tree.device))
     if isinstance(tree, (tuple, list)):
         return (type(tree).__name__,) + tuple(_spec(x) for x in tree)
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _spec(v)) for k, v in tree.items())
     return tree
+
+
+def _host_read(flag) -> list:
+    """A predicate read by the host: the device tensor ``flag`` as a list
+    (a scalar for a 0-d tensor), marked for the profiler."""
+    with torch.profiler.record_function("predicate read"):
+        return flag.tolist()
+
+
+def _read(flag):
+    """A stage's predicate read (the reference's ``lax.cond`` predicate, or
+    a drain round's loop predicate): the 0-d ``flag`` as a Python scalar."""
+    global STAGE_READS
+    STAGE_READS += 1
+    return _host_read(flag)
 
 
 def _counters() -> list:
@@ -159,7 +196,7 @@ class _Static:
         self.sources = [] if always else [(weakref.ref(t), t._version) for t in srcs]
 
 
-def _static(kind: str, tree):
+def _static(kind, tree):
     """The static buffers of ``tree``'s spec, made on first use: (key, buffers)."""
     key = (kind, _spec(tree))
     if key not in _STATIC:
@@ -213,35 +250,111 @@ class _Graph:
             self.run_block()
         torch.cuda.current_stream().wait_stream(side)
 
+    @property
+    def static_keys(self) -> tuple:
+        return self.state_key, self.data_key
+
     def capture(self) -> None:
-        global GRAPH_CAPTURES
-        counters = _counters()
-        before = [getattr(ns, name) for ns, name in counters]
-        side = _side_stream(self.limit.device)
-        graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize(self.limit.device)
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=_pool(self.limit.device))
-            try:
-                self.run_block()
-            finally:
-                graph.capture_end()
-        # nothing ran: take the capture's counts back, keep them per replay
-        self.deltas = []
-        for (ns, name), b in zip(counters, before):
-            d = getattr(ns, name) - b
-            setattr(ns, name, b)
-            if d:
-                self.deltas.append((ns, name, d))
-        self.graph = graph
-        GRAPH_CAPTURES += 1
+        self.graph, self.deltas = _capture(self.limit.device, self.run_block)
 
     def replay(self) -> None:
-        global GRAPH_REPLAYS
-        self.graph.replay()
-        for ns, name, d in self.deltas:
-            setattr(ns, name, getattr(ns, name) + d)
-        GRAPH_REPLAYS += 1
+        _replay(self.graph, self.deltas, "loop replay")
+
+
+def _capture(device, run):
+    """``run`` captured into a new graph on the side stream, in the shared
+    pool: (graph, the launch counts it adds a replay).  A capture that
+    fails raises."""
+    global GRAPH_CAPTURES
+    counters = _counters()
+    before = [getattr(ns, name) for ns, name in counters]
+    side = _side_stream(device)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=_pool(device))
+        try:
+            run()
+        finally:
+            graph.capture_end()
+    # nothing ran: take the capture's counts back, keep them per replay
+    deltas = []
+    for (ns, name), b in zip(counters, before):
+        d = getattr(ns, name) - b
+        setattr(ns, name, b)
+        if d:
+            deltas.append((ns, name, d))
+    GRAPH_CAPTURES += 1
+    return graph, deltas
+
+
+def _replay(graph, deltas, what: str) -> None:
+    global GRAPH_REPLAYS
+    with torch.profiler.record_function(what):
+        graph.replay()
+    for ns, name, d in deltas:
+        setattr(ns, name, getattr(ns, name) + d)
+    GRAPH_REPLAYS += 1
+
+
+class _Segment:
+    """One captured straight-line call ``fn(state, data)`` over static
+    buffers: each entry of the tuple ``state`` in the buffers of its
+    position and spec, ``data`` in those of its spec (shared with the
+    loops' graphs), and the output in those of its spec, shared by the
+    segments whose output has it (each replay's output is copied out
+    before any other replay)."""
+
+    def __init__(self, fn, state: tuple, data):
+        self.fn = fn
+        self._ins = [_static(("in", i), t) for i, t in enumerate(state)]
+        self.data_key, self._data = _static("data", data)
+        self.out_key = self._out = None
+        self.graph = None
+        self.deltas: list = []
+
+    @property
+    def static_keys(self) -> tuple:
+        return tuple(k for k, _ in self._ins) + (self.data_key, self.out_key)
+
+    def load(self, state: tuple, data) -> None:
+        for (_, buf), t in zip(self._ins, state):
+            buf.load(t, always=False)
+        self._data.load(data, always=False)
+
+    def call(self):
+        """``fn`` on the static inputs."""
+        return self.fn(tuple(buf.tree for _, buf in self._ins), self._data.tree)
+
+    def run(self) -> None:
+        """``fn`` on the static inputs, its output written into the output
+        buffers: what the graph captures."""
+        for dst, src in zip(_flatten(self._out.tree), _flatten(self.call())):
+            dst.copy_(src)
+
+    def warm_up(self, device) -> None:
+        """``fn`` once, eagerly on the side stream (real launches), its
+        output copied into the output buffers, made here to its spec."""
+        side = _side_stream(device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = self.call()
+        cur = torch.cuda.current_stream()
+        cur.wait_stream(side)
+        for t in _flatten(out):
+            t.record_stream(cur)
+        self.out_key, self._out = _static("out", out)
+        self._out.load(out, always=True)
+
+    def capture(self, device) -> None:
+        self.graph, self.deltas = _capture(device, self.run)
+
+    def replay(self) -> None:
+        _replay(self.graph, self.deltas, "segment replay")
+
+    def result(self):
+        """A copy of the output buffers, the caller's to keep."""
+        return _map(torch.clone, self._out.tree)
 
 
 def _pool(device):
@@ -269,7 +382,7 @@ def _evict() -> None:
     """Keep ``GRAPH_CACHE_SIZE`` graphs, and the static buffers they use."""
     while len(_GRAPHS) > GRAPH_CACHE_SIZE:
         _GRAPHS.popitem(last=False)
-    live = {k for g in _GRAPHS.values() for k in (g.state_key, g.data_key)}
+    live = {k for g in _GRAPHS.values() for k in g.static_keys}
     for key in [k for k in _STATIC if k not in live]:
         del _STATIC[key]
 
@@ -280,7 +393,7 @@ def _eager(cond, body, state, limit, block: int):
     while True:
         state, steps, more = _block(cond, body, state, limit, steps, block)
         blocks += 1
-        more_h, steps_h = _flag(more, steps).tolist()
+        more_h, steps_h = _host_read(_flag(more, steps))
         if not more_h:
             return state, steps_h, blocks
 
@@ -297,7 +410,7 @@ def _replayed(cond, make_body, state, data, limit, block: int, key):
         entry.capture()
         _GRAPHS[full_key] = entry
         _evict()
-        more, steps = entry.flag.tolist()
+        more, steps = _host_read(entry.flag)
     else:
         _GRAPHS.move_to_end(full_key)
         entry.load(state, data, limit)
@@ -305,7 +418,7 @@ def _replayed(cond, make_body, state, data, limit, block: int, key):
     while more:
         entry.replay()
         blocks += 1
-        more, steps = entry.flag.tolist()
+        more, steps = _host_read(entry.flag)
     return type(state)(*[t.clone() for t in entry.state]), steps, blocks
 
 
@@ -328,3 +441,47 @@ def _device_while(cond, make_body, state, data, limit, block: int, key=()):
     HOST_SYNCS += blocks
     GATED_OFF_STEPS += blocks * block - steps
     return state, steps
+
+
+def _captures(tree) -> bool:
+    """Whether a segment over ``tree`` runs as a graph: its tensors are on
+    a CUDA device."""
+    ts = _flatten(tree)
+    return bool(ts) and ts[0].device.type == "cuda"
+
+
+def _segment(fn, state: tuple, data, key, eager: bool = False):
+    """``fn(state, data)``, a straight-line call that reads nothing back to
+    the host (no ``bool``, ``int``, ``.item()``, ``nonzero`` or mask
+    indexing), as one replayed CUDA graph.
+
+    ``state`` is a tuple of trees of tensors (each entry in the static
+    buffers of its position and spec, so that consecutive segments taking
+    the same tensor at the same position copy it once) and ``data`` a tree
+    (in the buffers of its spec, shared with the loops' graphs); ``key``
+    names ``fn``: everything, besides the shapes, that decides its
+    launches.  On a CUDA tensor the first call of a key runs ``fn`` eagerly
+    on the side stream and captures it, later calls replay it; a capture
+    or replay that fails raises.  The output is a copy, the caller's to
+    keep.  On the CPU, or with ``eager``, ``fn`` runs eagerly on the
+    caller's tensors.
+    """
+    global SEGMENT_CALLS
+    SEGMENT_CALLS += 1
+    if eager or not _captures((state, data)):
+        return fn(state, data)
+    full_key = ("segment", key, _spec(state), _spec(data))
+    entry = _GRAPHS.get(full_key)
+    if entry is None:
+        dev = _flatten((state, data))[0].device
+        entry = _Segment(fn, state, data)
+        entry.load(state, data)
+        entry.warm_up(dev)
+        entry.capture(dev)
+        _GRAPHS[full_key] = entry
+        _evict()
+    else:
+        _GRAPHS.move_to_end(full_key)
+        entry.load(state, data)
+        entry.replay()
+    return entry.result()

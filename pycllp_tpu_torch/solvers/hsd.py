@@ -22,9 +22,15 @@ What differs from the reference, and why:
   each iteration, where the reference calls back under ``lax.cond``) and
   a collective ``reduce_any`` (a gloo collective cannot be captured, and
   every rank must advance ``k`` in lockstep).  ``lax.scan`` over chunks
-  becomes a Python loop over chunks, and every ``lax.cond`` a Python
-  branch on a value read back from the device.  ``maxiter`` stays
-  absolute in ``k``, and a compacted bucket resumes at ``k = cap``.
+  becomes a Python loop over chunks, and every ``lax.cond`` (and the drain
+  rounds' ``lax.while_loop``) a Python branch on a predicate read back
+  from the device.  The scan stages' straight-line code between those
+  reads runs as segments (:func:`_seg`, :func:`_loop._segment`): on the
+  card each is a replayed CUDA graph, so the host reads what the
+  reference's predicates read and dispatches nothing else one launch at
+  a time; ``_EAGER_SEGMENTS`` runs them eagerly, for on-card comparisons.
+  ``maxiter`` stays absolute in ``k``, and a compacted bucket resumes at
+  ``k = cap``.
 * The device is explicit (``device=``, default ``"cuda"``); no tensor
   moves to another device on its own.
 * f32 matmuls run in full f32 (TF32 pinned off for the solve, the
@@ -77,8 +83,12 @@ _STALLED = int(Status.STALLED)
 # launches to iterations.
 HOST_STEPS = 0
 # True runs every phase as the per-iteration host loop (the route that
-# log_every and a collective reduce_any take), for on-card comparisons
+# log_every and a collective reduce_any take), and the scan stages'
+# segments eagerly, for on-card comparisons
 _HOST_LOOP = False
+# True runs the scan stages' straight-line segments eagerly (the IPM loops
+# stay graphs), for on-card comparisons
+_EAGER_SEGMENTS = False
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -345,7 +355,7 @@ def _any_running(status, reduce_any) -> bool:
     by ``reduce_any`` (a mask -> bool callable; the sharded solve passes
     a collective one) or locally when it is None."""
     mask = status == _RUNNING
-    return bool(mask.any()) if reduce_any is None else bool(reduce_any(mask))
+    return bool(_loop._host_read(mask.any())) if reduce_any is None else bool(reduce_any(mask))
 
 
 def _phase_cond(s: HSDState, maxiter):
@@ -883,7 +893,7 @@ def _unscaled_outputs(x, y, z, tau, kappa, status, iterations, scaling, c_orig):
 
 def _package_bucketed(
     ctx, b_s, c_s, state: HSDState, kset: KernelSet, opts: SolverOptions,
-    scaling, c_orig, bucket: int
+    scaling, c_orig, bucket: int, keys=None,
 ):
     """:func:`_package` with the finalize/classify pass confined to a
     gathered bucket of the NON-TERMINAL lanes.
@@ -898,23 +908,56 @@ def _package_bucketed(
     STALLED/NUMERICAL lanes still skip the last-chance reclassification —
     the reference's remaining (status-only) divergence from
     :func:`_package`, reproduced.  The ρ diagnostics are not computed.
+
+    The host reads the count of non-terminal lanes (the reference's
+    ``lax.cond`` predicate); the rest is one segment, which gathers and
+    finalizes a bucket whatever the count, as the reference does (with
+    every lane terminal it changes nothing), so the count decides one
+    branch.  ``keys``: the outputs to return (all with None).
     """
-    terminal = (
-        (state.status == _OPTIMAL) | (state.status == _INFEASIBLE) | (state.status == _UNBOUNDED)
-    )
-    nt = ~terminal
-    n_nt = int(nt.sum())
-    if n_nt > bucket:
+    fold = _loop._read((~_terminal(state.status)).sum()) > bucket
+    return _seg(_seg_package_bucketed, (state,), (ctx, b_s, c_s, scaling, c_orig), kset=kset,
+                opts=opts, bucket=bucket, fold=fold, keys=keys)
+
+
+def _terminal(status):
+    return (status == _OPTIMAL) | (status == _INFEASIBLE) | (status == _UNBOUNDED)
+
+
+def _seg_package_bucketed(state, data, *, kset, opts, bucket, fold, keys):
+    (state,) = state
+    ctx, b_s, c_s, scaling, c_orig = data
+    nt = ~_terminal(state.status)
+    if fold:
         state = _fold_to_best(ctx, b_s, c_s, state, kset, only=nt)
-    if n_nt:  # with every lane terminal, the gathered finalize changes nothing
-        idx = _first_lanes(nt, bucket)
-        sub = _take(state, idx)
-        x, y, z, tau, kappa, status, _ = _finalize(ctx, b_s[idx], c_s[idx], sub, kset, opts.tol)
-        sub = sub._replace(x=x, y=y, z=z, tau=tau, kappa=kappa, status=status)
-        state = _scatter(state, sub, idx, nt[idx])
+    idx = _first_lanes(nt, bucket)
+    sub = _take(state, idx)
+    x, y, z, tau, kappa, status, _ = _finalize(ctx, b_s[idx], c_s[idx], sub, kset, opts.tol)
+    sub = sub._replace(x=x, y=y, z=z, tau=tau, kappa=kappa, status=status)
+    state = _scatter(state, sub, idx, nt[idx])
     status = torch.where(state.status == _RUNNING, _ITERATION_LIMIT, state.status)
-    return _unscaled_outputs(state.x, state.y, state.z, state.tau, state.kappa, status,
-                             state.iterations, scaling, c_orig)
+    out = _unscaled_outputs(state.x, state.y, state.z, state.tau, state.kappa, status,
+                            state.iterations, scaling, c_orig)
+    return out if keys is None else {k: out[k] for k in keys}
+
+
+def _seg_package(state, data, *, kset, opts, keys, dtype):
+    """:func:`_package` as a segment: the outputs ``keys`` of the terminal
+    state, the objective from ``c_orig`` in ``dtype``."""
+    (state,) = state
+    ctx, b_s, c_s, scaling, c_orig = data
+    out = _package(ctx, b_s, c_s, state, kset, opts, scaling, c_orig.to(dtype))
+    return {k: out[k] for k in keys}
+
+
+def _seg(fn, state: tuple, data, **params):
+    """``fn(state, data, **params)`` as one straight-line segment of a scan
+    stage (:func:`_loop._segment`: on the card a replayed CUDA graph, eager
+    with ``_EAGER_SEGMENTS`` or ``_HOST_LOOP``); ``params`` decide its
+    launches and name it in the graph cache."""
+    key = (fn.__name__,) + tuple(sorted(params.items()))
+    return _loop._segment(functools.partial(fn, **params), state, data, key,
+                          eager=_EAGER_SEGMENTS or _HOST_LOOP)
 
 
 # ---------------------------------------------------------------------------
@@ -1171,27 +1214,76 @@ def _compact_resume(
     rerun those from a COLD Mehrotra start (old best trackers kept, so a
     failed restart cannot regress); still-RUNNING lanes in the same
     bucket resume WARM.
+
+    The gather and the scatter are segments around the phase's loop.
     """
+    state2, b2, c2, idx, resumed = _seg(
+        _seg_resume_gather, (sflat,), (ctx, b_sf, c_sf), opts=opts, kset=kset, dtype=dtype,
+        bucket=bucket, restart=restart)
+    if restart:
+        opts = opts.replace(stall_patience=_NO_STALL)
+    state2 = _run_phase(ctx, b2, c2, state2, opts, kset, dtype, tol, maxiter)
+    return _seg(_seg_scatter, (sflat, state2, idx, resumed), ())
+
+
+def _seg_resume_gather(state, data, *, opts, kset, dtype, bucket, restart):
+    """:func:`_compact_resume`'s gather: the gathered state, its ``b`` and
+    ``c``, the lanes and which of them resume."""
+    (sflat,) = state
+    ctx, b_sf, c_sf = data
     unfinished = _retry_mask(sflat.status) if restart else (sflat.status == _RUNNING)
     idx = _first_lanes(unfinished, bucket)
     state2 = _take(sflat, idx)
     resumed = unfinished[idx]
+    b2, c2 = b_sf[idx], c_sf[idx]
     if restart:
-        fresh = _fresh_state(
-            ctx, b_sf[idx], c_sf[idx], opts.replace(init_point="mehrotra"), kset, dtype
-        )
+        fresh = _fresh_state(ctx, b2, c2, opts.replace(init_point="mehrotra"), kset, dtype)
         stuck = (sflat.status == _STALLED) | (sflat.status == _NUMERICAL)
         # _restart_merge re-opens the stuck lanes and zeroes every lane's
         # stall clock; RUNNING overflow lanes keep their warm state
         state2 = _restart_merge(state2, fresh, stuck[idx])
-        opts = opts.replace(stall_patience=_NO_STALL)
     else:
         # restart the stall clock at the resume point: gathered lanes carry
         # a best_k from their own (earlier) clock, and k may have jumped
         # past it
         state2 = state2._replace(best_k=_best_k_at(state2))
-    state2 = _run_phase(ctx, b_sf[idx], c_sf[idx], state2, opts, kset, dtype, tol, maxiter)
-    return _scatter(sflat, state2, idx, resumed)
+    return state2, b2, c2, idx, resumed
+
+
+def _seg_scatter(state, data):
+    return _scatter(*state)
+
+
+def _seg_concat(state, data, *, k):
+    """The states of the chunks ``state``, concatenated lane-wise, with the
+    shared loop counter ``k``."""
+    dev = state[0].k.device
+    return HSDState(**{
+        f: _k_tensor(k, dev) if f == "k" else torch.cat([getattr(st, f) for st in state])
+        for f in HSDState._fields
+    })
+
+
+def _seg_chunk_start(state, data, *, opts, kset, dtype):
+    """A chunk's starting state; with ``state = (prev,)`` (``warm_chain``)
+    warm from the previous chunk's end, lane by lane (chunk 0, ``prev``
+    None, from the blind start's point)."""
+    ctx, b_s, c_s = data
+    carry = None
+    if state:
+        (prev,) = state
+        if prev is None:
+            (B, m), n = b_s.shape, c_s.shape[-1]
+            dev = b_s.device
+            carry = (torch.ones((B, n), dtype=dtype, device=dev),
+                     torch.zeros((B, m), dtype=dtype, device=dev),
+                     torch.ones((B, n), dtype=dtype, device=dev))
+        else:
+            # chunk k+1 lane j warm-starts from chunk k lane j's interior point
+            tau_safe = prev.tau.clamp(min=torch.finfo(dtype).tiny)[..., None]
+            carry = _sanitize_carry(prev.x / tau_safe, prev.y / tau_safe, prev.z / tau_safe,
+                                    prev.status != _NUMERICAL)
+    return _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=carry)
 
 
 def _narrow_opts_view(opts: SolverOptions, phase1_tol: float) -> SolverOptions:
@@ -1274,48 +1366,30 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
     the flat narrow :class:`HSDState`, for :func:`_hsd_scan_finish_core`.
     """
     dtype, _, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, dev)
-    K, chunk, m = b3.shape
-    n = c3.shape[-1]
+    K, chunk, _ = b3.shape
     A_s, b_sf, c_sf = A_sw.to(dtype), b_sfw.to(dtype), c_sfw.to(dtype)
     ctx = kset.prepare(A_s)
     tol = opts.tol
 
     # ---- stage 1: capped narrow chunks, in chunk order ----
-    carry = None
-    if warm_chain:
-        carry = (
-            torch.ones((chunk, n), dtype=dtype, device=dev),
-            torch.zeros((chunk, m), dtype=dtype, device=dev),
-            torch.ones((chunk, n), dtype=dtype, device=dev),
-        )
     states = []
     for kk in range(K):
         rows = slice(kk * chunk, (kk + 1) * chunk)
-        b_s, c_s = b_sf[rows], c_sf[rows]
-        state = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=carry)
-        state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, tol, cap)
-        if warm_chain:
-            # chunk k+1 lane j warm-starts from chunk k lane j's interior point
-            tau_safe = state.tau.clamp(min=torch.finfo(dtype).tiny)[..., None]
-            carry = _sanitize_carry(
-                state.x / tau_safe, state.y / tau_safe, state.z / tau_safe,
-                state.status != _NUMERICAL,
-            )
-        states.append(state)
+        data = (ctx, b_sf[rows], c_sf[rows])
+        prev = (states[-1] if states else None,) if warm_chain else ()
+        state = _seg(_seg_chunk_start, prev, data, opts=opts, kset=kset, dtype=dtype)
+        states.append(_run_narrow_phase(*data, state, opts, kset, dtype, tol, cap))
     # every still-RUNNING lane's chunk ran to exactly `cap` (an early-
     # exiting chunk has no running lanes), so stage 2 resumes at k = cap
-    sflat = HSDState(**{
-        f: _k_tensor(cap, dev) if f == "k" else torch.cat([getattr(s, f) for s in states])
-        for f in HSDState._fields
-    })
+    sflat = _seg(_seg_concat, tuple(states), (), k=cap)
     del states
 
     # ---- stage 2: compact the narrow tail, resume with full budget ----
     sflat = _compact_resume(ctx, b_sf, c_sf, sflat, opts, kset, dtype, tol, opts.maxiter, bucket)
     if keys is None:
         return sflat
-    outs = _package(ctx, b_sf, c_sf, sflat, kset, opts, scaling, c_flat_w.to(dtype))
-    return {k: outs[k] for k in keys}
+    return _seg(_seg_package, (sflat,), (ctx, b_sf, c_sf, scaling, c_flat_w), kset=kset,
+                opts=opts, keys=keys, dtype=dtype)
 
 
 def _hsd_scan_finish_core(
@@ -1331,6 +1405,10 @@ def _hsd_scan_finish_core(
     pays ~nothing there, and a reject volume larger than a bucket is
     drained by repeats instead of overflowing to ITERATION_LIMIT.
 
+    Between the host's reads (the IPM loops' predicates, the drain rounds'
+    loop predicate and the reference's ``lax.cond`` predicates) the code
+    runs as segments (:func:`_seg`).
+
     ``truncate`` ("pre", "stage3", "tier0" or "tier1"; the reference's
     ``PYCLLP_FINISH_TRUNCATE``) returns the packaged outputs right after
     the named stage, to split the finish's cost.
@@ -1338,95 +1416,55 @@ def _hsd_scan_finish_core(
     dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(
         A, b3, c3, opts, dev
     )
-    K, chunk, m = b3.shape
-    n = c3.shape[-1]
-    N = K * chunk
-    A_s, b_sf, c_sf = A_sw.to(dtype), b_sfw.to(dtype), c_sfw.to(dtype)
-    ctx = kset.prepare(A_s)
-
-    # ---- stage 3: wide finish over ALL lanes, chunk by chunk ----
+    K = b3.shape[0]
+    N = b_sfw.shape[0]
+    ctx = kset.prepare(A_sw.to(dtype))
     fkset = kset.finish_kernels(opts.finish_kset)
     fctx = fkset.prepare(A_sw)
     ckset = _crossover_kset(kset, fkset, opts)
     cctx = fctx if ckset is fkset else ckset.prepare(A_sw)
-    sflat = _fold_to_best(ctx, b_sf, c_sf, sflat, kset)
-    sflat = _cast_state(sflat, wide)
-    sflat = sflat._replace(
-        k=torch.zeros_like(sflat.k),
-        best_score=torch.full_like(sflat.best_score, torch.finfo(wide).max),
-        best_k=torch.zeros_like(sflat.best_k),
-    )
     wopts = _wide_opts(opts)
+    fdata = (fctx, b_sfw, c_sfw)
 
     def packaged(s):
-        outs = _package_bucketed(fctx, b_sfw, c_sfw, s, fkset, opts, scaling, c_flat_w,
-                                 finish_bucket)
-        return {k: outs[k] for k in keys}
+        return _package_bucketed(fctx, b_sfw, c_sfw, s, fkset, opts, scaling, c_flat_w,
+                                 finish_bucket, tuple(keys))
 
+    start = dict(kset=kset, dtype=dtype, wide=wide)
     if truncate == "pre":
-        return packaged(sflat)
+        return packaged(_seg(_seg_finish_start, (sflat,), (ctx, b_sfw, c_sfw), reopen=False,
+                             **start))
 
+    # ---- stage 3: wide finish over ALL lanes, chunk by chunk ----
     if opts.finish_mode == "crossover":
         # ONE basis solve per lane: accepted lanes are OPTIMAL outright;
-        # rejects re-open RUNNING and fall through to the drain tiers.
-        # Repair is 0 here: tier 0 applies opts.crossover_repair to the
-        # GATHERED rejects instead (same math, a fraction of the width).
-        s3_opts = opts.replace(crossover_repair=0)
-
-        def stage3(st, b_s, c_s):
-            return _crossover_state(cctx, b_s, c_s, st, ckset, s3_opts, opts.tol)
-
+        # rejects re-open RUNNING and fall through to the drain tiers
+        sflat = _seg(_seg_stage3_crossover, (sflat,), (ctx, cctx, b_sfw, c_sfw), ckset=ckset,
+                     opts=opts, K=K, **start)
         base_k = 0
     else:
-        sflat = sflat._replace(
-            status=torch.where(sflat.status != _NUMERICAL, _RUNNING, sflat.status)
-        )
-
-        def stage3(st, b_s, c_s):
-            return _run_phase(fctx, b_s, c_s, st, wopts, fkset, wide, opts.tol, finish_cap)
-
+        sflat = _seg(_seg_finish_start, (sflat,), (ctx, b_sfw, c_sfw), reopen=True, **start)
+        chunk = N // K
+        parts = []
+        for kk in range(K):  # each from k = 0
+            rows = slice(kk * chunk, (kk + 1) * chunk)
+            parts.append(_run_phase(fctx, b_sfw[rows], c_sfw[rows], _take(sflat, rows), wopts,
+                                    fkset, wide, opts.tol, finish_cap))
         base_k = finish_cap
-
-    parts = []
-    for kk in range(K):
-        rows = slice(kk * chunk, (kk + 1) * chunk)
-        parts.append(stage3(_take(sflat, rows), b_sfw[rows], c_sfw[rows]))  # each from k = 0
-    sflat = HSDState(**{
-        f: _k_tensor(base_k, dev) if f == "k" else torch.cat([getattr(p, f) for p in parts])
-        for f in HSDState._fields
-    })
-    del parts
+        sflat = _seg(_seg_concat, tuple(parts), (), k=base_k)
+        del parts
     if truncate == "stage3":
         return packaged(sflat)
 
     if opts.finish_mode == "crossover":
         # ---- stage 4 (crossover): bounded draining rounds ----
-        def drain(s, width, n_rounds, body):
-            """Bounded rounds of [gather → body → scatter] over the RUNNING
-            lanes, each lane treated AT MOST ONCE: a lane still RUNNING
-            after a full tier treatment is masked out of later rounds.
-            Rounds repeat only to drain reject VOLUME beyond one bucket;
-            the loop ends as soon as no untreated lane is RUNNING."""
-            treated = torch.zeros_like(s.status, dtype=torch.bool)
-            for _ in range(n_rounds):
-                unfinished = (s.status == _RUNNING) & ~treated
-                if not bool(unfinished.any()):
-                    break
-                idx = _first_lanes(unfinished, width)
-                resumed = unfinished[idx]
-                st2 = body(b_sfw[idx], c_sfw[idx], _take(s, idx))
-                treated = treated.clone()
-                treated[idx] = treated[idx] | resumed
-                s = _scatter(s, st2, idx, resumed)
-            return s
-
         # tier 0: basis-repair rounds on the gathered rejects, mixed engine
-        def tier0(b2, c2, st2):
-            return _crossover_state(cctx, b2, c2, st2, ckset, opts, opts.tol)
-
         if opts.crossover_repair:  # without repair a re-cross of the
             # unchanged state would re-fail identically — skip the tier
-            sflat = drain(sflat, min(max(16384, 8 * finish_bucket), N), rounds, tier0)
+            width = min(max(16384, 8 * finish_bucket), N)
+            sflat = _drain(sflat, rounds, lambda s, treated: _seg(
+                _seg_tier0_round, (s, treated), (cctx, b_sfw, c_sfw), width=width, opts=opts,
+                ckset=ckset))
         if truncate == "tier0":
             return packaged(sflat)
 
@@ -1440,61 +1478,171 @@ def _hsd_scan_finish_core(
         )
 
         # tier 1: short wide IPM → wide cross (budgets relative to st2.k)
-        def tier1(b2, c2, st2):
-            st2 = st2._replace(best_k=_best_k_at(st2))
-            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
-                             st2.k + finish_cap)
-            st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
-            return _crossover_state(fctx, b2, c2, st2, fkset, topts, opts.tol)
+        def tier1(s, treated):
+            st2, b2, c2, idx, resumed, budget = _seg(
+                _seg_tier_gather, (s, treated), fdata, width=finish_bucket, budget=finish_cap)
+            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol, budget)
+            return _seg(_seg_tier_scatter, (s, treated, st2, idx, resumed), fdata, fkset=fkset,
+                        topts=topts, reopen=True)
 
-        sflat = drain(sflat, finish_bucket, rounds, tier1)
+        sflat = _drain(sflat, rounds, tier1)
         if truncate == "tier1":
             return packaged(sflat)
 
         # tier 2: narrow, deep — IPM to budget, restart, rescue.
         # reopen=False in the rescue keeps rejects STALLED, so each lane
         # gets the deep treatment exactly once
-        def tier2(b2, c2, st2):
-            st2 = st2._replace(best_k=_best_k_at(st2))
-            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
-                             st2.k + opts.finish_maxiter)
+        def tier2(s, treated):
+            st2, b2, c2, idx, resumed, budget = _seg(
+                _seg_tier_gather, (s, treated), fdata, width=256, budget=opts.finish_maxiter)
+            st2 = _run_phase(fctx, b2, c2, st2, wopts, fkset, wide, opts.tol, budget)
             if opts.finish_restart:
-                stuck = (st2.status == _STALLED) | (st2.status == _NUMERICAL)
-                fresh = _fresh_state(
-                    fctx, b2, c2, opts.replace(init_point="mehrotra"), fkset, wide
-                )
-                st2 = _restart_merge(st2, fresh, stuck)
+                st2 = _seg(_seg_tier_restart, (st2,), (fctx, b2, c2), opts=opts, fkset=fkset,
+                           wide=wide)
                 st2 = _run_phase(
                     fctx, b2, c2, st2, wopts.replace(stall_patience=_NO_STALL), fkset, wide,
                     opts.tol, opts.finish_maxiter + 10,
                 )
-            st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
-            return _crossover_state(fctx, b2, c2, st2, fkset, topts, opts.tol, reopen=False)
+            return _seg(_seg_tier_scatter, (s, treated, st2, idx, resumed), fdata, fkset=fkset,
+                        topts=topts, reopen=False)
 
-        sflat = drain(sflat, 256, rounds, tier2)
+        sflat = _drain(sflat, rounds, tier2)
     else:
         # ---- stage 4 (ipm): two gated compact rounds.  A tail larger
         # than the bucket overflows round 1 — those lanes stay RUNNING and
         # round 2 gathers them; round 2 doubles as the fresh-restart
         # fallback for STALLED/NUMERICAL lanes.  Each round's budget
         # extends past the previous round's endpoint (k is shared). ----
-        if bool((sflat.status == _RUNNING).any()):
+        if _loop._read((sflat.status == _RUNNING).any()):
             sflat = _compact_resume(
                 fctx, b_sfw, c_sfw, sflat, wopts, fkset, wide, opts.tol,
                 base_k + opts.finish_maxiter, finish_bucket,
             )
-        if bool(_retry_mask(sflat.status).any()):
+        if _loop._read(_retry_mask(sflat.status).any()):
             sflat = _compact_resume(
                 fctx, b_sfw, c_sfw, sflat, wopts, fkset, wide, opts.tol,
                 base_k + 2 * opts.finish_maxiter, finish_bucket,
                 restart=opts.finish_restart,
             )
     if any(k in ("rho_p", "rho_d", "rho_gap") for k in keys):
-        outs = _package(fctx, b_sfw, c_sfw, sflat, fkset, opts, scaling, c_flat_w)
-        return {k: outs[k] for k in keys}
+        return _seg(_seg_package, (sflat,), (fctx, b_sfw, c_sfw, scaling, c_flat_w), kset=fkset,
+                    opts=opts, keys=tuple(keys), dtype=wide)
     # ρ diagnostics not requested → finalize/classify only the gathered
     # non-terminal remainder (see _package_bucketed)
     return packaged(sflat)
+
+
+def _seg_finish_start(state, data, *, kset, dtype, wide, reopen):
+    """The finish's start: the narrow state folded to its best iterates,
+    cast to ``wide``, its loop counter and best trackers reset; with
+    ``reopen`` (the wide IPM's stage 3) every lane not NUMERICAL RUNNING."""
+    (sflat,) = state
+    ctx, b_sfw, c_sfw = data
+    sflat = _fold_to_best(ctx, b_sfw.to(dtype), c_sfw.to(dtype), sflat, kset)
+    sflat = _cast_state(sflat, wide)
+    sflat = sflat._replace(
+        k=torch.zeros_like(sflat.k),
+        best_score=torch.full_like(sflat.best_score, torch.finfo(wide).max),
+        best_k=torch.zeros_like(sflat.best_k),
+    )
+    if reopen:
+        sflat = sflat._replace(
+            status=torch.where(sflat.status != _NUMERICAL, _RUNNING, sflat.status)
+        )
+    return sflat
+
+
+def _seg_stage3_crossover(state, data, *, kset, dtype, wide, ckset, opts, K):
+    """The finish's start and stage 3 in crossover mode: one basis solve per
+    lane, chunk by chunk.  Repair is 0 here: tier 0 applies
+    ``opts.crossover_repair`` to the GATHERED rejects instead (same math, a
+    fraction of the width)."""
+    ctx, cctx, b_sfw, c_sfw = data
+    sflat = _seg_finish_start(state, (ctx, b_sfw, c_sfw), kset=kset, dtype=dtype, wide=wide,
+                              reopen=False)
+    s3_opts = opts.replace(crossover_repair=0)
+    chunk = b_sfw.shape[0] // K
+    parts = []
+    for kk in range(K):
+        rows = slice(kk * chunk, (kk + 1) * chunk)
+        parts.append(_crossover_state(cctx, b_sfw[rows], c_sfw[rows], _take(sflat, rows), ckset,
+                                      s3_opts, opts.tol))
+    return _seg_concat(tuple(parts), (), k=0)
+
+
+def _drain(s, n_rounds: int, round_):
+    """Bounded rounds of [gather → treat → scatter] over the RUNNING lanes,
+    each lane treated AT MOST ONCE: a lane still RUNNING after a full tier
+    treatment is masked out of later rounds.  Rounds repeat only to drain
+    reject VOLUME beyond one bucket; the loop ends as soon as no untreated
+    lane is RUNNING.  ``round_(s, treated)`` returns the new ``(s,
+    treated)`` and the next round's predicate, which the host reads (the
+    reference's ``round_cond``)."""
+    treated = torch.zeros_like(s.status, dtype=torch.bool)
+    more = (s.status == _RUNNING).any()
+    for _ in range(n_rounds):
+        if not _loop._read(more):
+            break
+        s, treated, more = round_(s, treated)
+    return s
+
+
+def _round_end(s, st2, treated, idx, resumed):
+    """A drain round's end: ``st2`` scattered back over ``s[idx]`` where
+    ``resumed``, those lanes marked treated, and the next round's
+    predicate."""
+    treated = treated.clone()
+    treated[idx] = treated[idx] | resumed
+    s = _scatter(s, st2, idx, resumed)
+    return s, treated, ((s.status == _RUNNING) & ~treated).any()
+
+
+def _gather_round(s, treated, width: int):
+    """A drain round's gather: up to ``width`` untreated RUNNING lanes."""
+    unfinished = (s.status == _RUNNING) & ~treated
+    idx = _first_lanes(unfinished, width)
+    return _take(s, idx), idx, unfinished[idx]
+
+
+def _seg_tier0_round(state, data, *, width, opts, ckset):
+    """A tier-0 round: basis-repair crossover on the gathered rejects."""
+    s, treated = state
+    cctx, b, c = data
+    st2, idx, resumed = _gather_round(s, treated, width)
+    st2 = _crossover_state(cctx, b[idx], c[idx], st2, ckset, opts, opts.tol)
+    return _round_end(s, st2, treated, idx, resumed)
+
+
+def _seg_tier_gather(state, data, *, width, budget):
+    """A wide tier round's gather, before its IPM: the gathered state with
+    its stall clock at ``k``, its ``b`` and ``c``, the lanes, which of them
+    resume, and the IPM's budget ``k + budget``."""
+    s, treated = state
+    _, b, c = data
+    st2, idx, resumed = _gather_round(s, treated, width)
+    st2 = st2._replace(best_k=_best_k_at(st2))
+    return st2, b[idx], c[idx], idx, resumed, st2.k + budget
+
+
+def _seg_tier_restart(state, data, *, opts, fkset, wide):
+    """Tier 2 between its phases: the STALLED/NUMERICAL lanes restarted
+    from a cold Mehrotra start."""
+    (st2,) = state
+    fctx, b2, c2 = data
+    stuck = (st2.status == _STALLED) | (st2.status == _NUMERICAL)
+    fresh = _fresh_state(fctx, b2, c2, opts.replace(init_point="mehrotra"), fkset, wide)
+    return _restart_merge(st2, fresh, stuck)
+
+
+def _seg_tier_scatter(state, data, *, fkset, topts, reopen):
+    """A wide tier round's end, after its IPM: fold to the best iterates,
+    the wide crossover, the scatter."""
+    s, treated, st2, idx, resumed = state
+    fctx, b, c = data
+    b2, c2 = b[idx], c[idx]
+    st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
+    st2 = _crossover_state(fctx, b2, c2, st2, fkset, topts, topts.tol, reopen=reopen)
+    return _round_end(s, st2, treated, idx, resumed)
 
 
 def hsd_solve_scan(
