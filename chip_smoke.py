@@ -127,6 +127,7 @@ the last, and the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -1936,7 +1937,11 @@ def _span_split(prof, smi: str, label: str) -> dict:
     (``_loop._replay``'s record_function) that encloses it."""
     events = prof.events()
     cpu = torch.autograd.DeviceType.CPU
-    finish_at = min(e.time_range.start for e in events if e.name == "finish stage")
+    # a solve with no finish mark (hsd_solve_batched) is one stage, "solve"
+    marks = [e.time_range.start for e in events if e.name == "finish stage"]
+    finish_at = min(marks) if marks else None
+    stage_sel = ((("narrow", lambda t: t < finish_at), ("finish", lambda t: t >= finish_at))
+                 if marks else (("solve", lambda t: True),))
     reads = _intervals(events, "predicate read")
     rep = sorted([(r, "segment") for r in _intervals(events, "segment replay")]
                  + [(r, "loop") for r in _intervals(events, "loop replay")])
@@ -1953,11 +1958,19 @@ def _span_split(prof, smi: str, label: str) -> dict:
         elif e.name in KERNEL_LAUNCHES:
             launch[e.id] = ("eager", e.time_range.start)
     kernels = _device_kernels(events)
+    # the copies and fills on the copy engines (input transfers, the static
+    # buffers' loads, the outputs' copies, the predicates' reads)
+    copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name.startswith(("Memcpy", "Memset"))]
     out = {}
-    for stage, sel in (("narrow", lambda e: e.time_range.start < finish_at),
-                       ("finish", lambda e: e.time_range.start >= finish_at)):
+    for stage, at in stage_sel:
+        def sel(e):
+            return at(e.time_range.start)
+
         ks = [e for e in kernels if sel(e)]
         busy = {"eager": 0.0, "segment": 0.0, "loop": 0.0, "graph": 0.0, "unmatched": 0.0}
+        eager_names = collections.Counter()
+        copy_names = collections.Counter(e.name for e in copies if sel(e))
         idle = {"in_graph": 0.0, "read": 0.0, "dispatch": 0.0}
         # the dispatch gaps by the launcher of the kernel that ends them
         before = dict.fromkeys(busy, 0.0)
@@ -1984,6 +1997,8 @@ def _span_split(prof, smi: str, label: str) -> dict:
                     before[kind] += gap - r
             busy[kind] += max(0.0, end - max(start, reach))
             n[kind] += 1
+            if kind == "eager":
+                eager_names[e.name[:60]] += 1
             reach, last = max(reach, end), e
         launches = {}
         for kind, delay, call in first.values():
@@ -1997,9 +2012,10 @@ def _span_split(prof, smi: str, label: str) -> dict:
                "dispatch_before_ms": {k: v / 1e3 for k, v in before.items() if v},
                "graph_launches": {k: {"n": v[0], "call_ms": v[1], "to_first_kernel_ms": v[2]}
                                   for k, v in launches.items()},
-               "reads": sum(1 for a, _ in reads if (a >= finish_at) == (stage == "finish")),
-               "read_host_ms": sum(b - a for a, b in reads
-                                   if (a >= finish_at) == (stage == "finish")) / 1e3}
+               "reads": sum(1 for a, _ in reads if at(a)),
+               "read_host_ms": sum(b - a for a, b in reads if at(a)) / 1e3,
+               "eager_kernels": dict(eager_names.most_common(12)),
+               "copies": dict(copy_names.most_common(8))}
         out[stage] = row
         say("stage_split", f"{label} {stage}: span {span:.1f} ms = busy "
             + ", ".join(f"{k} {v:.1f}" for k, v in row["busy_ms"].items() if v)
@@ -2011,7 +2027,8 @@ def _span_split(prof, smi: str, label: str) -> dict:
             + " ms; graph launches " + ", ".join(
                 f"{k} {v['n']} ({v['call_ms']:.1f} ms in the call, {v['to_first_kernel_ms']:.1f} "
                 f"ms from the call to the first kernel)" for k, v in row["graph_launches"].items())
-            + f" on {smi}")
+            + f"; eager kernels by name {row['eager_kernels']}; copies and fills by name "
+            f"{row['copies']} on {smi}")
     return out
 
 
@@ -2209,18 +2226,19 @@ def _same_outputs(a: dict, b: dict) -> bool:
 ROUTES = ("host", "loops", "graph")
 
 
-def _loop_cell(smi: str, label: str, solve, block: int | None = None) -> dict:
+def _loop_cell(smi: str, label: str, solve, block: int | None = None,
+               turns: tuple = ROUTES + ROUTES[::-1]) -> dict:
     """One cell on the three routes (``loop_route``): a first solve each
     (the host loop's with no graph cached, so its memory is the host
     route's alone; then the loops route's, which captures the loops'
     graphs; then the graph route's, which captures its segments), then
-    host, loops, graph, graph, loops, host in turns.  Every solve's
-    statuses, objectives, iterations and x must equal the first host-loop
-    solve's bit for bit.  ``block``: the block length the cell runs at,
-    for the report."""
+    the routes ``turns`` in turns (host, loops, graph, graph, loops, host
+    unless a cell asks for fewer).  Every solve's statuses, objectives,
+    iterations and x must equal the first host-loop solve's bit for bit.
+    ``block``: the block length the cell runs at, for the report."""
     _loop._clear_graphs()
     runs = [(r, _loop_solve(solve, r)) for r in ROUTES]
-    runs += [(r, _loop_solve(solve, r, empty=False)) for r in ROUTES + ROUTES[::-1]]
+    runs += [(r, _loop_solve(solve, r, empty=False)) for r in turns]
     # peak memory with every route's graphs cached, each from an emptied cache
     mem = {r: _loop_solve(solve, r) for r in ROUTES}
     ref = runs[0][1]["out"]
@@ -2233,7 +2251,7 @@ def _loop_cell(smi: str, label: str, solve, block: int | None = None) -> dict:
     say("device_loop", f"{label}: graph and loops routes bitwise equal to the host loop "
         f"(statuses, objectives, iterations, x; {len(runs)} solves) {same}; status mix "
         f"{status_mix(st)}")
-    say("device_loop", f"{label}: walls in turns host/loops/graph/graph/loops/host " + "/".join(
+    say("device_loop", f"{label}: walls in turns {'/'.join(turns)} " + "/".join(
         f"{run['wall']:.3f}" for _, run in runs[3:]) + " s (the allocator's cache kept); first "
         "solves, from an emptied cache, " + ", ".join(
             f"{r} {first[r]['wall']:.3f} s ({first[r]['counts']['graph_captures']} captures, "
@@ -2367,13 +2385,120 @@ def _per_instance_blocks(smi: str, solve, ref: dict) -> dict:
     return out
 
 
+# hsd_solve_batched at a chunk's width: the registry path's, on the main cell's LPs
+BATCHED_N = 16384
+# the routes each new cell of phase_device_loop runs in turns after its first
+# solves (fewer than the main cell's six, to keep the script's wall short)
+SHORT_TURNS = ("graph", "loops", "host")
+# netlib padded: the graph route's peak reserved memory over the loops
+# route's, each measured with only its own graphs cached
+PADDED_MEMORY_RATIO = 1.5
+
+
+def _batched_checks(label: str, cell: dict) -> None:
+    """hsd_solve_batched and dense_path run no lax.cond: no stage read on
+    any route, the graph route reads the loops route's predicates, and
+    runs its straight-line code as segments."""
+    cnt = cell["counts"]
+    for r in ROUTES:
+        check(cnt[r]["stage_reads"] == 0, f"device_loop {label}: {cnt[r]['stage_reads']} stage "
+              f"reads on the {r} route")
+    check(cnt["graph"]["host_syncs"] == cnt["loops"]["host_syncs"],
+          f"device_loop {label}: {cnt['graph']['host_syncs']} predicate reads on the graph route, "
+          f"{cnt['loops']['host_syncs']} on the loops route")
+    check(cnt["graph"]["segment_calls"] > 0, f"device_loop {label}: no segment ran")
+
+
+def _profiled_batched(smi: str, solve, loop: str) -> dict:
+    """One cached hsd_solve_batched under torch.profiler on ``loop``: the
+    span split by launcher (``_span_split``, one stage), its eager kernels
+    and copies by name, and its counts (no capture, no stage read)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with loop_route(loop):
+        solve()["status"].cpu()
+        torch.cuda.synchronize()
+        zero_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            solve()["status"].cpu()
+    counts = read_counts()
+    split = _span_split(prof, smi, f"hsd_solve_batched {BATCHED_N} lanes, {loop} route")["solve"]
+    check(counts["graph_captures"] == 0 and counts["stage_reads"] == 0,
+          f"device_loop: the profiled hsd_solve_batched on the {loop} route captured "
+          f"{counts['graph_captures']} graphs and read {counts['stage_reads']} stage predicates")
+    return {"split": split, "counts": counts}
+
+
+def _own_route_memory(smi: str, label: str, solve, ref: dict) -> dict:
+    """Peak memory of the loops and the graph route, each with only its own
+    graphs cached (the cache cleared, a solve that captures them, then a
+    solve from an emptied allocator cache), bitwise the host loop's."""
+    mem = {}
+    for r in ("loops", "graph"):
+        _loop._clear_graphs()
+        first = _loop_solve(solve, r)
+        run = _loop_solve(solve, r)
+        check(_same_outputs(first["out"], ref) and _same_outputs(run["out"], ref),
+              f"device_loop {label}: the {r} route differs from the host loop")
+        mem[r] = {"mem_gib": run["mem_gib"], "reserved_gib": run["reserved_gib"],
+                  "first_reserved_gib": first["reserved_gib"], "wall": run["wall"]}
+    _loop._clear_graphs()
+    ratio = mem["graph"]["reserved_gib"] / mem["loops"]["reserved_gib"]
+    say("device_loop", f"{label}: peak memory allocated / reserved with only the route's own graphs "
+        "cached, from an emptied cache: " + ", ".join(
+            f"{r} {m['mem_gib']:.2f} / {m['reserved_gib']:.2f} GiB (its capturing solve reserved "
+            f"{m['first_reserved_gib']:.2f})" for r, m in mem.items())
+        + f"; graph / loops reserved {ratio:.3f} (limit {PADDED_MEMORY_RATIO}) on {smi}")
+    check(ratio <= PADDED_MEMORY_RATIO, f"device_loop {label}: the graph route reserves {ratio:.3f}x "
+          "the loops route's memory")
+    return mem | {"ratio": ratio}
+
+
+def _batched_cells(smi: str) -> dict:
+    """The reference's other jit programs on the three routes, bitwise the
+    host loop: one hsd_solve_batched of BATCHED_N of the main cell's LPs
+    (the registry path at a chunk's width, profiled on the loops and the
+    graph route), each of netlib's three buckets (shared A), and
+    dense_path in f32 on the same LPs."""
+    _, A, b, c = _bench_problem(BATCHED_N)
+    opts = SolverOptions(**BENCH_OPTIONS)
+    cells = {}
+
+    def batched():
+        return hsd_mod.hsd_solve_batched(A, b, c, opts, bl.BATCHLAST_KERNELS, device="cuda")
+
+    label = f"hsd_solve_batched ({BATCHED_N} lanes, bench options)"
+    cells["batched"] = _loop_cell(smi, label, batched, turns=SHORT_TURNS)
+    _batched_checks(label, cells["batched"])
+    cells["batched"]["profile"] = {r: _profiled_batched(smi, batched, r) for r in ("loops", "graph")}
+
+    names, _, buckets = _netlib_buckets()
+    for i, An, bn, cn, _ in buckets:
+        bt, ct = torch.from_numpy(bn).to(CARD), torch.from_numpy(cn).to(CARD)
+        label = f"netlib {names[i]} ({An.shape[0]}x{An.shape[1]}, {NETLIB_REPS} replicas)"
+        cells[f"netlib_{names[i]}"] = cell = _loop_cell(
+            smi, label, lambda: hsd_mod.hsd_solve_batched(An, bt, ct, opts, bl.BATCHLAST_KERNELS,
+                                                          device="cuda"), turns=SHORT_TURNS)
+        _batched_checks(label, cell)
+
+    o32 = SolverOptions(tol=1e-4, maxiter=40, dtype="float32")
+    label = f"dense_path f32 ({BATCHED_N} lanes)"
+    cells["dense_path"] = _loop_cell(
+        smi, label, lambda: dense_path_solve_batched(A, b, c, o32, bl.BATCHLAST_KERNELS,
+                                                     device="cuda"), turns=SHORT_TURNS)
+    _batched_checks(label, cells["dense_path"])
+    _loop._clear_graphs()
+    return cells
+
+
 def phase_device_loop(smi: str, main_run: dict) -> dict:
     """The three routes on the card (``loop_route``: the stage graphs, the
     loops' graphs with eager segments, the per-iteration host loop),
-    bitwise, on the main cell, the fused-form and fuse_facsol sets and
-    netlib's padded batch (per-instance A, also at the shared-A block); the
-    block length over LOOP_BLOCKS on the main cell (wall, gated-off
-    share)."""
+    bitwise, on the main cell, the fused-form and fuse_facsol sets,
+    netlib's padded batch (per-instance A, also at the shared-A block, and
+    its memory with each route's own graphs), one hsd_solve_batched of
+    BATCHED_N lanes, netlib's three buckets and dense_path
+    (``_batched_cells``); the block length over LOOP_BLOCKS on the main
+    cell (wall, gated-off share)."""
     _, A, b, c = _bench_problem(N_LP)
     opts = SolverOptions(**BENCH_OPTIONS)
     kw = {**SCAN_KW, "keys": LOOP_KEYS}
@@ -2398,10 +2523,15 @@ def phase_device_loop(smi: str, main_run: dict) -> dict:
         smi, f"netlib padded ({A3.shape[0]} lanes, per-instance {A3.shape[1]}x{A3.shape[2]})",
         lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS, device="cuda"),
         block=_loop.BLOCK_PER_INSTANCE)
+    _batched_checks("netlib padded", cells["netlib_padded"])
+    cells["netlib_padded"]["own_memory"] = _own_route_memory(
+        smi, "netlib padded", lambda: hsd_mod.hsd_solve_batched(
+            A3, b3, c3, opts, bl.BATCHLAST_KERNELS, device="cuda"), cells["netlib_padded"]["ref"])
     cells["netlib_padded"]["blocks"] = _per_instance_blocks(
         smi, lambda: hsd_mod.hsd_solve_batched(A3, b3, c3, opts, bl.BATCHLAST_KERNELS,
                                                device="cuda"), cells["netlib_padded"]["ref"])
     del A3, b3, c3
+    cells.update(_batched_cells(smi))
 
     # the block length: the main cell on the graph route at each, its
     # answer bitwise the host loop's

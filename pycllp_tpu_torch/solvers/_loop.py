@@ -42,7 +42,11 @@ into a graph over static buffers, replayed after, eager on the CPU.  Its
 inputs are copied in only where they are not the very tensors, unmodified,
 copied last (a segment never writes its inputs), and its outputs are
 copied out of the graph's output buffers, which the segments of one output
-spec share.
+spec share.  A *borrowed* segment (``borrow=True``: a prologue whose
+outputs, the problem data and the kernel sets' contexts, are large) keeps
+output buffers of its own and returns them, not copies: they hold its
+result until its next replay, and every replay marks them modified, so a
+static copy made from them is made again.
 
 A graph replays the launches it captured.  Whatever decides them must be
 in the key (the kernel set and the options are, in
@@ -74,9 +78,12 @@ BLOCK = 3
 # padded batch, PERF.md §6)
 BLOCK_PER_INSTANCE = 1
 # captured graphs kept across calls (least recently used dropped first): a
-# main-cell solve caches 17 a kernel set (5 loop blocks, 12 segments), and
-# config 5's sweep 43 with its ragged last window; 128 holds the main path's
-# three sets and the sweep together, so a second solve captures nothing
+# main-cell solve caches 19 a kernel set (5 loop blocks, 14 segments with
+# the two prologues), config 5's sweep 47 with its ragged last window, one
+# hsd_solve_batched at bench options 9 (3 loop blocks, 6 segments: a netlib
+# bucket, the padded batch, a 16,384-lane chunk), dense_path 3; 128 holds
+# the main path's three sets and the sweep together, so a second solve
+# captures nothing
 GRAPH_CACHE_SIZE = 128
 
 # gated iterations that ran with their predicate false (their result discarded)
@@ -303,12 +310,14 @@ class _Segment:
     position and spec, ``data`` in those of its spec (shared with the
     loops' graphs), and the output in those of its spec, shared by the
     segments whose output has it (each replay's output is copied out
-    before any other replay)."""
+    before any other replay), or, for a borrowed segment, in buffers of
+    its own (``out_kind``), handed to the caller."""
 
-    def __init__(self, fn, state: tuple, data):
+    def __init__(self, fn, state: tuple, data, out_kind="out"):
         self.fn = fn
         self._ins = [_static(("in", i), t) for i, t in enumerate(state)]
         self.data_key, self._data = _static("data", data)
+        self.out_kind = out_kind
         self.out_key = self._out = None
         self.graph = None
         self.deltas: list = []
@@ -343,7 +352,11 @@ class _Segment:
         cur.wait_stream(side)
         for t in _flatten(out):
             t.record_stream(cur)
-        self.out_key, self._out = _static("out", out)
+        self.keep(out)
+
+    def keep(self, out) -> None:
+        """The output buffers, made to ``out``'s spec, with ``out`` copied in."""
+        self.out_key, self._out = _static(self.out_kind, out)
         self._out.load(out, always=True)
 
     def capture(self, device) -> None:
@@ -352,9 +365,10 @@ class _Segment:
     def replay(self) -> None:
         _replay(self.graph, self.deltas, "segment replay")
 
-    def result(self):
-        """A copy of the output buffers, the caller's to keep."""
-        return _map(torch.clone, self._out.tree)
+    def result(self, borrow: bool):
+        """A copy of the output buffers, the caller's to keep; with
+        ``borrow`` the buffers themselves."""
+        return self._out.tree if borrow else _map(torch.clone, self._out.tree)
 
 
 def _pool(device):
@@ -450,7 +464,7 @@ def _captures(tree) -> bool:
     return bool(ts) and ts[0].device.type == "cuda"
 
 
-def _segment(fn, state: tuple, data, key, eager: bool = False):
+def _segment(fn, state: tuple, data, key, eager: bool = False, borrow: bool = False):
     """``fn(state, data)``, a straight-line call that reads nothing back to
     the host (no ``bool``, ``int``, ``.item()``, ``nonzero`` or mask
     indexing), as one replayed CUDA graph.
@@ -463,18 +477,19 @@ def _segment(fn, state: tuple, data, key, eager: bool = False):
     launches.  On a CUDA tensor the first call of a key runs ``fn`` eagerly
     on the side stream and captures it, later calls replay it; a capture
     or replay that fails raises.  The output is a copy, the caller's to
-    keep.  On the CPU, or with ``eager``, ``fn`` runs eagerly on the
-    caller's tensors.
+    keep; with ``borrow``, the segment's own output buffers, valid until
+    its next call (for a result used within one solve).  On the CPU, or
+    with ``eager``, ``fn`` runs eagerly on the caller's tensors.
     """
     global SEGMENT_CALLS
     SEGMENT_CALLS += 1
     if eager or not _captures((state, data)):
         return fn(state, data)
-    full_key = ("segment", key, _spec(state), _spec(data))
+    full_key = ("segment", key, borrow, _spec(state), _spec(data))
     entry = _GRAPHS.get(full_key)
     if entry is None:
         dev = _flatten((state, data))[0].device
-        entry = _Segment(fn, state, data)
+        entry = _Segment(fn, state, data, ("out", full_key) if borrow else "out")
         entry.load(state, data)
         entry.warm_up(dev)
         entry.capture(dev)
@@ -484,4 +499,8 @@ def _segment(fn, state: tuple, data, key, eager: bool = False):
         _GRAPHS.move_to_end(full_key)
         entry.load(state, data)
         entry.replay()
-    return entry.result()
+        # the replay wrote the output buffers: a static copy made from a
+        # borrowed one (its tensor, its version) is stale now
+        for t in _flatten(entry._out.tree):
+            torch.autograd.graph.increment_version(t)
+    return entry.result(borrow)

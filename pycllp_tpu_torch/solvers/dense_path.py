@@ -10,9 +10,18 @@ default; this one is the cross-check.
 Problem form: ``min cᵀx  s.t.  Ax = b, x ≥ 0`` with residuals
 ``r_p = b − Ax``, ``r_d = c − Aᵀy − z``, ``μ = xᵀz/n``.
 
-As in the port's HSD core, the reference's ``lax.while_loop`` is a host
-loop whose predicate ``k < maxiter and any(status == RUNNING)`` is read
-back once per iteration, and f32 matmuls run with TF32 off (the
+As in the port's HSD core, the reference's ``lax.while_loop`` over its
+``PFState`` carry runs as blocks of gated iterations whose predicate
+``k < maxiter and any(status == RUNNING)`` stays on the device
+(:func:`pycllp_tpu_torch.solvers._loop._device_while`: ``_loop.BLOCK``
+iterations a block on shared A, ``_loop.BLOCK_PER_INSTANCE`` on
+per-instance A), each block a replayed CUDA graph on the card; the
+prologue (scaling, ``prepare``, the norms, the start) and the epilogue
+(the last classification, unscaling) are segments.  A collective
+``reduce_any`` keeps the host loop that reads the predicate every
+iteration, as do the private switches of
+:mod:`pycllp_tpu_torch.solvers.hsd` (``_HOST_LOOP``; ``_EAGER_SEGMENTS``
+runs the segments eagerly).  f32 matmuls run with TF32 off (the
 reference pins ``default_matmul_precision("highest")``).  The normal
 equations go through the kernel set: with ``BATCHLAST_KERNELS`` and f32
 the factor and solve are the hand-written ``chol_bl`` / ``solve_bl``.
@@ -20,11 +29,14 @@ the factor and solve are the hand-written ``chol_bl`` / ``solve_bl``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_tpu_torch.solvers import _loop
+from pycllp_tpu_torch.solvers import hsd as _hsd
 from pycllp_tpu_torch.solvers.base import BaseSolver, register_solver
-from pycllp_tpu_torch.solvers.hsd import _any_running, _full_precision_matmuls, _resolve_dtype, _to
 from pycllp_tpu_torch.solvers.options import Solution, SolverOptions, Status
 from pycllp_tpu_torch.utils.device import resolve_device
 from pycllp_tpu_torch.utils.scaling import ruiz_equilibrate, scale_problem, unscale_solution
@@ -37,6 +49,15 @@ _NUMERICAL = int(Status.NUMERICAL)
 _ITERATION_LIMIT = int(Status.ITERATION_LIMIT)
 
 _KEYS = ("x", "y", "z", "objective", "status", "iterations", "rho_p", "rho_d", "rho_gap")
+
+
+class PFState(NamedTuple):
+    x: torch.Tensor  # (B, n)
+    y: torch.Tensor  # (B, m)
+    z: torch.Tensor  # (B, n)
+    status: torch.Tensor  # (B,) int32
+    iterations: torch.Tensor  # (B,) int32
+    k: torch.Tensor  # () int32 — the loop counter, on the state's device
 
 
 def _ratio(v, dv):
@@ -62,13 +83,47 @@ def dense_path_solve_batched(
     ``reduce_any`` reduces the loop predicate's RUNNING mask, as in
     ``hsd_solve_batched`` (``torch.any`` or None: locally)."""
     dev = resolve_device(device)
-    with _full_precision_matmuls():
+    with _hsd._full_precision_matmuls():
         return _impl(A, b, c, opts, kset, dev, reduce_any)
 
 
 def _impl(A, b, c, opts, kset, dev, reduce_any):
-    dtype = _resolve_dtype(opts, A, b, c)
-    A, b, c = _to(A, dtype, dev), _to(b, dtype, dev), _to(c, dtype, dev)
+    dtype = _hsd._resolve_dtype(opts, A, b, c)
+    params = dict(opts=opts, kset=kset, dtype=dtype)
+    inputs = tuple(_hsd._on(v, dev) for v in (A, b, c))
+    state, data, scaling = _hsd._seg(_seg_start, inputs, (), borrow=True, **params)
+    local = reduce_any is None or reduce_any is torch.any
+    if not local or _hsd._HOST_LOOP:
+        body = _make_body(data, opts, kset, dtype)
+        s, k = state, 0
+        while k < opts.maxiter:
+            _loop.HOST_SYNCS += 1
+            if not _hsd._any_running(s.status, reduce_any):
+                break
+            s = body(s)
+            k += 1
+        _hsd.HOST_STEPS += k
+    else:
+        limit = torch.full((), opts.maxiter, dtype=torch.int32, device=dev)
+        block = _loop.BLOCK if data[0].A.dim() == 2 else _loop.BLOCK_PER_INSTANCE
+        s, steps = _loop._device_while(
+            _cond, lambda d: _make_body(d, opts, kset, dtype), state, data, limit, block,
+            key=("dense_path", opts, kset, dtype),
+        )
+        _hsd.HOST_STEPS += steps
+    return _hsd._seg(_seg_end, (s, scaling), data, **params)
+
+
+def _cond(s: PFState, maxiter):
+    """The reference's loop predicate, reduced locally, on the device."""
+    return (s.k < maxiter) & (s.status == _RUNNING).any()
+
+
+def _seg_start(state, data, *, opts, kset, dtype):
+    """The prologue, from ``state = (A, b, c)`` on the device in their own
+    dtypes: the starting :class:`PFState`, the loop's data ``(ctx, b, c,
+    bnorm, cnorm)`` (scaled) and the scaling."""
+    A, b, c = (v.to(dtype) for v in state)
     B, m = b.shape
     n = c.shape[-1]
     if opts.scale:
@@ -76,33 +131,46 @@ def _impl(A, b, c, opts, kset, dev, reduce_any):
         A, b, c = scale_problem(A, b, c, scaling)
     else:
         scaling = None
-
     ctx = kset.prepare(A)
-    reg_eps = opts.resolved_reg_eps(dtype)
     bnorm = 1.0 + torch.linalg.vector_norm(b, dim=-1)
     cnorm = 1.0 + torch.linalg.vector_norm(c, dim=-1)
+    dev = b.device
+    s = PFState(
+        x=torch.ones((B, n), dtype=dtype, device=dev),
+        y=torch.zeros((B, m), dtype=dtype, device=dev),
+        z=torch.ones((B, n), dtype=dtype, device=dev),
+        status=torch.full((B,), _RUNNING, dtype=torch.int32, device=dev),
+        iterations=torch.zeros((B,), dtype=torch.int32, device=dev),
+        k=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return s, (ctx, b, c, bnorm, cnorm), scaling
 
-    def classify(x, y, z):
-        rp = b - kset.mv(ctx, x)
-        rd = c - kset.rmv(ctx, y) - z
-        cx = (c * x).sum(-1)
-        gap = (cx - (b * y).sum(-1)).abs() / (1.0 + cx.abs())
-        ok = (
-            (torch.linalg.vector_norm(rp, dim=-1) / bnorm <= opts.tol)
-            & (torch.linalg.vector_norm(rd, dim=-1) / cnorm <= opts.tol)
-            & (gap <= opts.tol)
-        )
-        return rp, rd, gap, ok
 
-    x = torch.ones((B, n), dtype=dtype, device=dev)
-    y = torch.zeros((B, m), dtype=dtype, device=dev)
-    z = torch.ones((B, n), dtype=dtype, device=dev)
-    status = torch.full((B,), _RUNNING, dtype=torch.int32, device=dev)
-    iterations = torch.zeros((B,), dtype=torch.int32, device=dev)
-    k = 0
-    while k < opts.maxiter and _any_running(status, reduce_any):
-        rp, rd, gap, ok = classify(x, y, z)
-        status = torch.where((status == _RUNNING) & ok, _OPTIMAL, status)
+def _classify(data, kset, tol, x, y, z):
+    ctx, b, c, bnorm, cnorm = data
+    rp = b - kset.mv(ctx, x)
+    rd = c - kset.rmv(ctx, y) - z
+    cx = (c * x).sum(-1)
+    gap = (cx - (b * y).sum(-1)).abs() / (1.0 + cx.abs())
+    ok = (
+        (torch.linalg.vector_norm(rp, dim=-1) / bnorm <= tol)
+        & (torch.linalg.vector_norm(rd, dim=-1) / cnorm <= tol)
+        & (gap <= tol)
+    )
+    return rp, rd, gap, ok
+
+
+def _make_body(data, opts, kset, dtype):
+    """The reference's loop body over ``data``: classify, one Mehrotra (or
+    fixed-γ) step on the lanes still RUNNING."""
+    ctx, b, c, _, _ = data
+    reg_eps = opts.resolved_reg_eps(dtype)
+    n = c.shape[-1]
+
+    def body(s: PFState) -> PFState:
+        x, y, z = s.x, s.y, s.z
+        rp, rd, gap, ok = _classify(data, kset, opts.tol, x, y, z)
+        status = torch.where((s.status == _RUNNING) & ok, _OPTIMAL, s.status)
         active = status == _RUNNING
 
         mu = (x * z).sum(-1) / n
@@ -141,27 +209,40 @@ def _impl(A, b, c, opts, kset, dev, reduce_any):
         status = torch.where(active & ~finite, _NUMERICAL, status)
         take = active & finite
         tn = take[..., None]
-        x = torch.where(tn, xn, x)
-        y = torch.where(tn, yn, y)
-        z = torch.where(tn, zn, z)
-        iterations = torch.where(take, iterations + 1, iterations)
-        k += 1
+        return PFState(
+            x=torch.where(tn, xn, x),
+            y=torch.where(tn, yn, y),
+            z=torch.where(tn, zn, z),
+            status=status,
+            iterations=torch.where(take, s.iterations + 1, s.iterations),
+            k=s.k + 1,
+        )
 
-    rp, rd, gap, ok = classify(x, y, z)
-    status = torch.where((status == _RUNNING) & ok, _OPTIMAL, status)
+    return body
+
+
+def _seg_end(state, data, *, opts, kset, dtype):
+    """The epilogue: the last classification, OPTIMAL / ITERATION_LIMIT,
+    the objective and the unscaled point, as the output dict."""
+    s, scaling = state
+    _, b, c, bnorm, cnorm = data
+    rp, rd, gap, ok = _classify(data, kset, opts.tol, s.x, s.y, s.z)
+    status = torch.where((s.status == _RUNNING) & ok, _OPTIMAL, s.status)
     status = torch.where(status == _RUNNING, _ITERATION_LIMIT, status)
+    x, y, z = s.x, s.y, s.z
     objective = (c * x).sum(-1)  # scaled-c·scaled-x == c·x, as the reference takes it
     if scaling is not None:
         x, y, z = unscale_solution(x, y, z, scaling)
+    B = b.shape[0]
     return {
         "x": x,
         "y": y,
         "z": z,
-        "tau": torch.ones((B,), dtype=dtype, device=dev),
-        "kappa": torch.zeros((B,), dtype=dtype, device=dev),
+        "tau": torch.ones((B,), dtype=dtype, device=b.device),
+        "kappa": torch.zeros((B,), dtype=dtype, device=b.device),
         "objective": objective,
         "status": status,
-        "iterations": iterations,
+        "iterations": s.iterations,
         "rho_p": torch.linalg.vector_norm(rp, dim=-1) / bnorm,
         "rho_d": torch.linalg.vector_norm(rd, dim=-1) / cnorm,
         "rho_gap": gap,

@@ -24,11 +24,13 @@ What differs from the reference, and why:
   every rank must advance ``k`` in lockstep).  ``lax.scan`` over chunks
   becomes a Python loop over chunks, and every ``lax.cond`` (and the drain
   rounds' ``lax.while_loop``) a Python branch on a predicate read back
-  from the device.  The scan stages' straight-line code between those
-  reads runs as segments (:func:`_seg`, :func:`_loop._segment`): on the
-  card each is a replayed CUDA graph, so the host reads what the
-  reference's predicates read and dispatches nothing else one launch at
-  a time; ``_EAGER_SEGMENTS`` runs them eagerly, for on-card comparisons.
+  from the device.  The straight-line code between those reads — of the
+  scan stages, of ``hsd_solve_batched`` and of the no-cap scan — runs as
+  segments (:func:`_seg`, :func:`_loop._segment`): on the card each is a
+  replayed CUDA graph, so the host reads what the reference's predicates
+  read and dispatches nothing else one launch at a time but the copy of
+  numpy inputs to the card; ``_EAGER_SEGMENTS`` runs them eagerly, for
+  on-card comparisons.
   ``maxiter`` stays absolute in ``k``, and a compacted bucket resumes at
   ``k = cap``.
 * The device is explicit (``device=``, default ``"cuda"``); no tensor
@@ -77,10 +79,10 @@ _UNBOUNDED = int(Status.UNBOUNDED)
 _NUMERICAL = int(Status.NUMERICAL)
 _STALLED = int(Status.STALLED)
 
-# IPM iterations run by _run_phase: the iterations whose k advanced (read
-# once a phase from the change in k on the gated route, one per body on the
-# host loop).  Counted like the kernels' launch counters, so a caller can tie
-# launches to iterations.
+# IPM iterations run by _run_phase (and by dense_path's loop): the
+# iterations whose k advanced (read once a phase from the change in k on the
+# gated route, one per body on the host loop).  Counted like the kernels'
+# launch counters, so a caller can tie launches to iterations.
 HOST_STEPS = 0
 # True runs every phase as the per-iteration host loop (the route that
 # log_every and a collective reduce_any take), and the scan stages'
@@ -943,21 +945,23 @@ def _seg_package_bucketed(state, data, *, kset, opts, bucket, fold, keys):
 
 def _seg_package(state, data, *, kset, opts, keys, dtype):
     """:func:`_package` as a segment: the outputs ``keys`` of the terminal
-    state, the objective from ``c_orig`` in ``dtype``."""
-    (state,) = state
-    ctx, b_s, c_s, scaling, c_orig = data
+    state, the objective from ``c_orig`` in ``dtype``; ``state = (state,
+    scaling, c_orig)``, ``data`` the loop's ``(ctx, b_s, c_s)``."""
+    state, scaling, c_orig = state
+    ctx, b_s, c_s = data
     out = _package(ctx, b_s, c_s, state, kset, opts, scaling, c_orig.to(dtype))
     return {k: out[k] for k in keys}
 
 
-def _seg(fn, state: tuple, data, **params):
-    """``fn(state, data, **params)`` as one straight-line segment of a scan
-    stage (:func:`_loop._segment`: on the card a replayed CUDA graph, eager
-    with ``_EAGER_SEGMENTS`` or ``_HOST_LOOP``); ``params`` decide its
-    launches and name it in the graph cache."""
+def _seg(fn, state: tuple, data, *, borrow: bool = False, **params):
+    """``fn(state, data, **params)`` as one straight-line segment
+    (:func:`_loop._segment`: on the card a replayed CUDA graph, eager with
+    ``_EAGER_SEGMENTS`` or ``_HOST_LOOP``); ``params`` decide its launches
+    and name it in the graph cache.  ``borrow``: a prologue whose result
+    is used within the solve (its output buffers, not copies)."""
     key = (fn.__name__,) + tuple(sorted(params.items()))
     return _loop._segment(functools.partial(fn, **params), state, data, key,
-                          eager=_EAGER_SEGMENTS or _HOST_LOOP)
+                          eager=_EAGER_SEGMENTS or _HOST_LOOP, borrow=borrow)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,21 +1050,93 @@ def hsd_solve_batched(
         return _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm, reduce_any)
 
 
+def _on(v, dev):
+    """``v`` on ``dev`` in its own dtype: an input's copy to the device,
+    which stays outside the segments (a copy from pageable host memory
+    cannot be captured); the casts run inside them."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    return torch.as_tensor(np.asarray(v), device=dev)
+
+
+# the outputs of hsd_solve_batched
+_BATCHED_KEYS = ("x", "y", "z", "tau", "kappa", "objective", "status", "iterations", "rho_p",
+                 "rho_d", "rho_gap")
+
+
 def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None):
+    """The reference's jitted ``hsd_solve_batched``: its loops through
+    :func:`_run_phase`, the code between them as segments (:func:`_seg`).
+    The prologue also prepares the finish's context, so that every later
+    segment takes the narrow or the wide loop's data, and shares its
+    static copy; the crossover's context is prepared inside the segments
+    that run it, and never leaves them."""
     dtype = _resolve_dtype(opts, A, b, c)
     fdtype = _finish_dtype(opts, dtype)
+    fkset = ckset = None
     if fdtype is not None:
         _check_finish_levels(kset, opts, A)
-    # With a finish phase configured, scaling and the phase-2 arrays are
-    # built in the WIDE dtype from the original inputs; phase 1 sees the
-    # rounded copies.  (Upcasting already-rounded phase-1 arrays would
-    # make the polish phase faithfully solve the rounded problem and
-    # freeze in an O(ε_narrow) objective error.)
-    wide = fdtype or dtype
-    A_w = _to(A, wide, dev)
-    b_w = _to(b, wide, dev)
-    c_w = _to(c, wide, dev)
+        fkset = kset.finish_kernels(opts.finish_kset)
+        ckset = _crossover_kset(kset, fkset, opts)
+    inputs = tuple(_on(v, dev) for v in (A, b, c))
+    if warm is not None:
+        inputs += (tuple(_on(v, dev) for v in warm),)
+    state, narrow, wdata, scaling, c_w = _seg(
+        _seg_batched_start, inputs, (), borrow=True, opts=opts, kset=kset, fkset=fkset,
+        dtype=dtype, wide=fdtype or dtype)
+    ctx, b_s, c_s = narrow
 
+    phase1_tol = max(opts.tol, opts.switch_tol) if fdtype else opts.tol
+    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, phase1_tol, opts.maxiter,
+                              reduce_any)
+    if fdtype is None:
+        return _seg(_seg_package, (state, scaling, c_w), narrow, kset=kset, opts=opts,
+                    keys=_BATCHED_KEYS, dtype=dtype)
+
+    # continue the SAME interior state in the wide dtype, against the
+    # wide-dtype problem data; the kernel set may substitute a wide
+    # sibling (KernelSet.finish_kernels) so the O(m³) work stays fast
+    fctx, b_sw, c_sw = wdata
+    state = _seg(_seg_fold, (state,), narrow, kset=kset)
+    state = _seg(_seg_wide_start, (state,), wdata, opts=opts, fkset=fkset, ckset=ckset,
+                 fdtype=fdtype)
+    wopts = _wide_opts(opts)
+    state = _run_phase(
+        fctx, b_sw, c_sw, state, wopts, fkset, fdtype, opts.tol, opts.maxiter + opts.finish_maxiter,
+        reduce_any,
+    )
+    if opts.finish_mode == "crossover":
+        # second attempt after the IPM sharpened the rejects, and a rescue
+        # for lanes whose IPM stalled just above tol; reopen=False keeps
+        # reject statuses STALLED/NUMERICAL for the restart below
+        state = _seg(_seg_wide_cross, (state,), wdata, opts=opts, fkset=fkset, ckset=ckset,
+                     fdtype=fdtype)
+    if opts.finish_restart:
+        # fresh-restart fallback: STALLED/NUMERICAL lanes rerun from a cold
+        # Mehrotra start; still-RUNNING (budget-capped) lanes continue warm
+        # with the restart round's budget (k resets to 0)
+        state = _seg(_seg_tier_restart, (state,), wdata, opts=opts, fkset=fkset, wide=fdtype)
+        state = _run_phase(
+            fctx, b_sw, c_sw, state, wopts.replace(stall_patience=_NO_STALL), fkset, fdtype,
+            opts.tol, opts.finish_maxiter + 10, reduce_any,
+        )
+    return _seg(_seg_package, (state, scaling, c_w), wdata, kset=fkset, opts=opts,
+                keys=_BATCHED_KEYS, dtype=fdtype)
+
+
+def _seg_batched_start(state, data, *, opts, kset, fkset, dtype, wide):
+    """:func:`_hsd_solve_batched_impl`'s prologue, from ``state = (A, b, c)``
+    or ``(A, b, c, warm)`` on the device in their own dtypes: the starting
+    state, the narrow loop's data ``(ctx, b_s, c_s)``, the wide loop's
+    ``(fctx, b_sw, c_sw)`` (None without a finish), the scaling and ``c``
+    in ``wide``.
+
+    With a finish, scaling and the phase-2 arrays are built in the WIDE
+    dtype from the original inputs; phase 1 sees the rounded copies.
+    (Upcasting already-rounded phase-1 arrays would make the polish phase
+    faithfully solve the rounded problem and freeze in an O(ε_narrow)
+    objective error.)"""
+    A_w, b_w, c_w = (v.to(wide) for v in state[:3])
     if opts.scale:
         scaling = ruiz_equilibrate(A_w)
         A_sw, b_sw, c_sw = scale_problem(A_w, b_w, c_w, scaling)
@@ -1068,69 +1144,62 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm=None, reduce_any=None
         scaling = None
         A_sw, b_sw, c_sw = A_w, b_w, c_w
     A_s, b_s, c_s = A_sw.to(dtype), b_sw.to(dtype), c_sw.to(dtype)
-
     ctx = kset.prepare(A_s)
-    if warm is not None:
+    warm = None
+    if len(state) > 3:
         # map the user's unscaled warm point into scaled coordinates
         # (inverse of unscale_solution: x̃ = x/s, ỹ = y/r, z̃ = z·s)
-        xw, yw, zw = (_to(v, dtype, dev) for v in warm)
+        xw, yw, zw = (v.to(dtype) for v in state[3])
         if scaling is not None:
             xw = xw / scaling.col.to(dtype)
             yw = yw / scaling.row.to(dtype)
             zw = zw * scaling.col.to(dtype)
         warm = (xw, yw, zw)
-    state = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=warm)
+    s = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=warm)
+    wdata = None if fkset is None else (fkset.prepare(A_sw), b_sw, c_sw)
+    return s, (ctx, b_s, c_s), wdata, scaling, c_w
 
-    phase1_tol = max(opts.tol, opts.switch_tol) if fdtype else opts.tol
-    state = _run_narrow_phase(ctx, b_s, c_s, state, opts, kset, dtype, phase1_tol, opts.maxiter,
-                              reduce_any)
-    if fdtype is None:
-        return _package(ctx, b_s, c_s, state, kset, opts, scaling, c_w)
 
-    # continue the SAME interior state in the wide dtype, against the
-    # wide-dtype problem data; the kernel set may substitute a wide
-    # sibling (KernelSet.finish_kernels) so the O(m³) work stays fast
-    fkset = kset.finish_kernels(opts.finish_kset)
-    ckset = _crossover_kset(kset, fkset, opts)
-    state = _fold_to_best(ctx, b_s, c_s, state, kset)
-    ctx = fkset.prepare(A_sw)
-    cctx = ctx if ckset is fkset else ckset.prepare(A_sw)
-    state = _cast_state(state, fdtype)
-    state = state._replace(
-        best_score=torch.full_like(state.best_score, torch.finfo(fdtype).max),
-        best_k=_best_k_at(state),
+def _seg_fold(state, data, *, kset):
+    """The narrow state folded to its best iterates."""
+    (s,) = state
+    ctx, b, c = data
+    return _fold_to_best(ctx, b, c, s, kset)
+
+
+def _crossover_ctx(fctx, fkset, ckset, fdtype):
+    """The crossover set's context, prepared from the wide context's A (in
+    ``fdtype``: the scaled wide A that every set's ``prepare`` keeps)."""
+    return fctx if ckset is fkset else ckset.prepare(fctx.A.to(fdtype))
+
+
+def _seg_wide_start(state, data, *, opts, fkset, ckset, fdtype):
+    """The finish's start: the folded narrow state cast to ``fdtype``, its
+    best trackers reset, then one wide basis solve that finishes accepted
+    lanes as OPTIMAL and re-opens the rejects RUNNING for the IPM
+    continuation (``finish_mode="crossover"``), or every lane not
+    NUMERICAL re-opened."""
+    (s,) = state
+    fctx, b_sw, c_sw = data
+    s = _cast_state(s, fdtype)
+    s = s._replace(
+        best_score=torch.full_like(s.best_score, torch.finfo(fdtype).max),
+        best_k=_best_k_at(s),
     )
     if opts.finish_mode == "crossover":
-        # one wide basis solve finishes accepted lanes as OPTIMAL;
-        # rejects are re-opened RUNNING for the IPM continuation below
-        state = _crossover_state(cctx, b_sw, c_sw, state, ckset, opts, opts.tol)
-    else:
-        state = state._replace(
-            status=torch.where(state.status != _NUMERICAL, _RUNNING, state.status)
-        )
-    wopts = _wide_opts(opts)
-    state = _run_phase(
-        ctx, b_sw, c_sw, state, wopts, fkset, fdtype, opts.tol, opts.maxiter + opts.finish_maxiter,
-        reduce_any,
-    )
-    if opts.finish_mode == "crossover":
-        # second attempt after the IPM sharpened the rejects, and a rescue
-        # for lanes whose IPM stalled just above tol; reopen=False keeps
-        # reject statuses STALLED/NUMERICAL for the restart below
-        state = _fold_to_best(ctx, b_sw, c_sw, state, fkset)
-        state = _crossover_state(cctx, b_sw, c_sw, state, ckset, opts, opts.tol, reopen=False)
-    if opts.finish_restart:
-        # fresh-restart fallback: STALLED/NUMERICAL lanes rerun from a cold
-        # Mehrotra start; still-RUNNING (budget-capped) lanes continue warm
-        # with the restart round's budget (k resets to 0)
-        retry = (state.status == _STALLED) | (state.status == _NUMERICAL)
-        fresh = _fresh_state(ctx, b_sw, c_sw, opts.replace(init_point="mehrotra"), fkset, fdtype)
-        state = _restart_merge(state, fresh, retry)
-        state = _run_phase(
-            ctx, b_sw, c_sw, state, wopts.replace(stall_patience=_NO_STALL), fkset, fdtype,
-            opts.tol, opts.finish_maxiter + 10, reduce_any,
-        )
-    return _package(ctx, b_sw, c_sw, state, fkset, opts, scaling, c_w)
+        cctx = _crossover_ctx(fctx, fkset, ckset, fdtype)
+        return _crossover_state(cctx, b_sw, c_sw, s, ckset, opts, opts.tol)
+    return s._replace(status=torch.where(s.status != _NUMERICAL, _RUNNING, s.status))
+
+
+def _seg_wide_cross(state, data, *, opts, fkset, ckset, fdtype):
+    """After the wide IPM: the fold to the best iterates and the second
+    crossover, its rejects left as they are (``reopen=False``)."""
+    (s,) = state
+    fctx, b_sw, c_sw = data
+    s = _fold_to_best(fctx, b_sw, c_sw, s, fkset)
+    cctx = _crossover_ctx(fctx, fkset, ckset, fdtype)
+    return _crossover_state(cctx, b_sw, c_sw, s, ckset, opts, opts.tol, reopen=False)
 
 
 def _wide_opts(opts: SolverOptions) -> SolverOptions:
@@ -1174,8 +1243,10 @@ def _hsd_scan_core(A, b3, c3, opts, kset, keys, dev, warm_chain=False):
     """No-cap chunked solve: one batched solve per chunk, in chunk order.
 
     With ``warm_chain``, chunk k+1's lane j starts from chunk k's lane-j
-    solution (chunk 0 from the blind start).
+    solution (chunk 0 from the blind start).  The carry and the final
+    concatenation are segments.
     """
+    A = _on(A, dev)
     outs = []
     carry = None
     if warm_chain:
@@ -1190,14 +1261,24 @@ def _hsd_scan_core(A, b3, c3, opts, kset, keys, dev, warm_chain=False):
     for bc, cc in zip(b3, c3):
         out = _hsd_solve_batched_impl(A, bc, cc, opts, kset, dev, warm=carry)
         if warm_chain:
-            ok = torch.isin(
-                out["status"],
-                torch.tensor([_OPTIMAL, _STALLED, _ITERATION_LIMIT], device=dev,
-                             dtype=out["status"].dtype),
-            )
-            carry = _sanitize_carry(out["x"], out["y"], out["z"], ok)
-        outs.append(out)
-    return {k: torch.cat([o[k] for o in outs]) for k in keys}
+            carry = _seg(_seg_warm_carry, (out["x"], out["y"], out["z"], out["status"]), ())
+        outs.append({k: out[k] for k in keys})
+    return _seg(_seg_cat, tuple(outs), ())
+
+
+def _seg_warm_carry(state, data):
+    """The next chunk's warm point: this chunk's solution where its status
+    is OPTIMAL, STALLED or ITERATION_LIMIT and it is finite, else the
+    blind start."""
+    x, y, z, status = state
+    ok = (status == _OPTIMAL) | (status == _STALLED) | (status == _ITERATION_LIMIT)
+    return _sanitize_carry(x, y, z, ok)
+
+
+def _seg_cat(state, data):
+    """The chunks' outputs ``state`` (dicts of one set of keys),
+    concatenated lane-wise."""
+    return {k: torch.cat([o[k] for o in state]) for k in state[0]}
 
 
 def _compact_resume(
@@ -1328,20 +1409,19 @@ def _finish_opts_view(opts: SolverOptions) -> SolverOptions:
     )
 
 
-def _scan_scaled_arrays(A, b3, c3, opts, dev):
-    """Shared preamble of the scan stages: wide + narrow scaled data.
+def _scan_scaled_arrays(A, b3, c3, opts, wide):
+    """Shared preamble of the scan stages' prologues: the scaled data in
+    the WIDE dtype, from ``A``, ``b3``, ``c3`` on the device.
 
     With a finish configured the Ruiz scaling and the scaled data are
     computed in the WIDE dtype from the original inputs (the narrow
     stages cast them down), as in :func:`_hsd_solve_batched_impl`.
-    Returns ``(dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w)``.
+    Returns ``(scaling, A_sw, b_sfw, c_sfw, c_flat_w)``.
     """
-    dtype = _resolve_dtype(opts, A, b3, c3)
-    wide = _finish_dtype(opts, dtype) or dtype
     K, chunk, m = b3.shape
     n = c3.shape[-1]
     N = K * chunk
-    A_w = _to(A, wide, dev)
+    A_w = A.to(wide)
     c_flat_w = c3.reshape(N, n).to(wide)
     b_flat_w = b3.reshape(N, m).to(wide)
     if opts.scale:
@@ -1350,7 +1430,34 @@ def _scan_scaled_arrays(A, b3, c3, opts, dev):
     else:
         scaling = None
         A_sw, b_sfw, c_sfw = A_w, b_flat_w, c_flat_w
-    return dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w
+    return scaling, A_sw, b_sfw, c_sfw, c_flat_w
+
+
+def _scan_dtypes(A, b3, c3, opts):
+    """The scan stages' narrow and wide dtypes."""
+    dtype = _resolve_dtype(opts, A, b3, c3)
+    return dtype, _finish_dtype(opts, dtype) or dtype
+
+
+def _seg_narrow_prologue(state, data, *, opts, kset, dtype, wide):
+    """The narrow stage's prologue: the scaling, the narrow set's context,
+    the scaled ``b`` and ``c`` (flat, in ``dtype``) and ``c`` (flat, in
+    ``wide``)."""
+    A, b3, c3 = state
+    scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, wide)
+    return scaling, kset.prepare(A_sw.to(dtype)), b_sfw.to(dtype), c_sfw.to(dtype), c_flat_w
+
+
+def _seg_finish_prologue(state, data, *, opts, kset, fkset, ckset, dtype, wide):
+    """The finish stage's prologue: the scaling, the narrow, wide and
+    crossover sets' contexts (the crossover's None where it is the wide
+    set), the scaled ``b`` and ``c`` and ``c`` (flat, in ``wide``)."""
+    A, b3, c3 = state
+    scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, wide)
+    ctx = kset.prepare(A_sw.to(dtype))
+    fctx = fkset.prepare(A_sw)
+    cctx = None if ckset is fkset else ckset.prepare(A_sw)
+    return scaling, ctx, fctx, cctx, b_sfw, c_sfw, c_flat_w
 
 
 def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_chain=False):
@@ -1365,10 +1472,11 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
     With ``keys`` the packaged outputs are returned; with ``keys=None``
     the flat narrow :class:`HSDState`, for :func:`_hsd_scan_finish_core`.
     """
-    dtype, _, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, dev)
+    dtype, wide = _scan_dtypes(A, b3, c3, opts)
     K, chunk, _ = b3.shape
-    A_s, b_sf, c_sf = A_sw.to(dtype), b_sfw.to(dtype), c_sfw.to(dtype)
-    ctx = kset.prepare(A_s)
+    scaling, ctx, b_sf, c_sf, c_flat_w = _seg(
+        _seg_narrow_prologue, (_on(A, dev), b3, c3), (), borrow=True, opts=opts, kset=kset,
+        dtype=dtype, wide=wide)
     tol = opts.tol
 
     # ---- stage 1: capped narrow chunks, in chunk order ----
@@ -1388,7 +1496,7 @@ def _hsd_scan_narrow_core(A, b3, c3, opts, kset, keys, cap, bucket, dev, warm_ch
     sflat = _compact_resume(ctx, b_sf, c_sf, sflat, opts, kset, dtype, tol, opts.maxiter, bucket)
     if keys is None:
         return sflat
-    return _seg(_seg_package, (sflat,), (ctx, b_sf, c_sf, scaling, c_flat_w), kset=kset,
+    return _seg(_seg_package, (sflat, scaling, c_flat_w), (ctx, b_sf, c_sf), kset=kset,
                 opts=opts, keys=keys, dtype=dtype)
 
 
@@ -1413,16 +1521,15 @@ def _hsd_scan_finish_core(
     ``PYCLLP_FINISH_TRUNCATE``) returns the packaged outputs right after
     the named stage, to split the finish's cost.
     """
-    dtype, wide, scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(
-        A, b3, c3, opts, dev
-    )
+    dtype, wide = _scan_dtypes(A, b3, c3, opts)
+    fkset = kset.finish_kernels(opts.finish_kset)
+    ckset = _crossover_kset(kset, fkset, opts)
+    scaling, ctx, fctx, cctx, b_sfw, c_sfw, c_flat_w = _seg(
+        _seg_finish_prologue, (_on(A, dev), b3, c3), (), borrow=True, opts=opts, kset=kset,
+        fkset=fkset, ckset=ckset, dtype=dtype, wide=wide)
+    cctx = fctx if cctx is None else cctx
     K = b3.shape[0]
     N = b_sfw.shape[0]
-    ctx = kset.prepare(A_sw.to(dtype))
-    fkset = kset.finish_kernels(opts.finish_kset)
-    fctx = fkset.prepare(A_sw)
-    ckset = _crossover_kset(kset, fkset, opts)
-    cctx = fctx if ckset is fkset else ckset.prepare(A_sw)
     wopts = _wide_opts(opts)
     fdata = (fctx, b_sfw, c_sfw)
 
@@ -1525,7 +1632,7 @@ def _hsd_scan_finish_core(
                 restart=opts.finish_restart,
             )
     if any(k in ("rho_p", "rho_d", "rho_gap") for k in keys):
-        return _seg(_seg_package, (sflat,), (fctx, b_sfw, c_sfw, scaling, c_flat_w), kset=fkset,
+        return _seg(_seg_package, (sflat, scaling, c_flat_w), (fctx, b_sfw, c_sfw), kset=fkset,
                     opts=opts, keys=tuple(keys), dtype=wide)
     # ρ diagnostics not requested → finalize/classify only the gathered
     # non-terminal remainder (see _package_bucketed)

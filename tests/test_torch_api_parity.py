@@ -45,12 +45,12 @@ ALLOWED = (
      "(Lh, Ll, dinv_h, dinv_l)",
      "ROADMAP §1, Decisions; §3 'δ of the wide factor'"),
     ("not carried", ("ops.df64.df_mul", "ops.df64.df_div", "ops.df64.df_sqrt",
-                     "solvers.dense_path.PFState", "utils.profiling.V5E_PEAK_BF16_TFLOPS",
+                     "utils.profiling.V5E_PEAK_BF16_TFLOPS",
                      "utils.profiling.V5E_PEAK_F32_TFLOPS", "utils.profiling.V5E_HBM_GBPS",
                      "ops.batchlast.LANES", "ops.df64.LANES"),
-     "double-single arithmetic used only inside the reference's Pallas kernels, the dense "
-     "path's pytree state, the TPU v5e peak constants and the TPU's 128-lane block width: "
-     "TPU internals with no meaning on the card",
+     "double-single arithmetic used only inside the reference's Pallas kernels, the TPU v5e "
+     "peak constants and the TPU's 128-lane block width: TPU internals with no meaning on "
+     "the card",
      "ROADMAP §1, names missing from the port; Decisions"),
     ("renamed class", ("JaxHSDSolver -> TorchHSDSolver", "PallasHSDSolver -> CudaHSDSolver"),
      "the classes are named for their backend; their registry names match the reference's",

@@ -120,9 +120,7 @@ def graphs(monkeypatch):
     counts = collections.Counter()
 
     def warm_up(self, device):
-        out = self.call()
-        self.out_key, self._out = _loop._static("out", out)
-        self._out.load(out, always=True)
+        self.keep(self.call())
 
     def capture(self, device):
         counts["captures"] += 1
@@ -190,9 +188,9 @@ def _keys(monkeypatch, run):
     keys = []
     inner = _loop._segment
 
-    def recorded(fn, state, data, key, eager=False):
+    def recorded(fn, state, data, key, eager=False, borrow=False):
         keys.append(key)
-        return inner(fn, state, data, key, eager)
+        return inner(fn, state, data, key, eager, borrow)
 
     monkeypatch.setattr(_loop, "_segment", recorded)
     run()
@@ -220,11 +218,13 @@ def test_segment_key_names_width_tier_reopen_and_truncate(monkeypatch):
     wider = _keys(monkeypatch, lambda: _finish(A, b3, c3, sflat, opts, bucket=8))
     assert {g["width"] for g in _of(wider, "_seg_tier_gather")} - {256} == {8}
     assert {p["bucket"] for p in _of(wider, "_seg_package_bucketed")} == {8}
-    # truncated before stage 3: the finish's start alone, not re-opened
+    # truncated before stage 3: the prologue and the finish's start alone,
+    # not re-opened
     pre = _keys(monkeypatch, lambda: _finish(A, b3, c3, sflat, opts, truncate="pre"))
-    assert [k[0] for k in pre] == ["_seg_finish_start", "_seg_package_bucketed"]
+    assert [k[0] for k in pre] == ["_seg_finish_prologue", "_seg_finish_start",
+                                   "_seg_package_bucketed"]
     assert _of(pre, "_seg_finish_start")[0]["reopen"] is False
-    assert keys[0][0] == "_seg_stage3_crossover"
+    assert [k[0] for k in keys[:2]] == ["_seg_finish_prologue", "_seg_stage3_crossover"]
     ipm = _keys(monkeypatch, lambda: _finish(A, b3, c3, sflat, _opts("ipm")))
     assert _of(ipm, "_seg_finish_start")[0]["reopen"] is True
     assert {r["restart"] for r in _of(ipm, "_seg_resume_gather")} == {False, True}
