@@ -59,11 +59,22 @@ and :mod:`pycllp_tpu_torch.ops.df64`) are added to by Python at the call
 that issues a launch, so at capture only: the capture's increments are
 taken back, and every replay adds them again, so a counter counts the
 launches that ran.
+
+The profiler marks (``torch.profiler.record_function`` ranges, recorded
+only while a profiler runs, always in host code outside any captured
+graph): ``predicate read`` (every host read), ``loop replay`` and
+``segment replay`` (every replay), ``segment`` (the whole of a
+:func:`_segment` call: key, lookup, loads, replay, copy out) and ``graph
+capture`` (a new key's warm-up and capture).  ``CAPTURE_SECONDS`` adds up
+the host seconds of the latter.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
+import time
 import weakref
 
 import torch
@@ -98,6 +109,10 @@ GRAPH_REPLAYS = 0
 # the drain rounds' loop predicate), and their straight-line segments run
 STAGE_READS = 0
 SEGMENT_CALLS = 0
+# host seconds from the start of a new key's warm-up to the end of its
+# capture (the capture synchronises the device before it begins), less a
+# compile of the kernel library that the warm-up ran
+CAPTURE_SECONDS = 0.0
 
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
 _STATIC: dict = {}
@@ -139,6 +154,40 @@ def _spec(tree):
     if isinstance(tree, dict):
         return ("dict",) + tuple((k, _spec(v)) for k, v in tree.items())
     return tree
+
+
+def _spanned(name: str):
+    """A decorator: each call of the function runs inside its own
+    ``torch.profiler.record_function(name)`` range."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+@contextlib.contextmanager
+def _new_graph():
+    """A new key's warm-up and capture: marked ``graph capture`` for the
+    profiler, its host seconds added to ``CAPTURE_SECONDS``, less the
+    compile of the kernel library where the warm-up's first launch ran it
+    (a process's first graph in a checkout without the built library)."""
+    global CAPTURE_SECONDS
+    from pycllp_tpu_torch.ops import _build
+
+    built = _build._INFO
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("graph capture"):
+        yield
+    seconds = time.perf_counter() - t0
+    if _build._INFO is not built:
+        seconds -= _build._INFO.seconds
+    CAPTURE_SECONDS += seconds
 
 
 def _host_read(flag) -> list:
@@ -419,9 +468,10 @@ def _replayed(cond, make_body, state, data, limit, block: int, key):
     if entry is None:
         entry = _Graph(cond, make_body, state, data, limit, block)
         entry.load(state, data, limit)
-        entry.warm_up()
+        with _new_graph():
+            entry.warm_up()
+            entry.capture()
         blocks = 1
-        entry.capture()
         _GRAPHS[full_key] = entry
         _evict()
         more, steps = _host_read(entry.flag)
@@ -464,6 +514,7 @@ def _captures(tree) -> bool:
     return bool(ts) and ts[0].device.type == "cuda"
 
 
+@_spanned("segment")
 def _segment(fn, state: tuple, data, key, eager: bool = False, borrow: bool = False):
     """``fn(state, data)``, a straight-line call that reads nothing back to
     the host (no ``bool``, ``int``, ``.item()``, ``nonzero`` or mask
@@ -491,8 +542,9 @@ def _segment(fn, state: tuple, data, key, eager: bool = False, borrow: bool = Fa
         dev = _flatten((state, data))[0].device
         entry = _Segment(fn, state, data, ("out", full_key) if borrow else "out")
         entry.load(state, data)
-        entry.warm_up(dev)
-        entry.capture(dev)
+        with _new_graph():
+            entry.warm_up(dev)
+            entry.capture(dev)
         _GRAPHS[full_key] = entry
         _evict()
     else:

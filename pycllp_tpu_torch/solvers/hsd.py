@@ -43,6 +43,12 @@ What differs from the reference, and why:
 * ``log_every`` records (:mod:`pycllp_tpu_torch.utils.logging`) are
   reduced on the device and read back only on the iterations that emit
   one, where the reference calls back from inside its loop.
+* Profiler marks (``torch.profiler.record_function`` ranges, beside
+  those of :mod:`pycllp_tpu_torch.solvers._loop`): each call of
+  :func:`hsd_solve_scan` and :func:`hsd_solve_batched` under its own
+  name, the scan's ``narrow stage`` and ``finish stage``, and ``ipm
+  phase`` around each :func:`_run_phase`.  None adds a sync or a host
+  read.
 
 Problem form: ``min cᵀx  s.t.  Ax = b, x ≥ 0`` (EqualityLP).  HSD
 embedding variables: x ≥ 0, y free, z ≥ 0, τ ≥ 0, κ ≥ 0; residuals
@@ -365,6 +371,7 @@ def _phase_cond(s: HSDState, maxiter):
     return (s.k < maxiter) & (s.status == _RUNNING).any()
 
 
+@_loop._spanned("ipm phase")
 def _run_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
     dtype, tol: float, maxiter, reduce_any=None,
@@ -1013,6 +1020,7 @@ def _to(v, dtype, dev):
     return torch.as_tensor(v, dtype=dtype, device=dev)
 
 
+@_loop._spanned("hsd_solve_batched")
 def hsd_solve_batched(
     A,
     b,
@@ -1752,6 +1760,7 @@ def _seg_tier_scatter(state, data, *, fkset, topts, reopen):
     return _round_end(s, st2, treated, idx, resumed)
 
 
+@_loop._spanned("hsd_solve_scan")
 def hsd_solve_scan(
     A,
     b,
@@ -1792,7 +1801,8 @@ def hsd_solve_scan(
 
     ``stage_sync``: with a finish, synchronise the device after the
     narrow and after the finish stage and print each stage's seconds to
-    stderr (the reference's ``PYCLLP_SCAN_SYNC``).
+    stderr (the reference's ``PYCLLP_SCAN_SYNC``).  The stages are marked
+    ``narrow stage`` and ``finish stage`` for the profiler either way.
     """
     if getattr(A, "ndim", 2) != 2:
         raise ValueError("hsd_solve_scan requires shared 2-D A")
@@ -1814,18 +1824,21 @@ def hsd_solve_scan(
         if compact_cap is None:
             res = _hsd_scan_core(A, b3, c3, opts, kset, keys, dev, bool(warm_chain))
         elif _finish_dtype(opts, dtype) is None:
-            res = _hsd_scan_narrow_core(
-                A, b3, c3, opts, kset, keys, int(compact_cap),
-                min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
-            )
+            with torch.profiler.record_function("narrow stage"):
+                res = _hsd_scan_narrow_core(
+                    A, b3, c3, opts, kset, keys, int(compact_cap),
+                    min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
+                )
         else:
             _check_finish_levels(kset, opts, A)
             phase1_tol = max(opts.tol, opts.switch_tol)
             t0 = time.perf_counter()
-            sflat = _hsd_scan_narrow_core(
-                A, b3, c3, _narrow_opts_view(opts, phase1_tol), kset, None,
-                int(compact_cap), min(int(compact_bucket), K * chunk), dev, bool(warm_chain),
-            )
+            with torch.profiler.record_function("narrow stage"):
+                sflat = _hsd_scan_narrow_core(
+                    A, b3, c3, _narrow_opts_view(opts, phase1_tol), kset, None,
+                    int(compact_cap), min(int(compact_bucket), K * chunk), dev,
+                    bool(warm_chain),
+                )
             if stage_sync:
                 _sync(dev)
                 running = int((sflat.status == _RUNNING).sum())
@@ -1833,12 +1846,14 @@ def hsd_solve_scan(
                       f"(sync; {running} lanes still RUNNING)", file=sys.stderr, flush=True)
                 t0 = time.perf_counter()
             fb = min(int(finish_bucket or compact_bucket), K * chunk)
-            res = _hsd_scan_finish_core(
-                A, b3, c3, sflat, _finish_opts_view(opts), kset, keys, int(finish_cap), fb, dev,
-                # enough drain rounds to empty the WHOLE batch through the
-                # bucket; the rounds loop ends once no lane is RUNNING
-                rounds=max(4, -(-(K * chunk) // fb)),
-            )
+            with torch.profiler.record_function("finish stage"):
+                res = _hsd_scan_finish_core(
+                    A, b3, c3, sflat, _finish_opts_view(opts), kset, keys, int(finish_cap), fb,
+                    dev,
+                    # enough drain rounds to empty the WHOLE batch through the
+                    # bucket; the rounds loop ends once no lane is RUNNING
+                    rounds=max(4, -(-(K * chunk) // fb)),
+                )
             if stage_sync:
                 _sync(dev)
                 print(f"[scan] finish stage: {time.perf_counter() - t0:.3f}s (sync)",

@@ -24,6 +24,7 @@ import torch
 
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.parallel.collectives import psum
+from pycllp_tpu_torch.solvers import _loop
 from pycllp_tpu_torch.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 from pycllp_tpu_torch.solvers.options import SolverOptions
 from pycllp_tpu_torch.utils.device import resolve_device
@@ -73,6 +74,7 @@ def _repeat_last(v, pad: int):
     return np.concatenate([v, np.repeat(v[-1:], pad, 0)], 0)
 
 
+@_loop._spanned("scenario_sweep")
 def scenario_sweep(
     A,
     b,
@@ -132,6 +134,11 @@ def scenario_sweep(
     collective is every other rank's barrier before it reads a chunk
     file), so every rank solves the same chunks and calls the same
     collectives, and a mismatched directory raises on every rank.
+
+    Profiler marks (``torch.profiler.record_function`` ranges): the whole
+    call as ``scenario_sweep``; in each window, the pull of its outputs
+    to numpy as ``sweep pull`` and each chunk file's write as ``sweep
+    write``.
     """
     N = b.shape[0]
     if c.shape[0] != N:
@@ -185,6 +192,7 @@ def scenario_sweep(
     n_resumed = 0
     keys = ("objective", "status", "iterations") + (("x",) if save_x else ())
 
+    @_loop._spanned("sweep write")
     def persist(path, sl, out, lo, hi):
         payload = {k_: out[k_][sl][: hi - lo] for k_ in keys}
         tmp = path + ".tmp.npz"
@@ -223,8 +231,9 @@ def scenario_sweep(
                     bb, cb = _repeat_last(bb, pad), _repeat_last(cb, pad)
                 out = solve_fn(A, bb, cb)
             # ONE pull per key
-            out = {k_: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
-                   for k_, v in out.items()}
+            with torch.profiler.record_function("sweep pull"):
+                out = {k_: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+                       for k_, v in out.items()}
             for j in missing:
                 lo, hi = (k + j) * chunk, min((k + j + 1) * chunk, N)
                 sl = slice(lo - lo_w, lo - lo_w + chunk)
