@@ -1,8 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port (``pycllp_tpu_torch``).
 
 Builds the hand-written CUDA kernels from the sources in this checkout
-(``csrc/batchlast.cu`` and ``csrc/df64.cu``, which includes
-``csrc/ozaki.cuh``), holds each against its plain
+(``csrc/batchlast.cu``, ``csrc/df64.cu``, which includes
+``csrc/ozaki.cuh``, and ``csrc/lanemv.cu``), holds each against its plain
 PyTorch version on the card, and drives the port's paths:
 
 1. device and build;
@@ -20,7 +20,10 @@ PyTorch version on the card, and drives the port's paths:
    the paths give it (the main cell's matvecs and formation, netlib's),
    with zero, power-of-two and NaN lanes, BITWISE against the split route
    it replaced and its plain version, timed against the split route and
-   one f64 ``torch.matmul``;
+   one f64 ``torch.matmul``; the lane matvec for per-instance A
+   (``phase_lanemv_kernels``: A·x, Aᵀ·y and the normal product, f32 and
+   f64) against its plain version (the einsum route) at the padded netlib
+   shape and a ragged one, timed at the padded shape beside its bound;
 3. the narrow main path — 65,536 dense 64×64 LPs through
    ``get_solver("hsd_pallas", device="cuda")`` at the ``BENCH_FINISH=0``
    options, its ITERATION_LIMIT count bounded around the JAX reference's;
@@ -158,6 +161,7 @@ from pycllp_tpu_torch.io.mps import write_mps  # noqa: E402
 from pycllp_tpu_torch.ops import _build  # noqa: E402
 from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
+from pycllp_tpu_torch.ops import lanemv  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.parallel.dchol import rowshard_cholesky, rowshard_cholesky_solve  # noqa: E402
 from pycllp_tpu_torch.solvers import _loop  # noqa: E402
@@ -469,6 +473,7 @@ def zero_counts() -> None:
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
     df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = 0
+    lanemv.LANE_MV_LAUNCHES = lanemv.LANE_RMV_LAUNCHES = lanemv.LANE_NORMAL_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
     _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
     _loop.STAGE_READS = _loop.SEGMENT_CALLS = 0
@@ -487,7 +492,9 @@ def read_counts() -> dict:
             "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
             "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
             "df_chol_bl_smem": df64.DF_CHOL_SMEM_LAUNCHES,
-            "df_solve_bl_smem": df64.DF_SOLVE_SMEM_LAUNCHES}
+            "df_solve_bl_smem": df64.DF_SOLVE_SMEM_LAUNCHES,
+            "lane_mv": lanemv.LANE_MV_LAUNCHES, "lane_rmv": lanemv.LANE_RMV_LAUNCHES,
+            "lane_normal": lanemv.LANE_NORMAL_LAUNCHES}
 
 
 # each kernel's name in the profiler's device events (_kernel_group)
@@ -1469,6 +1476,52 @@ def off_grid_audit(label: str, lp, objective, status, named: dict | None = None)
 def status_mix(status) -> dict:
     uniq, counts = np.unique(status, return_counts=True)
     return {Status(int(u)).name: int(c) for u, c in zip(uniq, counts)}
+
+
+def phase_lanemv_kernels(dev) -> dict:
+    """The lane matvec (``csrc/lanemv.cu``) for per-instance A: each mode
+    against its plain version (the einsum route) within 2·k·ε of Σ|A||x|
+    (k the contraction length) at the padded netlib shape and a ragged one,
+    the normal product bitwise the unfused launches, then each mode timed
+    in turns at the padded shape beside its bound (A read once from HBM)."""
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(18)
+    for B, m, n in ((24576, 56, 153), (300, 27, 32)):
+        for dt in (torch.float32, torch.float64):
+            A = torch.randn(B, m, n, device=dev, dtype=dt, generator=g)
+            x = torch.randn(B, n, device=dev, dtype=dt, generator=g)
+            v = torch.randn(B, m, device=dev, dtype=dt, generator=g)
+            d = torch.rand(B, n, device=dev, dtype=dt, generator=g) * 10
+            reg = torch.rand(B, device=dev, dtype=dt, generator=g) * 1e-3
+            eps = torch.finfo(dt).eps
+            absA = A.abs()
+            pairs = {
+                "mv": (lambda: lanemv.lane_mv(A, x), lambda: lanemv._lane_mv_plain(A, x),
+                       lanemv._lane_mv_plain(absA, x.abs()) * 2 * n * eps),
+                "rmv": (lambda: lanemv.lane_rmv(A, v), lambda: lanemv._lane_rmv_plain(A, v),
+                        lanemv._lane_rmv_plain(absA, v.abs()) * 2 * m * eps),
+                "normal": (lambda: lanemv.lane_normal(A, d, v, reg),
+                           lambda: lanemv._lane_normal_plain(A, d, v, reg),
+                           (lanemv._lane_mv_plain(absA, d * lanemv._lane_rmv_plain(absA, v.abs()))
+                            + reg[:, None] * v.abs()) * 2 * (m + n + 2) * eps),
+            }
+            split = lanemv.lane_mv(A, d * lanemv.lane_rmv(A, v)) + reg[:, None] * v
+            check(torch.equal(lanemv.lane_normal(A, d, v, reg), split),
+                  f"lane_normal {dt} {m}x{n}: not bitwise the unfused launches")
+            bound = B * m * n * dt.itemsize / HBM_BYTES_PER_S * 1e3
+            for mode, (kern, plain, tol) in pairs.items():
+                err = (kern() - plain()).abs()
+                check(bool((err <= tol).all()), f"lane {mode} {dt} {m}x{n}: outside 2·k·ε·Σ|A||x|")
+                if B < 24576:
+                    continue
+                ms, plain_ms = in_turns(f"lane {mode}", kern, plain)
+                key = f"lane_{mode}_{str(dt)[6:]}"
+                out[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                            "share": bound / ms, "max_err_over_tol": float((err / tol).max())}
+                say("kernel bound", f"{key} at B={B}, {m}x{n}: {ms:.4f} ms, bound {bound:.4f} ms "
+                    f"(HBM, A once; {100 * bound / ms:.1f}%), plain (einsum) {plain_ms:.4f} ms")
+            del A, x, v, d, reg, absA, pairs, split
+    return out
 
 
 def phase_narrow_path(smi: str) -> dict:
@@ -3983,6 +4036,7 @@ def main() -> None:
     measured.update(phase_wide_kernels(dev))
     measured.update(phase_fused_kernels(dev))
     measured.update(phase_ozaki_kernels(dev, smi))
+    lane = phase_lanemv_kernels(dev)
     narrow, narrow_status = phase_narrow_path(smi)
     phase_narrow_mix(smi, narrow_status)
     probe = phase_probes()
@@ -4060,7 +4114,7 @@ def main() -> None:
         report[-1].update({f"{stage}_device_ms": prof_run[stage]["by_kernel_ms"].get(group, 0.0)
                            for stage in ("narrow", "finish")})
     say("wall", f"the whole script {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": report}), flush=True)
+    print(json.dumps({"kernels": report, "lane_matvec": lane}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
 

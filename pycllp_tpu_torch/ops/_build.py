@@ -39,6 +39,8 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_int64
+_LANE_MATVEC = (_INT, _VP) + (_VP, _I64, _I64) * 3 + (_VP, _I64, _VP) + (_INT,) * 8 + (_VP,)
 # C entry points: name -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
     "pycllp_chol_bl_f32": (_VP, _VP, _VP, _VP, _INT, _INT, _VP),
@@ -57,6 +59,10 @@ _SIGNATURES = {
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     # Wp, We, d, out, rows, n, B, d's strides (lane, contraction), s, n_slices, cut, stream
     "pycllp_ozaki_product_bl": (_VP, _VP, _VP, _VP) + (_INT,) * 8 + (_VP,),
+    # mode, A, then x, s, y each with its (lane, element) strides, reg and its lane
+    # stride, out, m, n, B, P, Q, bulk, grid, smem, stream
+    "pycllp_lane_matvec_f32": _LANE_MATVEC,
+    "pycllp_lane_matvec_f64": _LANE_MATVEC,
 }
 
 

@@ -37,6 +37,12 @@ tensor they launch the kernel or raise.  Each launch adds one to
 ``CHOL_SMEM_LAUNCHES``, ``SOLVE_SMEM_LAUNCHES``, ``FUSED_FACTOR_SMEM_LAUNCHES``
 or ``FACSOL_SMEM_LAUNCHES``.
 
+Per-instance (3-D) A takes the hand-written lane matvec of
+:mod:`pycllp_tpu_torch.ops.lanemv` for ``mv``, ``rmv``, the factor's
+``diag(M) = A²·d`` and ``matvec_M``, in this set and the wide sets
+(:func:`_amv`, :func:`_armv`, :func:`_matvec_M`); a shared 2-D A keeps its
+own products.
+
 f64 inputs to :meth:`BatchLastKernels.factor` route to the reference set
 (dtype dispatch: this set's kernels are float32).  The wide finish phase
 runs on a sibling set chosen by :meth:`BatchLastKernels.finish_kernels`
@@ -60,6 +66,7 @@ from pycllp_tpu_torch.ops.reference import (  # noqa: F401
     ReferenceKernels,
     REFERENCE_KERNELS,
     _mv,
+    _rmv,
 )
 
 __all__ = [
@@ -536,6 +543,33 @@ def facsol_bl(M, reg, R):
 
 
 # ---------------------------------------------------------------------------
+# per-instance matvecs: 3-D A to the lane matvec kernel (ops/lanemv.py)
+# ---------------------------------------------------------------------------
+
+
+def _amv(A, x):
+    """``A @ x``: :func:`~pycllp_tpu_torch.ops.lanemv.lane_mv` for a
+    per-instance (B, m, n) A, ``x @ A.T`` (``_mv``) for a shared one."""
+    return lanemv.lane_mv(A, x) if A.dim() == 3 else _mv(A, x)
+
+
+def _armv(A, y):
+    """``Aᵀ @ y``: :func:`~pycllp_tpu_torch.ops.lanemv.lane_rmv` for a
+    per-instance A, ``y @ A`` (``_rmv``) for a shared one."""
+    return lanemv.lane_rmv(A, y) if A.dim() == 3 else _rmv(A, y)
+
+
+def _matvec_M(kset, fac, v):
+    """``kset``'s ``matvec_M``: for a per-instance A the one-read normal
+    product :func:`~pycllp_tpu_torch.ops.lanemv.lane_normal`, else the
+    base class's ``mv(d ∘ rmv(v)) + δv`` on ``kset``'s own products."""
+    A = fac.ctx.A
+    if A.dim() == 3:
+        return lanemv.lane_normal(A, fac.d, v, fac.reg)
+    return KernelSet.matvec_M(kset, fac, v)
+
+
+# ---------------------------------------------------------------------------
 # KernelSet implementation
 # ---------------------------------------------------------------------------
 
@@ -609,10 +643,13 @@ class BatchLastKernels(KernelSet):
         return PreparedBL(A=A, Asq=A * A, W=W, Wp=Wp)
 
     def mv(self, ctx, x):
-        return REFERENCE_KERNELS.mv(ctx, x)
+        return _amv(ctx.A, x)
 
     def rmv(self, ctx, y):
-        return REFERENCE_KERNELS.rmv(ctx, y)
+        return _armv(ctx.A, y)
+
+    def matvec_M(self, fac, v):
+        return _matvec_M(self, fac, v)
 
     def factor(self, ctx, d, reg_eps):
         # route on the RESULT dtype: an f64 A with f32 d still makes an
@@ -620,7 +657,7 @@ class BatchLastKernels(KernelSet):
         if torch.float64 in (d.dtype, ctx.A.dtype):
             base = ctx if isinstance(ctx, PreparedA) else PreparedA(ctx.A, ctx.Asq)
             return REFERENCE_KERNELS.factor(base, d, reg_eps)
-        diag = _mv(ctx.Asq, d)
+        diag = _amv(ctx.Asq, d)
         reg = (reg_eps * diag.amax(dim=-1)).to(d.dtype)
         if not isinstance(ctx, PreparedBL):
             # per-instance A: no shared-W trick; form M per instance and
@@ -700,3 +737,6 @@ class BatchLastKernels(KernelSet):
 
 BATCHLAST_KERNELS = BatchLastKernels()
 BATCHLAST_FUSED_KERNELS = BatchLastKernels(fuse_form=True)
+
+# last: lanemv imports this module's launch helpers
+from pycllp_tpu_torch.ops import lanemv  # noqa: E402

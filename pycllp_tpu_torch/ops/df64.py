@@ -15,6 +15,8 @@ native FP64, so here the card computes in FP64:
   same function as the reference's kernels, more accurately (the pair
   carries ~49 bits), and :class:`DoubleSingleKernels` hands them f64
   tensors without a hi/lo split.
+* Per-instance (3-D) A's matvecs and ``matvec_M`` run in the lane matvec
+  of :mod:`pycllp_tpu_torch.ops.lanemv`, in FP64.
 * The Ozaki scheme stays: shared-A matvecs and the normal-matrix
   formation are exact group products of integer slices.  On the card each
   product is ONE launch of the hand-written ``ozaki_product_bl``
@@ -60,15 +62,18 @@ import torch
 
 from pycllp_tpu_torch.ops import _build
 from pycllp_tpu_torch.ops.batchlast import (
+    _amv,
+    _armv,
     _check_cuda,
     _chol_bl_plain,
     _launch_chol,
     _launch_solve,
+    _matvec_M,
     _raise_on_error,
     _require,
     _solve_bl_plain,
 )
-from pycllp_tpu_torch.ops.reference import KernelSet, _mv, _rmv
+from pycllp_tpu_torch.ops.reference import KernelSet
 
 __all__ = [
     "DoubleSingleKernels",
@@ -567,15 +572,18 @@ class DoubleSingleKernels(KernelSet):
 
     def mv(self, ctx, x):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
-            return _mv(ctx.A, x)
+            return _amv(ctx.A, x)
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-1], self.mv_bits)
         return _ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
-            return _rmv(ctx.A, y)
+            return _armv(ctx.A, y)
         s, n_slices, cut = ozaki_mv_params(ctx.A.shape[-2], self.mv_bits)
         return _ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
+
+    def matvec_M(self, fac, v):
+        return _matvec_M(self, fac, v)
 
     def factor(self, ctx, d, reg_eps):
         if not isinstance(ctx, PreparedDF):
@@ -587,7 +595,7 @@ class DoubleSingleKernels(KernelSet):
         # so normalise per lane in f64 first, run one f32 product, rescale
         dmax_s = d.amax(dim=-1).clamp(min=torch.finfo(torch.float64).tiny)
         ds = (d / dmax_s[..., None]).to(torch.float32)
-        diag32 = _mv(ctx.Asq.to(torch.float32), ds)
+        diag32 = _amv(ctx.Asq.to(torch.float32), ds)
         reg = reg_eps * diag32.amax(dim=-1).to(torch.float64) * dmax_s
         if ctx.W is None:
             M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()

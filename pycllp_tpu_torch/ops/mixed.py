@@ -24,7 +24,9 @@ iterative refinement:
     vₖ₊₁ = vₖ + P⁻¹ (r − M̂ vₖ)      (residual in f64, M̂ = A·D·Aᵀ + δI)
 
 Shared-A f64 matvecs are Ozaki products (:mod:`pycllp_tpu_torch.ops.df64`),
-``mv_bits`` wide (the reference's ``PYCLLP_OZAKI_MV_BITS``).
+``mv_bits`` wide (the reference's ``PYCLLP_OZAKI_MV_BITS``); per-instance
+ones, and the refinement's ``matvec_M``, the lane matvec of
+:mod:`pycllp_tpu_torch.ops.lanemv`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import typing
 import torch
 
 from pycllp_tpu_torch.ops import df64
-from pycllp_tpu_torch.ops.reference import KernelSet, _mv, _rmv
+from pycllp_tpu_torch.ops.batchlast import _amv, _armv, _matvec_M
+from pycllp_tpu_torch.ops.reference import KernelSet
 
 __all__ = ["MixedPrecisionKernels", "MIXED_FINISH_KERNELS", "MIXED_IR1_KERNELS"]
 
@@ -110,13 +113,13 @@ class MixedPrecisionKernels(KernelSet):
 
     def mv(self, ctx, x):
         if getattr(ctx, "Amv", None) is None or x.dim() != 2:
-            return _mv(ctx.A, x)
+            return _amv(ctx.A, x)
         s, n_slices, cut = df64.ozaki_mv_params(ctx.A.shape[-1], self.mv_bits)
         return df64._ozaki_matmul(ctx.Amv, x, s=s, n_slices=n_slices, cut=cut).T
 
     def rmv(self, ctx, y):
         if getattr(ctx, "Armv", None) is None or y.dim() != 2:
-            return _rmv(ctx.A, y)
+            return _armv(ctx.A, y)
         s, n_slices, cut = df64.ozaki_mv_params(ctx.A.shape[-2], self.mv_bits)
         return df64._ozaki_matmul(ctx.Armv, y, s=s, n_slices=n_slices, cut=cut).T
 
@@ -124,7 +127,7 @@ class MixedPrecisionKernels(KernelSet):
     def factor(self, ctx, d, reg_eps):
         if not isinstance(ctx, PreparedMixed):  # plain context (oracle path)
             ctx = PreparedMixed(A=ctx.A, Asq=ctx.Asq, lo=self.base.prepare(ctx.A.to(torch.float32)))
-        diag = _mv(ctx.Asq, d)
+        diag = _amv(ctx.Asq, d)
         reg = reg_eps * diag.amax(dim=-1)
         lo = ctx.lo
         if self.jacobi and getattr(lo, "W", None) is not None:
@@ -169,9 +172,10 @@ class MixedPrecisionKernels(KernelSet):
         vs = tuple(v.to(wide) for v in self._lo_solve(fac, rs))
         if not self.ir_steps:
             return vs
-        if k > 1 and fac.ctx.A.dim() != 2:
+        if fac.ctx.A.dim() != 2:
             # per-instance (B, m, n) A: the stacked sweep below would pair
-            # the batch B against k·B — refine each RHS through matvec_M
+            # the batch B against k·B — refine each RHS through matvec_M,
+            # one read of A a product
             for _ in range(self.ir_steps):
                 es = tuple(r - self.matvec_M(fac, v) for r, v in zip(rs, vs))
                 cs = self._lo_solve(fac, es)
@@ -193,8 +197,11 @@ class MixedPrecisionKernels(KernelSet):
             vs = tuple(v + c.to(wide) for v, c in zip(vs, cs))
         return vs
 
-    # matvec_M: inherited — runs in wide precision via self.mv/rmv on
-    # fac.ctx (A, d, reg all wide), defining the system IR converges to.
+    def matvec_M(self, fac, v):
+        """``M v`` in wide precision on ``fac.ctx`` (A, d, reg all wide),
+        the system refinement converges to: for a per-instance A the
+        one-read normal product, else ``mv(d ∘ rmv(v)) + δv``."""
+        return _matvec_M(self, fac, v)
 
 
 def _default_mixed(ir_steps: int = 3):

@@ -54,11 +54,11 @@ in the key (the kernel set and the options are, in
 changed between calls: code that swaps a kernel wrapper for a run calls
 :func:`_clear_graphs` before and after it.
 
-The launch counters (``*_LAUNCHES`` of :mod:`pycllp_tpu_torch.ops.batchlast`
-and :mod:`pycllp_tpu_torch.ops.df64`) are added to by Python at the call
-that issues a launch, so at capture only: the capture's increments are
-taken back, and every replay adds them again, so a counter counts the
-launches that ran.
+The launch counters (``*_LAUNCHES`` of :mod:`pycllp_tpu_torch.ops.batchlast`,
+:mod:`pycllp_tpu_torch.ops.df64` and :mod:`pycllp_tpu_torch.ops.lanemv`) are
+added to by Python at the call that issues a launch, so at capture only:
+the capture's increments are taken back, and every replay adds them
+again, so a counter counts the launches that ran.
 
 The profiler marks (``torch.profiler.record_function`` ranges, recorded
 only while a profiler runs, always in host code outside any captured
@@ -206,9 +206,9 @@ def _read(flag):
 
 
 def _counters() -> list:
-    from pycllp_tpu_torch.ops import batchlast, df64
+    from pycllp_tpu_torch.ops import batchlast, df64, lanemv
 
-    return [(mod, name) for mod in (batchlast, df64) for name in vars(mod)
+    return [(mod, name) for mod in (batchlast, df64, lanemv) for name in vars(mod)
             if name.endswith("_LAUNCHES")]
 
 

@@ -113,8 +113,8 @@ def test_plan_formulas_match_the_kernel_source():
 def test_every_c_entry_point_has_its_ctypes_signature():
     """Every ``extern "C"`` function of csrc/*.cu is declared in
     ``_build._SIGNATURES`` with one ctypes type per argument: c_void_p for
-    each pointer and the stream, c_int for each int.  An undeclared one
-    would get 32-bit ints and cut its pointers."""
+    each pointer and the stream, c_int for each int, c_int64 for each
+    int64_t.  An undeclared one would get 32-bit ints and cut its pointers."""
     found = {}
     for src in sorted(_build._SRC_DIR.glob("*.cu")):
         text = src.read_text()
@@ -124,12 +124,14 @@ def test_every_c_entry_point_has_its_ctypes_signature():
             for name, args in re.findall(r"\bint (\w+)\(([^)]*)\)\s*\{", block):
                 kinds = []
                 for arg in (a.strip() for a in args.split(",")):
-                    kinds.append(_build._VP if "*" in arg else _build._INT)
-                    assert "*" in arg or arg.startswith("int "), (name, arg)
+                    wide = arg.startswith("int64_t ")
+                    kinds.append(_build._VP if "*" in arg else _build._I64 if wide else _build._INT)
+                    assert "*" in arg or wide or arg.startswith("int "), (name, arg)
                 found[name] = tuple(kinds)
     assert {"pycllp_chol_bl_smem_f32", "pycllp_solve_bl_smem_f32", "pycllp_chol_bl_smem_f64",
             "pycllp_solve_bl_smem_f64", "pycllp_fused_factor_bl_smem_f32",
-            "pycllp_facsol_bl_smem_f32"} <= found.keys()
+            "pycllp_facsol_bl_smem_f32", "pycllp_lane_matvec_f32",
+            "pycllp_lane_matvec_f64"} <= found.keys()
     assert found == _build._SIGNATURES
 
 
