@@ -18,7 +18,7 @@
 //   facsol_bl_kernel), which hold the triangle in device memory, for the
 //   larger m.  The streaming factor does ~m^3/6 read-modify-writes per
 //   lane in device memory (~5.7 GB per factor at m = 64, B = 16,384) with
-//   its rows split over 8 warps; the streaming solve runs one thread per
+//   its rows split over 16 warps; the streaming solve runs one thread per
 //   (lane, right-hand side) and reads L twice.  The two streaming fused
 //   kernels below run that factor's pivot loop (chol_pivots).
 // The host chooses between them by shape alone (ops/batchlast.py).
@@ -141,7 +141,7 @@ fused_factor_bl_kernel(const float* __restrict__ W, const float* __restrict__ dT
   __syncthreads();  // M's lower triangle is complete
 
   NoPivotHook hook;
-  chol_pivots(L, dinv, col, t.live ? reg[t.b] : 0.0f, t, m, B, hook);
+  chol_pivots<kCholRowWarps>(L, dinv, col, t.live ? reg[t.b] : 0.0f, t, m, B, hook);
 }
 
 // The forward substitution of facsol_bl, riding chol_pivots' sweep.
@@ -193,7 +193,7 @@ facsol_bl_kernel(float* __restrict__ L, const float* __restrict__ reg,
   }
 
   FacsolHook hook{vs, ds, m, k_rhs, t};
-  chol_pivots(L, dinv, col, t.live ? reg[t.b] : 0.0f, t, m, B, hook);
+  chol_pivots<kCholRowWarps>(L, dinv, col, t.live ? reg[t.b] : 0.0f, t, m, B, hook);
 
   // backward, right-looking: v_i = w_i * dinv[i]; w[:i] -= L[i, :i] * v_i
   for (int i = m - 1; i > 0; --i) {

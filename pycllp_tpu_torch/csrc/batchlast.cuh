@@ -22,20 +22,30 @@
 // neighbouring values.  No padding of B is needed (the TPU's 128-lane
 // blocks were a Pallas constraint): the grid is bounds-checked.
 //
-// * chol_bl_kernel: one block per 32 lanes, its 8 warps splitting the
-//   rows (warp w owns rows i = w mod 8).  Per pivot k every warp reads
-//   the pivot, the owners scale column k and park it in shared memory
-//   (m x 32 values: 8 KB in float, 16 KB in double at m = 64), one
-//   barrier, then each owner applies the trailing update to its own
-//   rows, reading column k from shared memory; a second barrier closes
-//   the step.  The update touches only the lower triangle, half the
-//   bytes of the reference's full-square update.  The pivot loop is one
-//   routine, chol_pivots, which the fused kernels of batchlast.cu
-//   (fused_factor_bl, facsol_bl) run too.
+// * chol_bl_kernel: one block per 32 lanes, its kStreamRowWarps (16)
+//   warps splitting the rows (warp w owns rows i = w mod 16).  Per pivot
+//   k every warp reads the pivot, the owners scale column k and park it
+//   in shared memory (m x 32 values: 8 KB in float, 16 KB in double at
+//   m = 64), one barrier, then each owner applies the trailing update to
+//   its own rows, reading column k from shared memory; a second barrier
+//   closes the step.  The update touches only the lower triangle, half
+//   the bytes of the reference's full-square update.  The pivot loop is
+//   one routine, chol_pivots, which the fused kernels of batchlast.cu
+//   (fused_factor_bl, facsol_bl) run too, with 8 row warps.
 // * solve_bl_kernel: one thread per (lane, right-hand side), walking the
 //   reference's loops for its own instance: the forward pass
 //   left-looking (a dot with row L[i, :i]), the backward pass
 //   right-looking.  The working vector lives in V itself (L1-cached).
+//
+// What bounds them past m ~ 340 (m = 471, SCAGR25's size): each element
+// of the trailing update and of the solve's backward pass is a read, an
+// FMA and a write of device memory, and one lane's triangle (443 KB in
+// float) leaves no room in shared memory.  A warp that issues one read,
+// waits for it and writes it back runs at the memory's latency, not its
+// bandwidth; so both loops read kUpdateBatch elements into registers
+// before they update and write any, which keeps that many reads in
+// flight a warp.  Each element sees the same operations in the same
+// order, so the results are the same bits.
 //
 // Semantics kept from the reference's _chol_body and _df_chol_kernel:
 // the per-lane shift reg[b] is added at each pivot read (= factoring
@@ -54,7 +64,9 @@ namespace {
 
 constexpr int kThreads = 128;       // solve_bl / elementwise block size
 constexpr int kCholLanes = 32;      // chol_bl: lanes per block (one warp wide)
-constexpr int kCholRowWarps = 8;    // chol_bl: warps per block, splitting the rows
+constexpr int kCholRowWarps = 8;    // fused_factor_bl, facsol_bl: warps per block, splitting the rows
+constexpr int kStreamRowWarps = 16;  // chol_bl: warps per block, splitting the rows
+constexpr int kUpdateBatch = 8;     // elements a thread reads before it writes any (see above)
 
 template <typename T>
 __device__ __forceinline__ T quiet_nan();
@@ -91,10 +103,29 @@ __device__ __forceinline__ BlockLanes block_lanes(int B) {
   return t;
 }
 
-// first row > k owned by warp w (rows are owned by warp i mod kCholRowWarps)
+// first row > k owned by warp w (rows are owned by warp i mod R)
+template <int R>
 __device__ __forceinline__ int first_owned(int k, int w) {
-  constexpr int R = kCholRowWarps;
   return k + 1 + ((w - (k + 1)) % R + R) % R;
+}
+
+// x[j * stride] -= a * y[j * ys] for j in [lo, hi): kUpdateBatch reads of
+// x issued before any write, each element's FMA as the plain loop's
+template <typename T>
+__device__ __forceinline__ void axpy_batched(T* __restrict__ x, size_t stride,
+                                             const T* __restrict__ y, size_t ys, T a, int lo,
+                                             int hi) {
+  int j = lo;
+  for (; j + kUpdateBatch <= hi; j += kUpdateBatch) {
+    T v[kUpdateBatch];
+#pragma unroll
+    for (int u = 0; u < kUpdateBatch; ++u) v[u] = x[(j + u) * stride];
+#pragma unroll
+    for (int u = 0; u < kUpdateBatch; ++u) v[u] -= a * y[(j + u) * ys];
+#pragma unroll
+    for (int u = 0; u < kUpdateBatch; ++u) x[(j + u) * stride] = v[u];
+  }
+  for (; j < hi; ++j) x[j * stride] -= a * y[j * ys];
 }
 
 // A pivot hook that does nothing: the plain factor.
@@ -107,7 +138,8 @@ struct NoPivotHook {
 
 // The pivot loop of the batch-last Cholesky, the counterpart of the
 // reference's shared _chol_body: chol_bl, fused_factor_bl and facsol_bl
-// all run this one routine over a lower triangle already in L.
+// all run this one routine over a lower triangle already in L, their R
+// warps owning rows i = w mod R.
 //
 // Per pivot k every warp reads the pivot, the owners scale column k and
 // park it in `col` (shared, m x kCholLanes), one barrier, then each owner
@@ -117,11 +149,10 @@ struct NoPivotHook {
 // barrier (every warp, with the pivot's reciprocal), hook.update(k, first,
 // col) after it (column k complete in `col`; `first` = this warp's first
 // row below k).
-template <typename T, typename Hook>
+template <int R, typename T, typename Hook>
 __device__ __forceinline__ void chol_pivots(T* __restrict__ L, T* __restrict__ dinv,
                                             T* __restrict__ col, T r, const BlockLanes& t,
                                             int m, int B, Hook& hook) {
-  constexpr int R = kCholRowWarps;
   const size_t sB = static_cast<size_t>(B);
   const size_t sm = static_cast<size_t>(m);
   const int lane = t.lane;
@@ -132,7 +163,7 @@ __device__ __forceinline__ void chol_pivots(T* __restrict__ L, T* __restrict__ d
     const bool pos = akk > T(0);
     const T sq = root(pos ? akk : T(1));
     const T inv = pos ? T(1) / sq : nan;
-    const int first = first_owned(k, t.w);
+    const int first = first_owned<R>(k, t.w);
     // column k below the diagonal: L[i, k] *= 1 / L[k, k]
     for (int i = first; i < m; i += R) {
       T v = T(0);
@@ -153,10 +184,8 @@ __device__ __forceinline__ void chol_pivots(T* __restrict__ L, T* __restrict__ d
     // L[i, j] -= L[i, k] * L[j, k]
     if (t.live) {
       for (int i = first; i < m; i += R) {
-        const T lik = col[i * kCholLanes + lane];
-        T* Li = L + i * sm * sB + t.b;
-#pragma unroll 4
-        for (int j = k + 1; j <= i; ++j) Li[j * sB] -= lik * col[j * kCholLanes + lane];
+        axpy_batched(L + i * sm * sB + t.b, sB, col + lane, kCholLanes,
+                     col[i * kCholLanes + lane], k + 1, i + 1);
       }
     }
     __syncthreads();  // the next pivot is updated and column k may be overwritten
@@ -164,7 +193,7 @@ __device__ __forceinline__ void chol_pivots(T* __restrict__ L, T* __restrict__ d
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kCholLanes * kCholRowWarps)
+__global__ void __launch_bounds__(kCholLanes * kStreamRowWarps)
 chol_bl_kernel(const T* __restrict__ M, const T* __restrict__ reg,
                T* __restrict__ L, T* __restrict__ dinv, int m, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -175,14 +204,14 @@ chol_bl_kernel(const T* __restrict__ M, const T* __restrict__ reg,
 
   // L := M (whole square: the upper triangle keeps M's values)
   if (t.live) {
-    for (int i = t.w; i < m; i += kCholRowWarps) {
+    for (int i = t.w; i < m; i += kStreamRowWarps) {
       for (int j = 0; j < m; ++j) L[(i * sm + j) * sB + t.b] = M[(i * sm + j) * sB + t.b];
     }
   }
   __syncthreads();
 
   NoPivotHook hook;
-  chol_pivots(L, dinv, col, t.live ? reg[t.b] : T(0), t, m, B, hook);
+  chol_pivots<kStreamRowWarps>(L, dinv, col, t.live ? reg[t.b] : T(0), t, m, B, hook);
 }
 
 template <typename T>
@@ -199,21 +228,31 @@ solve_bl_kernel(const T* __restrict__ L, const T* __restrict__ dinv,
   const T* Rr = R + rhs * sm * sB + b;
   T* Vr = V + rhs * sm * sB + b;  // the working vector: w[j] at Vr[j * sB]
 
-  // forward, left-looking: w[i] = (r[i] - L[i, :i] . w[:i]) * dinv[i]
+  // forward, left-looking: w[i] = (r[i] - L[i, :i] . w[:i]) * dinv[i],
+  // the dot's terms added in order j = 0, 1, ..., kUpdateBatch of them
+  // read before they are added
   for (int i = 0; i < m; ++i) {
     const T* Li = L + i * sm * sB + b;
     T acc = T(0);
-#pragma unroll 4
-    for (int j = 0; j < i; ++j) acc += Li[j * sB] * Vr[j * sB];
+    int j = 0;
+    for (; j + kUpdateBatch <= i; j += kUpdateBatch) {
+      T l[kUpdateBatch], w[kUpdateBatch];
+#pragma unroll
+      for (int u = 0; u < kUpdateBatch; ++u) {
+        l[u] = Li[(j + u) * sB];
+        w[u] = Vr[(j + u) * sB];
+      }
+#pragma unroll
+      for (int u = 0; u < kUpdateBatch; ++u) acc += l[u] * w[u];
+    }
+    for (; j < i; ++j) acc += Li[j * sB] * Vr[j * sB];
     Vr[i * sB] = (Rr[i * sB] - acc) * dinv[i * sB + b];
   }
   // backward, right-looking: v[i] = w[i] * dinv[i]; w[:i] -= L[i, :i] * v[i]
   for (int i = m - 1; i >= 0; --i) {
-    const T* Li = L + i * sm * sB + b;
     const T vi = Vr[i * sB] * dinv[i * sB + b];
     Vr[i * sB] = vi;
-#pragma unroll 4
-    for (int j = 0; j < i; ++j) Vr[j * sB] -= Li[j * sB] * vi;
+    axpy_batched(Vr, sB, L + i * sm * sB + b, sB, vi, 0, i);
   }
 }
 
@@ -238,7 +277,7 @@ int launch_chol_bl(const void* M, const void* reg, void* L, void* dinv, int m, i
   const size_t smem = static_cast<size_t>(m) * kCholLanes * sizeof(T);
   const cudaError_t err = allow_smem(chol_bl_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kCholLanes, kCholRowWarps);
+  const dim3 block(kCholLanes, kStreamRowWarps);
   const unsigned int grid = static_cast<unsigned int>((B + kCholLanes - 1) / kCholLanes);
   chol_bl_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(M), static_cast<const T*>(reg), static_cast<T*>(L),

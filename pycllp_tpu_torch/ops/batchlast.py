@@ -35,7 +35,8 @@ tensor they launch the kernel or raise.  Each launch adds one to
 ``CHOL_LAUNCHES``, ``SOLVE_LAUNCHES``, ``FUSED_FACTOR_LAUNCHES`` or
 ``FACSOL_LAUNCHES``; a launch on the lane-group design also adds one to
 ``CHOL_SMEM_LAUNCHES``, ``SOLVE_SMEM_LAUNCHES``, ``FUSED_FACTOR_SMEM_LAUNCHES``
-or ``FACSOL_SMEM_LAUNCHES``.
+or ``FACSOL_SMEM_LAUNCHES``; one on the streaming design adds one to its
+shape in ``STREAM_LAUNCHES`` (the FP64 pair's too).
 
 Per-instance (3-D) A takes the hand-written lane matvec of
 :mod:`pycllp_tpu_torch.ops.lanemv` for ``mv``, ``rmv``, the factor's
@@ -52,6 +53,7 @@ mixed engine of :mod:`pycllp_tpu_torch.ops.mixed`).
 
 from __future__ import annotations
 
+import collections
 import math
 import typing
 
@@ -93,6 +95,11 @@ FUSED_FACTOR_LAUNCHES = 0
 FACSOL_LAUNCHES = 0
 FUSED_FACTOR_SMEM_LAUNCHES = 0
 FACSOL_SMEM_LAUNCHES = 0
+# the launches on the streaming design, of this module's kernels and of
+# df64's FP64 pair, by shape: (kind, dtype, m, B, k) → launches, kind
+# "chol", "solve", "fused" or "facsol", dtype "f32" or "f64", k the
+# right-hand sides (1 for a factor)
+STREAM_LAUNCHES: collections.Counter = collections.Counter()
 
 # shared memory a block may use on the H100 (sm_90), in bytes
 _SMEM_LIMIT = 232448
@@ -393,6 +400,13 @@ def _launch_solve(L, dinv, R, dtype, design=None, lanes=None):
     return V, plan
 
 
+def _count_stream(plan, kind: str, dtype, m: int, B: int, k: int = 1) -> None:
+    """One launch of ``plan`` in ``STREAM_LAUNCHES`` where it ran the
+    streaming design."""
+    if plan is not None and plan.design == "stream":
+        STREAM_LAUNCHES[(kind, _SUFFIX[dtype], m, B, k)] += 1
+
+
 def _chol_bl_cuda(M, reg, design=None, lanes=None):
     """The f32 factor on the card; ``design="stream"`` (or ``"smem"``, and
     ``lanes``) force a design for the on-card comparisons."""
@@ -401,6 +415,7 @@ def _chol_bl_cuda(M, reg, design=None, lanes=None):
     if plan is not None:
         CHOL_LAUNCHES += 1
         CHOL_SMEM_LAUNCHES += plan.design == "smem"
+        _count_stream(plan, "chol", torch.float32, M.shape[0], M.shape[2])
     return L, dinv
 
 
@@ -411,6 +426,7 @@ def _solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     if plan is not None:
         SOLVE_LAUNCHES += 1
         SOLVE_SMEM_LAUNCHES += plan.design == "smem"
+        _count_stream(plan, "solve", torch.float32, L.shape[0], L.shape[2], R.shape[0])
     return V
 
 
@@ -460,6 +476,7 @@ def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None, Wp=None):
     _raise_on_error(entry, err)
     FUSED_FACTOR_LAUNCHES += 1
     FUSED_FACTOR_SMEM_LAUNCHES += plan.design == "smem"
+    _count_stream(plan, "fused", torch.float32, m, B)
     return L, dinv
 
 
@@ -491,6 +508,7 @@ def _facsol_bl_cuda(M, reg, R, design=None, lanes=None):
     _raise_on_error(entry, err)
     FACSOL_LAUNCHES += 1
     FACSOL_SMEM_LAUNCHES += plan.design == "smem"
+    _count_stream(plan, "facsol", torch.float32, m, B, k)
     return M, dinv, V
 
 

@@ -24,11 +24,13 @@ native FP64, so here the card computes in FP64:
   group products on bf16 tensor cores with f32 accumulators, and the f64
   combination, bitwise equal to the split route it replaces
   (:func:`_ozaki_matmul_split`: :func:`slice_rounds_bl`, then f32
-  ``torch.matmul`` group GEMMs and the f64 sum).  The hi/lo split survives
-  there and in the reference's fast formation (``form="fast"``: three f32
-  GEMMs, no kernel of its own).  The f32 group GEMMs of the plain and
-  split routes are exact only if every integer partial sum stays ≤ 2²⁴ in
-  a full f32 accumulator, so they refuse to run with TF32 on.
+  ``torch.matmul`` products of the slices and the f64 sum).  The hi/lo
+  split survives there and in the reference's fast formation
+  (``form="fast"``: three f32 GEMMs, no kernel of its own).  The f32
+  products of the plain and split routes are exact only if every integer
+  partial sum stays ≤ 2²⁴ in a full f32 accumulator, so they refuse to
+  run with TF32 on.  A prepared operand holds its slices once, packed as
+  the kernel reads them; those routes unpack one slice at a time.
 
 Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`,
@@ -37,9 +39,10 @@ for CPU tensors; for a CUDA tensor they launch the kernel or raise.  Each
 launch adds one to ``DF_CHOL_LAUNCHES``, ``DF_SOLVE_LAUNCHES``,
 ``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, each Ozaki product with lanes
 sent to the card one to ``OZAKI_MATMUL_LAUNCHES`` (whatever route runs
-it: one ``ozaki_product_bl`` launch), and a factor or solve on the
+it: one ``ozaki_product_bl`` launch), a factor or solve on the
 lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
-``DF_SOLVE_SMEM_LAUNCHES``.
+``DF_SOLVE_SMEM_LAUNCHES``, and one on the streaming design one to its
+shape in :data:`~pycllp_tpu_torch.ops.batchlast.STREAM_LAUNCHES`.
 
 The reference's environment knobs ``PYCLLP_OZAKI_BITS`` and
 ``PYCLLP_OZAKI_MV_BITS`` are arguments here: ``bits=`` / ``mv_bits=`` of
@@ -66,6 +69,7 @@ from pycllp_tpu_torch.ops.batchlast import (
     _armv,
     _check_cuda,
     _chol_bl_plain,
+    _count_stream,
     _launch_chol,
     _launch_solve,
     _matvec_M,
@@ -175,6 +179,7 @@ def _df_chol_bl_cuda(M, reg, design=None, lanes=None):
     if plan is not None:
         DF_CHOL_LAUNCHES += 1
         DF_CHOL_SMEM_LAUNCHES += plan.design == "smem"
+        _count_stream(plan, "chol", torch.float64, M.shape[0], M.shape[2])
     return L, dinv
 
 
@@ -185,6 +190,7 @@ def _df_solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     if plan is not None:
         DF_SOLVE_LAUNCHES += 1
         DF_SOLVE_SMEM_LAUNCHES += plan.design == "smem"
+        _count_stream(plan, "solve", torch.float64, L.shape[0], L.shape[2], R.shape[0])
     return V
 
 
@@ -326,15 +332,20 @@ def _group_levels(n_slices, cut):
 
 
 class OzakiOperand(typing.NamedTuple):
-    """``W`` (rows, n) prepared once for Ozaki products against many ``d``."""
+    """``W`` (rows, n) prepared once for Ozaki products against many ``d``:
+    its slices held once, as the kernel reads them (the plain and split
+    routes unpack one slice at a time, :func:`_ozaki_slice`)."""
 
-    groups: tuple  # per level t = 2 … cut: W's slices of its pairs along n, f32
     e: typing.Any  # (rows, 1) f64 per-row scale, an exact power of two
     packed: typing.Any  # every slice as bf16, in the fragment order of ozaki_product_bl
 
 
 OZAKI_ROW_PAD = 32  # packed rows: a multiple of the kernel's 32-row tile (csrc/ozaki.cuh)
 OZAKI_MAX_LEVELS = 24  # cut − 1 of the kernel's largest instantiation
+# the f32 slices of one row block of a prepare, so that its transient memory
+# stays near this whatever rows is (in one piece, SCAGR25's W, 221,856 × 971
+# at 14 slices, would hold 12 GB of them)
+OZAKI_PREPARE_BLOCK_BYTES = 1 << 30
 
 
 def _kernel_takes(s: int, n_slices: int) -> bool:
@@ -392,31 +403,60 @@ def _pack_slices(slices):
 def _ozaki_prepare(W64, *, s, n_slices, cut):
     """Slice ``W`` (rows, n) once: an :class:`OzakiOperand`.
 
-    Group t's block stacks slices [max(1, t−n_slices) … t−1] along the
-    contraction axis (the plain and split routes); ``packed`` holds every
-    slice for the kernel.
+    The rows are sliced and packed in blocks of whole 32-row tiles whose
+    f32 slices take about ``OZAKI_PREPARE_BLOCK_BYTES``: the slicing is per
+    row, so the blocks give the one-shot operand bit for bit.
     """
-    sl, e = _df_slice_int(W64.to(torch.float64), axis=1, s=s, n_slices=n_slices)
-    groups = tuple(
-        torch.cat([sl[k - 1] for k in ks], dim=1) for _, ks in _group_levels(n_slices, cut)
-    )
-    return OzakiOperand(groups=groups, e=e, packed=_pack_slices(sl))
+    rows, n = W64.shape
+    tile_bytes = 4 * n_slices * max(n, 1) * OZAKI_ROW_PAD
+    per = max(1, OZAKI_PREPARE_BLOCK_BYTES // tile_bytes) * OZAKI_ROW_PAD
+    packed = torch.empty((-(-rows // OZAKI_ROW_PAD) * OZAKI_ROW_PAD // 16, n_slices,
+                          -(-n // 16), 32, 8), dtype=torch.bfloat16, device=W64.device)
+    e = torch.empty((rows, 1), dtype=torch.float64, device=W64.device)
+    for r0 in range(0, rows, per):
+        r1 = min(r0 + per, rows)
+        sl, e[r0:r1] = _df_slice_int(W64[r0:r1].to(torch.float64), axis=1, s=s,
+                                     n_slices=n_slices)
+        block = _pack_slices(sl)
+        packed[r0 // 16:r0 // 16 + block.shape[0]] = block
+    return OzakiOperand(e=e, packed=packed)
+
+
+def _ozaki_slice(W, k: int, n: int):
+    """Slice ``k`` (1 … n_slices) of the operand ``W``, (rows, n) f32,
+    unpacked from ``W.packed`` (the inverse of :func:`_pack_slices`)."""
+    P = W.packed[:, k - 1]
+    RT, JS = P.shape[:2]
+    # (tile, step, g, q, c8, h, e) → (tile, h, g, step, c8, q, e)
+    P = P.reshape(RT, JS, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
+    return P.reshape(RT * 16, JS * 16)[: W.e.shape[0], :n].float()
 
 
 def _ozaki_group_gemms(W, d, *, s, n_slices, cut, slicer=slice_rounds_bl):
-    """The group-GEMM route of the product: ``d`` sliced by ``slicer``,
-    one f32 GEMM per level, combined in f64 in level order."""
+    """The group-GEMM route of the product: ``d`` sliced by ``slicer``, each
+    level's integer sum Σ_k W_k·d_(t−k) in f32, combined in f64 in level
+    order.  Every partial sum of a level stays ≤ 2²⁴, so the per-slice
+    products add up exactly, to the bits of one GEMM of the level's slices
+    side by side; W's slices are unpacked one at a time."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "the Ozaki group GEMMs need full f32 accumulation: switch TF32 off "
             "(torch.backends.cuda.matmul.allow_tf32 = False)"
         )
+    n = d.shape[-1]
     dsl, de = _df_slice_int(d.to(torch.float64).T, axis=0, s=s, n_slices=n_slices,
                             slicer=slicer)
+    levels = _group_levels(n_slices, cut)
+    sums = [None] * len(levels)
+    for k in range(1, n_slices + 1):
+        Wk = _ozaki_slice(W, k, n)
+        for i, (t, ks) in enumerate(levels):
+            if k in ks:
+                p = Wk @ dsl[t - k - 1]
+                sums[i] = p if sums[i] is None else sums[i] + p
     acc = None
-    for (t, ks), Wg in zip(_group_levels(n_slices, cut), W.groups):
-        Dg = torch.cat([dsl[t - k - 1] for k in ks], dim=0)
-        term = (Wg @ Dg).to(torch.float64) * 2.0 ** (-s * t)
+    for (t, _), G in zip(levels, sums):
+        term = G.to(torch.float64) * 2.0 ** (-s * t)
         acc = term if acc is None else acc + term
     return acc * (W.e * de)
 
@@ -430,8 +470,9 @@ def _ozaki_matmul_plain(W, d, *, s, n_slices, cut):
 
 def _ozaki_matmul_split(W, d, *, s, n_slices, cut):
     """The card's route before ``ozaki_product_bl``: the ``slice_rounds_bl``
-    kernel, then f32 ``torch.matmul`` group GEMMs and the f64 sum.  On no
-    solver path; ``chip_smoke.py`` holds the kernel to it bitwise."""
+    kernel, then f32 ``torch.matmul`` products of W's slices and the f64
+    sum.  On no solver path; ``chip_smoke.py`` holds the kernel to it
+    bitwise."""
     return _ozaki_group_gemms(W, d, s=s, n_slices=n_slices, cut=cut)
 
 

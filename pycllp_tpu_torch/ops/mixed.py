@@ -48,8 +48,8 @@ class PreparedMixed(typing.NamedTuple):
     A: typing.Any  # (…, m, n) wide (f64) — residual/matvec precision
     Asq: typing.Any  # (…, m, n) wide, elementwise A² for diag(M)
     lo: typing.Any  # base.prepare(A.to(f32)) — factorization context
-    Amv: typing.Any = None  # OzakiOperand of A / Aᵀ (groups and packed
-    Armv: typing.Any = None  # slices): exact f64 matvecs for a shared 2-D f64 A
+    Amv: typing.Any = None  # OzakiOperand of A / Aᵀ (packed slices): exact
+    Armv: typing.Any = None  # f64 matvecs for a shared 2-D f64 A
 
 
 class MixedFactor(typing.NamedTuple):

@@ -55,10 +55,13 @@ changed between calls: code that swaps a kernel wrapper for a run calls
 :func:`_clear_graphs` before and after it.
 
 The launch counters (``*_LAUNCHES`` of :mod:`pycllp_tpu_torch.ops.batchlast`,
-:mod:`pycllp_tpu_torch.ops.df64` and :mod:`pycllp_tpu_torch.ops.lanemv`) are
-added to by Python at the call that issues a launch, so at capture only:
-the capture's increments are taken back, and every replay adds them
-again, so a counter counts the launches that ran.
+:mod:`pycllp_tpu_torch.ops.df64` and :mod:`pycllp_tpu_torch.ops.lanemv`, an
+int or, for ``STREAM_LAUNCHES``, a ``collections.Counter`` of launch
+shapes) and the Counter :data:`pycllp_tpu_torch.solvers.hsd.PREPARED_BYTES`
+of prepared contexts are added to by Python at the call that issues a
+launch or a prepare, so at capture only: the capture's increments are
+taken back, and every replay adds them again, so a counter counts the
+launches that ran.
 
 The profiler marks (``torch.profiler.record_function`` ranges, recorded
 only while a profiler runs, always in host code outside any captured
@@ -83,7 +86,8 @@ import torch
 # {2, 3, 4, 6} by the main cell's wall and its gated-off share (PERF.md §6);
 # the narrow cap of 12 and tier 1's budget of 3 are whole blocks
 BLOCK = 3
-# ... and where each lane has its own A: one, a predicate read an iteration
+# ... and where each lane has its own A, or the shared A is past the
+# lane-group factor (hsd._phase_block): one, a predicate read an iteration
 # as on the host loop and nothing gated off.  Such a batch keeps the card
 # busy, so a gated-off iteration costs what a running one does (netlib's
 # padded batch, PERF.md §6)
@@ -207,9 +211,39 @@ def _read(flag):
 
 def _counters() -> list:
     from pycllp_tpu_torch.ops import batchlast, df64, lanemv
+    from pycllp_tpu_torch.solvers import hsd
 
     return [(mod, name) for mod in (batchlast, df64, lanemv) for name in vars(mod)
-            if name.endswith("_LAUNCHES")]
+            if name.endswith("_LAUNCHES")] + [(hsd, "PREPARED_BYTES")]
+
+
+def _take_back(counters: list, before: list) -> list:
+    """The counters' increments since ``before`` (their values then, a
+    Counter copied), taken back: [(module, name, increment)], nonzero
+    ones only.  A Counter is restored in place."""
+    deltas = []
+    for (ns, name), b in zip(counters, before):
+        now = getattr(ns, name)
+        if isinstance(now, collections.Counter):
+            d = now - b
+            now.clear()
+            now.update(b)
+        else:
+            d = now - b
+            setattr(ns, name, b)
+        if d:
+            deltas.append((ns, name, d))
+    return deltas
+
+
+def _add_back(deltas: list) -> None:
+    """Each counter's increment of ``deltas`` added again (a replay's)."""
+    for ns, name, d in deltas:
+        now = getattr(ns, name)
+        if isinstance(now, collections.Counter):
+            now.update(d)
+        else:
+            setattr(ns, name, now + d)
 
 
 def _gated(cond, body, s, limit, steps):
@@ -323,7 +357,8 @@ def _capture(device, run):
     fails raises."""
     global GRAPH_CAPTURES
     counters = _counters()
-    before = [getattr(ns, name) for ns, name in counters]
+    before = [collections.Counter(v) if isinstance(v, collections.Counter) else v
+              for v in (getattr(ns, name) for ns, name in counters)]
     side = _side_stream(device)
     graph = torch.cuda.CUDAGraph()
     torch.cuda.synchronize(device)
@@ -334,12 +369,7 @@ def _capture(device, run):
         finally:
             graph.capture_end()
     # nothing ran: take the capture's counts back, keep them per replay
-    deltas = []
-    for (ns, name), b in zip(counters, before):
-        d = getattr(ns, name) - b
-        setattr(ns, name, b)
-        if d:
-            deltas.append((ns, name, d))
+    deltas = _take_back(counters, before)
     GRAPH_CAPTURES += 1
     return graph, deltas
 
@@ -348,8 +378,7 @@ def _replay(graph, deltas, what: str) -> None:
     global GRAPH_REPLAYS
     with torch.profiler.record_function(what):
         graph.replay()
-    for ns, name, d in deltas:
-        setattr(ns, name, getattr(ns, name) + d)
+    _add_back(deltas)
     GRAPH_REPLAYS += 1
 
 

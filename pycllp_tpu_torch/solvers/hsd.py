@@ -14,9 +14,11 @@ What differs from the reference, and why:
   ``(k < maxiter) & any(status == RUNNING)`` is computed on the device,
   an iteration whose predicate is false keeps the state's bits, and the
   host reads the predicate once a block (``_loop.BLOCK`` iterations where
-  the lanes share A, ``_loop.BLOCK_PER_INSTANCE`` where each has its
-  own); on the card each block is a replayed CUDA graph.  The loop counter ``k`` is a 0-d int32 tensor on
-  the state's device, as in the reference's carry, and a budget may be
+  the lanes share an A that the lane-group factor takes,
+  ``_loop.BLOCK_PER_INSTANCE`` where each has its own or a shared A is
+  larger: :func:`_phase_block`); on the card each block is a replayed
+  CUDA graph.  The loop counter ``k`` is a 0-d int32 tensor on the state's
+  device, as in the reference's carry, and a budget may be
   an int or such a tensor.  Two routes keep a host loop that reads the
   predicate every iteration: ``log_every`` (its records are read back
   each iteration, where the reference calls back under ``lax.cond``) and
@@ -59,6 +61,7 @@ embedding variables: x ≥ 0, y free, z ≥ 0, τ ≥ 0, κ ≥ 0; residuals
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import sys
@@ -68,6 +71,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pycllp_tpu_torch.ops.batchlast import uses_smem
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.solvers import _loop
 from pycllp_tpu_torch.solvers.options import SolverOptions, Status
@@ -90,6 +94,17 @@ _STALLED = int(Status.STALLED)
 # gated route, one per body on the host loop).  Counted like the kernels'
 # launch counters, so a caller can tie launches to iterations.
 HOST_STEPS = 0
+# the contexts that the kernel sets' ``prepare`` returned in the last entry
+# call (hsd_solve_batched, hsd_solve_scan): (set name, bytes of the
+# context's tensors, each storage once) → prepares, counted at replay too,
+# as the launch counters are (_loop._counters).  A set that prepares the
+# same A in two segments (the crossover's) shows one key, counted twice
+PREPARED_BYTES: collections.Counter = collections.Counter()
+# the vertex crossover's lanes on the device, per (device, crossover): int64
+# (tried, accepted), added to inside the segments that run it, never read
+# by the solver.  "first" is a crossover whose rejects go on to the wide IPM
+# (reopen), "final" one that leaves them as they are
+CROSSOVER_LANES: dict = {}
 # True runs every phase as the per-iteration host loop (the route that
 # log_every and a collective reduce_any take), and the scan stages'
 # segments eagerly, for on-card comparisons
@@ -371,6 +386,21 @@ def _phase_cond(s: HSDState, maxiter):
     return (s.k < maxiter) & (s.status == _RUNNING).any()
 
 
+def _phase_block(A, dtype) -> int:
+    """Gated iterations a block of a phase on ``A`` in ``dtype``.
+
+    A gated-off iteration costs little where the lanes share an A whose
+    factor takes the lane-group kernels (the host paces the card), and a
+    running one's where each lane has its own A, or where a shared A is past
+    the lane-group factor (m > 340 in float32, 240 in float64): there the
+    streaming kernels keep the card busy, about a second an iteration at
+    netlib SCAGR25's size (471 rows) on 2,048 lanes.
+    """
+    if A.dim() == 2 and uses_smem(A.shape[0], dtype):
+        return _loop.BLOCK
+    return _loop.BLOCK_PER_INSTANCE
+
+
 @_loop._spanned("ipm phase")
 def _run_phase(
     ctx, b, c, state: HSDState, opts: SolverOptions, kset: KernelSet,
@@ -382,8 +412,7 @@ def _run_phase(
     ``k + finish_cap``).  The reference's ``lax.while_loop`` runs as
     blocks of gated iterations (:func:`_loop._device_while`; on the card,
     replayed CUDA graphs) whose predicate stays on the device: blocks of
-    ``_loop.BLOCK`` on shared A, of ``_loop.BLOCK_PER_INSTANCE`` on
-    per-instance A.  With
+    :func:`_phase_block` iterations.  With
     ``opts.log_every`` or a collective ``reduce_any`` (neither None nor
     ``torch.any``) it is a host loop that reads the predicate every
     iteration: ``k < maxiter`` is tested first, so ``reduce_any`` runs on
@@ -416,9 +445,7 @@ def _run_phase(
         return s
     if not isinstance(maxiter, torch.Tensor):
         maxiter = torch.full((), maxiter, dtype=torch.int32, device=state.k.device)
-    # a gated-off iteration costs little where the lanes share A (the host
-    # paces the card) and a running one's where each lane has its own
-    block = _loop.BLOCK if ctx.A.dim() == 2 else _loop.BLOCK_PER_INSTANCE
+    block = _phase_block(ctx.A, dtype)
     s, steps = _loop._device_while(
         _phase_cond, make_body, state, (ctx, b, c), maxiter, block,
         key=("hsd._run_phase", opts, kset, dtype, tol),
@@ -624,6 +651,16 @@ def _check_finish_levels(kset: KernelSet, opts: SolverOptions, A) -> None:
         ks.check_ozaki_levels(*shape)
 
 
+def _crossover_lanes(dev, which: str):
+    """The (tried, accepted) counter of ``CROSSOVER_LANES`` for ``dev``,
+    made on first use (an eager run: a segment's warm-up precedes its
+    capture)."""
+    key = (str(dev), which)
+    if key not in CROSSOVER_LANES:
+        CROSSOVER_LANES[key] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return CROSSOVER_LANES[key]
+
+
 def _crossover_state(
     fctx, b, c, state: HSDState, fkset: KernelSet, opts: SolverOptions, tol,
     reopen: bool = True,
@@ -659,6 +696,8 @@ def _crossover_state(
     opt = (ind.rho_p <= tol) & (ind.rho_d <= tol) & (ind.rho_A <= tol)
     eligible = (state.status != _INFEASIBLE) & (state.status != _UNBOUNDED)
     accept = eligible & ok & opt
+    _crossover_lanes(state.x.device, "first" if reopen else "final").add_(
+        torch.stack((eligible, accept)).reshape(2, -1).sum(1))
     an = accept[..., None]
     status = torch.where(eligible & reopen, _RUNNING, state.status)
     return state._replace(
@@ -960,6 +999,15 @@ def _seg_package(state, data, *, kset, opts, keys, dtype):
     return {k: out[k] for k in keys}
 
 
+def _prepare(kset: KernelSet, A):
+    """``kset.prepare(A)``, counted in ``PREPARED_BYTES``."""
+    ctx = kset.prepare(A)
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in _loop._flatten(ctx)}
+    PREPARED_BYTES[(kset.name, sum(held.values()))] += 1
+    return ctx
+
+
 def _seg(fn, state: tuple, data, *, borrow: bool = False, **params):
     """``fn(state, data, **params)`` as one straight-line segment
     (:func:`_loop._segment`: on the card a replayed CUDA graph, eager with
@@ -1054,6 +1102,7 @@ def hsd_solve_batched(
     leading batch axis.
     """
     dev = resolve_device(device)
+    PREPARED_BYTES.clear()
     with _full_precision_matmuls():
         return _hsd_solve_batched_impl(A, b, c, opts, kset, dev, warm, reduce_any)
 
@@ -1152,7 +1201,7 @@ def _seg_batched_start(state, data, *, opts, kset, fkset, dtype, wide):
         scaling = None
         A_sw, b_sw, c_sw = A_w, b_w, c_w
     A_s, b_s, c_s = A_sw.to(dtype), b_sw.to(dtype), c_sw.to(dtype)
-    ctx = kset.prepare(A_s)
+    ctx = _prepare(kset, A_s)
     warm = None
     if len(state) > 3:
         # map the user's unscaled warm point into scaled coordinates
@@ -1164,7 +1213,7 @@ def _seg_batched_start(state, data, *, opts, kset, fkset, dtype, wide):
             zw = zw * scaling.col.to(dtype)
         warm = (xw, yw, zw)
     s = _fresh_state(ctx, b_s, c_s, opts, kset, dtype, warm=warm)
-    wdata = None if fkset is None else (fkset.prepare(A_sw), b_sw, c_sw)
+    wdata = None if fkset is None else (_prepare(fkset, A_sw), b_sw, c_sw)
     return s, (ctx, b_s, c_s), wdata, scaling, c_w
 
 
@@ -1178,7 +1227,7 @@ def _seg_fold(state, data, *, kset):
 def _crossover_ctx(fctx, fkset, ckset, fdtype):
     """The crossover set's context, prepared from the wide context's A (in
     ``fdtype``: the scaled wide A that every set's ``prepare`` keeps)."""
-    return fctx if ckset is fkset else ckset.prepare(fctx.A.to(fdtype))
+    return fctx if ckset is fkset else _prepare(ckset, fctx.A.to(fdtype))
 
 
 def _seg_wide_start(state, data, *, opts, fkset, ckset, fdtype):
@@ -1453,7 +1502,7 @@ def _seg_narrow_prologue(state, data, *, opts, kset, dtype, wide):
     ``wide``)."""
     A, b3, c3 = state
     scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, wide)
-    return scaling, kset.prepare(A_sw.to(dtype)), b_sfw.to(dtype), c_sfw.to(dtype), c_flat_w
+    return scaling, _prepare(kset, A_sw.to(dtype)), b_sfw.to(dtype), c_sfw.to(dtype), c_flat_w
 
 
 def _seg_finish_prologue(state, data, *, opts, kset, fkset, ckset, dtype, wide):
@@ -1462,9 +1511,9 @@ def _seg_finish_prologue(state, data, *, opts, kset, fkset, ckset, dtype, wide):
     set), the scaled ``b`` and ``c`` and ``c`` (flat, in ``wide``)."""
     A, b3, c3 = state
     scaling, A_sw, b_sfw, c_sfw, c_flat_w = _scan_scaled_arrays(A, b3, c3, opts, wide)
-    ctx = kset.prepare(A_sw.to(dtype))
-    fctx = fkset.prepare(A_sw)
-    cctx = None if ckset is fkset else ckset.prepare(A_sw)
+    ctx = _prepare(kset, A_sw.to(dtype))
+    fctx = _prepare(fkset, A_sw)
+    cctx = None if ckset is fkset else _prepare(ckset, A_sw)
     return scaling, ctx, fctx, cctx, b_sfw, c_sfw, c_flat_w
 
 
@@ -1807,6 +1856,7 @@ def hsd_solve_scan(
     if getattr(A, "ndim", 2) != 2:
         raise ValueError("hsd_solve_scan requires shared 2-D A")
     dev = resolve_device(device)
+    PREPARED_BYTES.clear()
     b = torch.as_tensor(b, device=dev)
     c = torch.as_tensor(c, device=dev)
     dtype = _resolve_dtype(opts, A, b, c)

@@ -223,6 +223,26 @@ def _jax(fn, *args):
     return {k: np.asarray(v) for k, v in fn(*args).items()}
 
 
+@pytest.mark.parametrize("variant", ("bench", "per_instance", "narrow_only"))
+def test_counters_of_prepares_and_crossovers_count_at_replay(monkeypatch, graphs, variant):
+    """``hsd.PREPARED_BYTES`` and ``hsd.CROSSOVER_LANES`` on the emulated
+    graph route: a call that captures and a call that replays each count
+    what a call with eager segments counts."""
+    solve = _variants(monkeypatch)[variant]
+
+    def call():
+        monkeypatch.setattr(port_hsd, "CROSSOVER_LANES", {})
+        solve()
+        return (collections.Counter(port_hsd.PREPARED_BYTES),
+                {k: v.tolist() for k, v in port_hsd.CROSSOVER_LANES.items()})
+
+    first, second = call(), call()
+    assert graphs["captures"] and graphs["replays"]
+    eager = _route(monkeypatch, "eager", call)
+    assert first == second == eager
+    assert eager[0] and bool(eager[1]) == (variant != "narrow_only")
+
+
 @pytest.mark.parametrize("case", ["shared", "per_instance", "warm", "no_scale"])
 def test_batched_graph_route_matches_jax_f64(graphs, case):
     """``hsd_solve_batched`` on the emulated graph route against the JAX

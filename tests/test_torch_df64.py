@@ -189,8 +189,9 @@ def test_ozaki_packed_slices_unpack_to_level_groups(src, which):
     full[:, :rows, :n] = 0.0
     assert not full.any()
     levels = df64._group_levels(n_slices, cut)
-    assert len(op.groups) == len(levels) == cut - 1
-    for (_, ks), Wg in zip(levels, op.groups):
+    groups = [torch.cat([df64._ozaki_slice(op, k, n) for k in ks], dim=1) for _, ks in levels]
+    assert len(groups) == len(levels) == cut - 1
+    for (_, ks), Wg in zip(levels, groups):
         np.testing.assert_array_equal(np.concatenate([S[k - 1] for k in ks], axis=1), Wg.numpy())
     # and the slices reassemble W to the captured width, or to the ~48
     # bits of the f32 (hi, lo) pair they are cut from
@@ -198,6 +199,70 @@ def test_ozaki_packed_slices_unpack_to_level_groups(src, which):
                                 for k in range(n_slices))
     width = min(s * n_slices - 1, 47)
     assert np.abs(approx - W).max() <= 2.0 ** -width * np.abs(W).max()
+
+
+def _ozaki_operand_case(src, which):
+    """(W, (s, n_slices, cut)) of :data:`OZAKI_SHAPES`, or of SCAGR25's
+    formation level structure (contraction 971: 14 slices of 5 bits, 14
+    levels) on a few rows whose scales span 1e±12."""
+    rng = np.random.default_rng(13)
+    if src == "scagr25":
+        W = rng.standard_normal((40, 971)) * 10.0 ** rng.uniform(-12, 12, (40, 1))
+        W[3] = 0.0
+        return W, df64.ozaki_params(971)
+    A = rng.standard_normal((64, 128)) / np.sqrt(128) if src == "64x128" else _netlib_A(src)
+    return _ozaki_case(which, A)
+
+
+def _ozaki_prepare_one_shot(W, *, s, n_slices, cut):
+    """The operand as one pass over every row builds it: every slice of W
+    at once, then packed (what _ozaki_prepare built before its row blocks),
+    with the level groups the plain and split routes multiplied."""
+    sl, e = df64._df_slice_int(W, axis=1, s=s, n_slices=n_slices)
+    groups = [torch.cat([sl[k - 1] for k in ks], dim=1)
+              for _, ks in df64._group_levels(n_slices, cut)]
+    return df64._pack_slices(sl), e, groups
+
+
+OPERAND_SHAPES = OZAKI_SHAPES + [("scagr25", "formation")]
+
+
+@pytest.mark.parametrize("src,which", OPERAND_SHAPES)
+def test_ozaki_prepare_in_row_blocks_is_the_one_shot_operand(monkeypatch, src, which):
+    """The row-blocked prepare gives the one-shot build's packed slices and
+    scales bit for bit, at its default block and at blocks of one and of
+    three 32-row tiles (a ragged last block included)."""
+    W, (s, n_slices, cut) = _ozaki_operand_case(src, which)
+    Wt = torch.from_numpy(W)
+    packed, e, _ = _ozaki_prepare_one_shot(Wt, s=s, n_slices=n_slices, cut=cut)
+    for block_bytes in (df64.OZAKI_PREPARE_BLOCK_BYTES, 1, 3 * 32 * 4 * n_slices * W.shape[1]):
+        monkeypatch.setattr(df64, "OZAKI_PREPARE_BLOCK_BYTES", block_bytes)
+        op = df64._ozaki_prepare(Wt, s=s, n_slices=n_slices, cut=cut)
+        assert op._fields == ("e", "packed")
+        assert torch.equal(op.packed.view(torch.int16), packed.view(torch.int16))
+        assert torch.equal(op.e, e)
+
+
+@pytest.mark.parametrize("src,which", OPERAND_SHAPES)
+def test_ozaki_routes_are_the_level_group_gemms_bitwise(src, which):
+    """The plain and split routes, which multiply W's slices one at a time,
+    give the bits of one f32 GEMM of each level's concatenated group."""
+    W, (s, n_slices, cut) = _ozaki_operand_case(src, which)
+    rng = np.random.default_rng(14)
+    d = _ozaki_lanes(24, W.shape[1], rng)
+    Wt, dt = _t(W, d)
+    _, e, groups = _ozaki_prepare_one_shot(Wt, s=s, n_slices=n_slices, cut=cut)
+    dsl, de = df64._df_slice_int(dt.T, axis=0, s=s, n_slices=n_slices)
+    want = None
+    for (t, ks), Wg in zip(df64._group_levels(n_slices, cut), groups):
+        Dg = torch.cat([dsl[t - k - 1] for k in ks], dim=0)
+        term = (Wg @ Dg).to(torch.float64) * 2.0 ** (-s * t)
+        want = term if want is None else want + term
+    want = want * (e * de)
+    op = df64._ozaki_prepare(Wt, s=s, n_slices=n_slices, cut=cut)
+    for route in (df64._ozaki_matmul_plain, df64._ozaki_matmul_split, df64._ozaki_matmul):
+        got = route(op, dt, s=s, n_slices=n_slices, cut=cut)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64)), route.__name__
 
 
 def test_ozaki_packing_constants_match_the_kernel_source():

@@ -16,8 +16,9 @@
   ``k`` equal, iterates to 1e-10 mid-trajectory;
 * the two routes that keep the host loop, ``log_every`` and a collective
   ``reduce_any``: one predicate read an iteration;
-* the block length by A's layout: per-instance A runs blocks of
-  ``BLOCK_PER_INSTANCE`` whatever ``BLOCK`` is, bitwise the host loop;
+* the block length by A's layout: per-instance A, and a shared A past the
+  lane-group factor, run blocks of ``BLOCK_PER_INSTANCE`` whatever
+  ``BLOCK`` is, bitwise the host loop;
 * the graphs' static buffers: one set a spec, shared by the graphs over
   it and dropped with the last of them, the data copied in only when it
   changed, the caller's tensors never kept alive.
@@ -273,6 +274,39 @@ def test_per_instance_a_runs_its_own_block(monkeypatch, case, per_instance):
     assert counts["gated_off"] == counts["syncs"] * per_instance - n
     if per_instance == 1:
         assert counts["gated_off"] == 0
+
+
+@pytest.mark.parametrize("shape, dtype, per_instance", [
+    ((64, 128), torch.float32, False), ((340, 700), torch.float32, False),
+    ((341, 700), torch.float32, True), ((240, 500), torch.float64, False),
+    ((241, 500), torch.float64, True), ((471, 971), torch.float32, True),
+    ((471, 971), torch.float64, True), ((2, 56, 153), torch.float32, True),
+])
+def test_phase_block_by_layout_and_factor_design(monkeypatch, shape, dtype, per_instance):
+    """``BLOCK`` only where the lanes share an A whose factor takes the
+    lane-group kernels (m <= 340 in f32, 240 in f64); past it, and on
+    per-instance A, ``BLOCK_PER_INSTANCE``."""
+    monkeypatch.setattr(_loop, "BLOCK", 4)
+    monkeypatch.setattr(_loop, "BLOCK_PER_INSTANCE", 1)
+    block = port_hsd._phase_block(torch.empty(shape, dtype=dtype), dtype)
+    assert block == (1 if per_instance else 4)
+
+
+@pytest.mark.parametrize("case", ["narrow", "ragged"])
+def test_shared_a_past_the_lane_group_factor_runs_blocks_of_one(monkeypatch, case):
+    """A shared A that the lane-group factor does not take runs blocks of
+    ``BLOCK_PER_INSTANCE`` (here 1), not ``BLOCK`` (here 4): a read an
+    iteration, nothing gated off, bitwise the host loop."""
+    args, _ = _case(case)
+    assert args[0].A.dim() == 2
+    ref, ref_counts = _phase(monkeypatch, None, *args)
+    monkeypatch.setattr(port_hsd, "uses_smem", lambda m, dtype: False)
+    monkeypatch.setattr(_loop, "BLOCK_PER_INSTANCE", 1)
+    out, counts = _phase(monkeypatch, 4, *args)
+    _assert_bitwise(out, ref)
+    n = int(out.k)
+    assert counts["steps"] == ref_counts["steps"] == n > 0
+    assert counts["syncs"] == n and counts["gated_off"] == 0
 
 
 def test_static_buffers_copy_what_changed_and_hold_no_tensor():
