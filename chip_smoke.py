@@ -20,7 +20,11 @@ PyTorch version on the card, and drives the port's paths:
    the paths give it (the main cell's matvecs and formation, netlib's),
    with zero, power-of-two and NaN lanes, BITWISE against the split route
    it replaced and its plain version, timed against the split route and
-   one f64 ``torch.matmul``; the lane matvec for per-instance A
+   one f64 ``torch.matmul``; the formation on M's triangle (the mirrored
+   instantiation, ``_hold_triangle``) BITWISE against the product over
+   all m² rows at (m, n, B) = (64, 128, 1,024), (56, 153, 8,192) and
+   (471, 971, 2,048), each launch counted in ``OZAKI_SYM_LAUNCHES``,
+   timed in turns against it; the lane matvec for per-instance A
    (``phase_lanemv_kernels``: A·x, Aᵀ·y and the normal product, f32 and
    f64) against its plain version (the einsum route) at the padded netlib
    shape and a ragged one, timed at the padded shape beside its bound;
@@ -122,7 +126,10 @@ non-zero (there is no CPU fallback).  Every path phase checks, by the
 ``*_SMEM_LAUNCHES`` counters, that each of its factors, solves and fused
 launches ran the lane-group design, and that each of its shared-A Ozaki
 products was one ``ozaki_product_bl`` launch (``OZAKI_LAUNCHES`` equals
-the products counted at ``df64._ozaki_matmul``, no ``slice_rounds_bl``).  The script's wall is printed just
+the products counted at ``df64._ozaki_matmul`` and ``df64._ozaki_formation``, no
+``slice_rounds_bl``); the profiled host-loop solve checks that every
+formation, and nothing else, ran the mirrored instantiation and counted in
+``OZAKI_SYM_LAUNCHES``.  The script's wall is printed just
 before the kernel report; the kernel report, as JSON, is the line before
 the last, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -472,7 +479,7 @@ def zero_counts() -> None:
     bl.FUSED_FACTOR_SMEM_LAUNCHES = bl.FACSOL_SMEM_LAUNCHES = 0
     df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
     df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
-    df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = 0
+    df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = df64.OZAKI_SYM_LAUNCHES = 0
     lanemv.LANE_MV_LAUNCHES = lanemv.LANE_RMV_LAUNCHES = lanemv.LANE_NORMAL_LAUNCHES = 0
     hsd_mod.HOST_STEPS = 0
     _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
@@ -484,7 +491,8 @@ def read_counts() -> dict:
             "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
             "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
             "slice_rounds_bl": df64.SLICE_LAUNCHES, "ozaki_product_bl": df64.OZAKI_LAUNCHES,
-            "ozaki_products": df64.OZAKI_MATMUL_LAUNCHES, "host_steps": hsd_mod.HOST_STEPS,
+            "ozaki_products": df64.OZAKI_MATMUL_LAUNCHES, "ozaki_sym": df64.OZAKI_SYM_LAUNCHES,
+            "host_steps": hsd_mod.HOST_STEPS,
             "gated_off": _loop.GATED_OFF_STEPS, "host_syncs": _loop.HOST_SYNCS,
             "graph_captures": _loop.GRAPH_CAPTURES, "graph_replays": _loop.GRAPH_REPLAYS,
             "stage_reads": _loop.STAGE_READS, "segment_calls": _loop.SEGMENT_CALLS,
@@ -526,22 +534,26 @@ def check_smem_route(label: str, counts: dict) -> None:
 
 
 # the shape of every shared-A Ozaki product with lanes on the card, where the
-# kernel sets call it (df64._ozaki_matmul), while a phase records them; the
-# products themselves are counted by df64.OZAKI_MATMUL_LAUNCHES (a product
-# inside a captured block once a replay)
-_PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels)
+# kernel sets call it (df64._ozaki_matmul, and df64._ozaki_formation for the
+# formation on M's triangle), while a phase records them; the products
+# themselves are counted by df64.OZAKI_MATMUL_LAUNCHES (a product inside a
+# captured block once a replay)
+_PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels, output rows)
 
 
-def _logged_products(inner):
+def _logged_products(inner, formation: bool = False):
     def logged(W, d, *, s, n_slices, cut):
-        if _PRODUCT_SHAPES["on"] and d.is_cuda and d.shape[0] and W.e.shape[0]:
-            _PRODUCT_SHAPES["shapes"].append((W.e.shape[0], d.shape[1], d.shape[0], cut - 1))
+        rows = (W.op if formation else W).e.shape[0]
+        if _PRODUCT_SHAPES["on"] and d.is_cuda and d.shape[0] and rows:
+            out_rows = df64._triangle_side(rows) ** 2 if formation else rows
+            _PRODUCT_SHAPES["shapes"].append((rows, d.shape[1], d.shape[0], cut - 1, out_rows))
         return inner(W, d, s=s, n_slices=n_slices, cut=cut)
 
     return logged
 
 
 df64._ozaki_matmul = _logged_products(df64._ozaki_matmul)
+df64._ozaki_formation = _logged_products(df64._ozaki_formation, formation=True)
 
 
 @contextlib.contextmanager
@@ -551,8 +563,9 @@ def split_ozaki_route():
     card's route before ozaki_product_bl, on no solver path otherwise."""
     kernel = df64._ozaki_product_bl_cuda
 
-    def split(W, d, s, n_slices, cut):
-        return df64._ozaki_matmul_split(W, d, s=s, n_slices=n_slices, cut=cut)
+    def split(W, d, s, n_slices, cut, dst=None):
+        out = df64._ozaki_matmul_split(W, d, s=s, n_slices=n_slices, cut=cut)
+        return out if dst is None else df64._mirror_rows(out, dst)
 
     # a cached graph replays the launches it captured: none may outlive the
     # change of route, either way
@@ -1106,7 +1119,7 @@ def phase_wide_kernels(dev) -> dict:
     A, d, _ = _wide_inputs(512, seed=3, dev=dev, spread=30)
     ctx = kset.prepare(A)
     s, n_slices, cut = df64.ozaki_params(128)
-    Mo = df64._ozaki_matmul(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut)
+    Mo = df64._ozaki_formation(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut)
     M_ref = torch.einsum("mn,bn,kn->mkb", A, d, A).reshape(64 * 64, 512)
     oz = float(((Mo - M_ref).abs() / M_ref.abs().amax(0, keepdim=True)).max())
     check(oz < 2.5e-13, f"Ozaki formation rel {oz:.2e} of the output scale")
@@ -1244,14 +1257,59 @@ def _hold_ozaki_product(op, d, kw: dict, at: str) -> None:
         check(not out_k[:, 0].any(), f"ozaki_product_bl at {at}: the zero lane is not 0")
 
 
-def ozaki_bound(rows: int, k: int, B: int, n_slices: int, cut: int) -> dict:
+def ozaki_bound(rows: int, k: int, B: int, n_slices: int, cut: int,
+                out_rows: int | None = None) -> dict:
     """ozaki_product_bl's least time: packed W, W's row scales and d read,
-    the f64 output written; 2·rows·k·B tensor-core operations a pair (k,
-    l) of the cut − 1 levels, on bf16 at its dense peak."""
+    the f64 output written (``out_rows`` rows of it: m² for the formation
+    on M's triangle of ``rows`` = m(m+1)/2); 2·rows·k·B tensor-core
+    operations a pair (k, l) of the cut − 1 levels, on bf16 at its dense
+    peak."""
     pairs = sum(len(ks) for _, ks in df64._group_levels(n_slices, cut))
     rows_pad = -(-rows // df64.OZAKI_ROW_PAD) * df64.OZAKI_ROW_PAD
-    nbytes = n_slices * rows_pad * (-(-k // 16) * 16) * 2 + rows * 8 + B * k * 8 + rows * B * 8
+    out_rows = rows if out_rows is None else out_rows
+    nbytes = (n_slices * rows_pad * (-(-k // 16) * 16) * 2 + rows * 8 + B * k * 8
+              + out_rows * B * 8)
     return {**bound(nbytes, pairs * 2 * rows * k * B, torch.bfloat16), "pairs": pairs}
+
+
+def _hold_triangle(src: str, A64, B: int, rng, dev) -> dict:
+    """The formation on M's triangle (_ozaki_formation: the mirrored
+    ozaki_product_bl on the m(m+1)/2 rows of W = A∘A with i ≤ j) BITWISE
+    against the product over all m² rows (the kernel without the mirror,
+    held to the split route above), NaN lane in place, one
+    OZAKI_SYM_LAUNCHES a launch; then the two timed in turns, each beside
+    its bound."""
+    m, n = A64.shape
+    W = (A64[:, None, :] * A64[None, :, :]).reshape(m * m, n)
+    s, n_slices, cut = df64.ozaki_params(n)
+    kw = dict(s=s, n_slices=n_slices, cut=cut)
+    square = df64._ozaki_prepare(W, **kw)
+    tri = df64._ozaki_triangle(W, m, **kw)
+    d = _ozaki_lanes(B, n, rng, dev)
+    at = f"{src} formation {m}x{n} on the triangle, B={B}, {cut - 1} levels"
+    sym = df64.OZAKI_SYM_LAUNCHES
+    out_t = df64._ozaki_formation(tri, d, **kw)
+    out_s = df64._ozaki_product_bl_cuda(square, d, s, n_slices, cut)
+    torch.cuda.synchronize()
+    same, diff = _bitwise(out_t, out_s)
+    check(same, f"{at}: not bitwise equal to the product over all {m * m} rows (max abs diff "
+          f"{diff:.3e})")
+    check(df64.OZAKI_SYM_LAUNCHES == sym + 1, f"{at}: OZAKI_SYM_LAUNCHES did not count it")
+    del out_t, out_s
+    reps = 10 if m <= 64 else 2
+    t_tri, t_sq = in_turns(f"ozaki_product_bl formation on the triangle vs on all rows at {at}",
+                           lambda: df64._ozaki_formation(tri, d, **kw),
+                           lambda: df64._ozaki_product_bl_cuda(square, d, s, n_slices, cut),
+                           reps_k=reps, reps_p=reps)
+    T = tri.op.e.shape[0]
+    bd = ozaki_bound(T, n, B, n_slices, cut, out_rows=m * m)
+    bd_sq = ozaki_bound(m * m, n, B, n_slices, cut)
+    say("kernel bound", f"{at}: {t_tri:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_unit']}; "
+        f"{bd['bound_ms'] / t_tri:.1%} of it); on all {m * m} rows {t_sq:.4f} ms, bound "
+        f"{bd_sq['bound_ms']:.4f} ms ({bd_sq['bound_ms'] / t_sq:.1%}); {t_sq / t_tri:.2f}x; "
+        f"packed rows {tuple(tri.op.packed.shape)[0] * 16} of {tuple(square.packed.shape)[0] * 16}")
+    return {"at": at, "m": m, "n": n, "B": B, "levels": cut - 1, "ms": t_tri, "square_ms": t_sq,
+            "square_bound_ms": bd_sq["bound_ms"], **bd}
 
 
 def phase_ozaki_kernels(dev, smi: str) -> dict:
@@ -1298,6 +1356,21 @@ def phase_ozaki_kernels(dev, smi: str) -> dict:
           f"ozaki kernels: launches {counts['ozaki_product_bl']}")
     say("ozaki kernels", f"ozaki_product_bl bitwise equal to the split route and to its plain "
         f"version at {len(held)} shapes (zero, power-of-two and NaN lanes at B >= 3) on {smi}")
+    zero_counts()
+    adlittle = torch.from_numpy(_netlib_eq("adlittle")[1]).to(dev)
+    scagr = torch.from_numpy(rng.normal(size=(471, 971))
+                             * 10.0 ** rng.uniform(-3, 3, (471, 1))).to(dev)
+    triangle = [_hold_triangle("main", A_main, OZAKI_FORMATION_MAX_B, rng, dev),
+                _hold_triangle("adlittle", adlittle, 8192, rng, dev),
+                _hold_triangle("scagr25 size", scagr, 2048, rng, dev)]
+    counts = read_counts()
+    check(counts["ozaki_sym"] == counts["ozaki_products"] > 0,
+          f"ozaki kernels: {counts['ozaki_sym']} formations on the triangle counted, "
+          f"{counts['ozaki_products']} products")
+    held += [t["at"] for t in triangle]
+    main.update(ms=triangle[0]["ms"], square_ms=triangle[0]["square_ms"],
+                **{k_: triangle[0][k_] for k_ in ("bound_ms", "bound_by", "bound_unit",
+                                                  "bound_bytes", "bound_flops")})
     for r in rows_out:
         say("kernel bound", f"ozaki_product_bl {r['src']} {r['use']} {r['rows']}x{r['n']}, "
             f"B={r['B']}: {r['ms']:.4f} ms, split route {r['split_ms']:.4f} ms "
@@ -1306,6 +1379,7 @@ def phase_ozaki_kernels(dev, smi: str) -> dict:
             f"{r['pairs']} pairs)")
     return {"ozaki_product_bl": {
         "err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"], "split_ms": main["split_ms"],
+        "square_ms": main["square_ms"], "triangle": triangle,
         **{k_: main[k_] for k_ in ("bound_ms", "bound_by", "bound_unit", "bound_bytes",
                                    "bound_flops")},
         "library_ms": main["library_ms"], "library_permute_ms": None,
@@ -1839,6 +1913,7 @@ def phase_main_path(smi: str) -> dict:
     wide_audit("main path", run["lp"], run["objective"], run["status"])
     for name in ("chol_bl", "solve_bl", "ozaki_product_bl"):
         check(run["total"][name] > 0, f"{name} was never launched on the main path")
+    check(run["total"]["ozaki_sym"] > 0, "no formation on M's triangle on the main path")
     return run
 
 
@@ -2105,6 +2180,24 @@ def _by_shape(kernels, group: str, shapes: list, bound_of) -> list:
     return rows
 
 
+def _mirrored_launches(kernels, products: list, counts: dict) -> None:
+    """On the host loop (one recorded product a launch): each
+    ozaki_product_kernel launch ran the mirrored instantiation exactly when
+    its product was a formation (output rows m² from the triangle's rows),
+    the matvecs the one without the mirror, and OZAKI_SYM_LAUNCHES counted
+    the formations."""
+    ks = [e for e in kernels if _kernel_group(e.name) == "ozaki_product_kernel"]
+    mirrored = [", true>" in e.name for e in ks]
+    formations = [out != rows for rows, _n, _B, _lv, out in products]
+    check(len(ks) == len(products) and mirrored == formations,
+          f"profile: {sum(mirrored)} of {len(ks)} ozaki_product_kernel launches mirrored, "
+          f"{sum(formations)} of {len(products)} recorded products formations")
+    check(counts["ozaki_sym"] == sum(formations) > 0,
+          f"profile: OZAKI_SYM_LAUNCHES {counts['ozaki_sym']}, formations {sum(formations)}")
+    say("profile", f"{sum(formations)} formations on the mirrored instantiation "
+        f"(= OZAKI_SYM_LAUNCHES), {len(ks) - sum(formations)} matvecs on the one without")
+
+
 def _gemms_by_shape(prof) -> list:
     """The f32/f64 GEMMs of the solve by input shapes (aten::mm and
     aten::addmm, device time summed), the largest first."""
@@ -2168,8 +2261,9 @@ def phase_profile(smi: str, main_run: dict) -> dict:
         say("profile", f"{route} route, GEMMs by input shape (device ms / calls): " + "; ".join(
             f"{g['op']} {g['shapes']} {g['device_ms']:.2f}/{g['calls']}" for g in gemms))
         if name == "kernel_host":
+            _mirrored_launches(kernels, products, counts)
             rows = _by_shape(kernels, "ozaki_product_kernel", products,
-                             lambda r, k, B, lv: ozaki_bound(r, k, B, lv, lv + 1))
+                             lambda r, k, B, lv, out: ozaki_bound(r, k, B, lv, lv + 1, out))
             say("profile", "ozaki_product_bl by shape (rows, n, B, levels): " + "; ".join(
                 f"{x['shape']} {x['launches']} launches, {x['mean_us']:.1f} us each, bound "
                 f"{x['bound_us']:.2f} us ({x['share']:.1%})" for x in rows))
@@ -2684,9 +2778,10 @@ def phase_ozaki_widths(dev, smi: str, probe: dict, main_run: dict) -> dict:
     finally:
         _PRODUCT_SHAPES["on"] = False
     levels = {}
-    for rows, _n, _B, lv in _PRODUCT_SHAPES["shapes"]:
+    for rows, _n, _B, lv, _out in _PRODUCT_SHAPES["shapes"]:
         levels.setdefault(rows, set()).add(lv)
-    want = {M * M: df64.ozaki_params(2 * M, WIDTH_BITS)[1], M: df64.ozaki_mv_params(2 * M)[1],
+    want = {M * (M + 1) // 2: df64.ozaki_params(2 * M, WIDTH_BITS)[1],
+            M: df64.ozaki_mv_params(2 * M)[1],
             2 * M: df64.ozaki_mv_params(M)[1]}
     check(counts56["df_chol_bl"] > 0 and counts56["df_solve_bl"] > 0,
           "ozaki widths (ii): the 56-bit probe never ran the FP64 factor / solve")

@@ -5,7 +5,9 @@
 //   df_chol_bl       <- _df_chol_bl      (_df_chol_kernel)
 //   df_solve_bl      <- _df_solve_bl     (_df_solve_kernel)
 //   ozaki_product_bl <- _slice_rounds_bl (_slice_rounds_kernel) with the
-//                       group GEMMs of _ozaki_matmul (ozaki.cuh)
+//                       group GEMMs of _ozaki_matmul (ozaki.cuh); its
+//                       formation entry, ozaki_formation_bl, computes M's
+//                       triangle and stores each row twice
 //   slice_rounds_bl  <- _slice_rounds_bl, the slicing pass alone
 //
 // df_chol_bl / df_solve_bl.  The reference computes the Cholesky factor
@@ -113,7 +115,17 @@ int pycllp_ozaki_product_bl(const void* Wp, const void* We, const void* d, void*
                             void* stream) {
   cudaGetLastError();
   return static_cast<int>(launch_ozaki_product(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices,
-                                               cut, static_cast<cudaStream_t>(stream)));
+                                               cut, nullptr, static_cast<cudaStream_t>(stream)));
+}
+
+// the normal-matrix formation on M's triangle: Wp and We hold the rows
+// (a, b), a <= b, of W = A o A, dst each one's two rows of the (m*m, B) out
+int pycllp_ozaki_formation_bl(const void* Wp, const void* We, const void* dst, const void* d,
+                              void* out, int rows, int n, int B, int sdb, int sdj, int s,
+                              int n_slices, int cut, void* stream) {
+  cudaGetLastError();
+  return static_cast<int>(launch_ozaki_product(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices,
+                                               cut, dst, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -55,6 +55,19 @@
 // 16-column step, the 32 lanes' A fragments of mma.m16n8k16 (row-major
 // A), lane = 4 * groupID + q holding rows (g, g + 8) and columns (2q,
 // 2q + 1, 2q + 8, 2q + 9) in the register order a0 .. a7.
+//
+// The formation on M's triangle (MIRROR).  The normal matrix M = A diag(d)
+// A^T is formed as W @ d^T with W = A o A, whose rows i*m + j and j*m + i
+// are equal bit for bit (IEEE multiplication commutes).  Each output row
+// depends on its own row of W alone: its scale We[r], its slices and its
+// level sums, which are exact integers whatever the order of addition.
+// So DoubleSingleKernels.prepare packs only the m(m+1)/2 rows with i <= j,
+// and the MIRROR instantiation stores each computed row r at both rows
+// dst[r] = (i*m + j, j*m + i) of the full (m*m, B) output, once on the
+// diagonal: every element of M, bitwise the product over all m*m rows,
+// for half its row tiles.  Everything before the store is the same code;
+// the instantiations without MIRROR (every matvec) are the kernel as it
+// was, with dst unused.
 
 #pragma once
 
@@ -122,11 +135,12 @@ __device__ __forceinline__ void ozaki_split(double x, double scale, float& h, fl
   l = __double2float_rn(__dsub_rn(R, static_cast<double>(h)));
 }
 
-template <int MAXL, int MT>
+template <int MAXL, int MT, bool MIRROR>
 __global__ void __launch_bounds__(32 * kOzWarps)
 ozaki_product_kernel(const uint4* __restrict__ Wp, const double* __restrict__ We,
                      const double* __restrict__ d, double* __restrict__ out, int rows, int n,
-                     int B, int64_t sdb, int64_t sdj, int s, int n_slices, int cut) {
+                     int B, int64_t sdb, int64_t sdj, int s, int n_slices, int cut,
+                     const int2* __restrict__ dst) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;  // groupID: the B-fragment lane and the C-fragment row
@@ -215,22 +229,38 @@ ozaki_product_kernel(const uint4* __restrict__ Wp, const double* __restrict__ We
           sum = __dadd_rn(sum, __dmul_rn(static_cast<double>(acc[t - 2][mt][i]),
                                          ldexp(1.0, -s * t)));
       }
-      out[static_cast<int64_t>(r) * B + bo] = __dmul_rn(sum, __dmul_rn(We[r], (i & 1) ? de1 : de0));
+      const double v = __dmul_rn(sum, __dmul_rn(We[r], (i & 1) ? de1 : de0));
+      if constexpr (MIRROR) {
+        const int2 to = dst[r];  // rows (a*m + b, b*m + a) of the pair a <= b
+        out[static_cast<int64_t>(to.x) * B + bo] = v;
+        if (to.y != to.x) out[static_cast<int64_t>(to.y) * B + bo] = v;
+      } else {
+        out[static_cast<int64_t>(r) * B + bo] = v;
+      }
     }
   }
 }
 
+// dst null: out = W @ d^T, (rows, B); else the formation on M's triangle,
+// each row r stored at rows dst[r] of the (m*m, B) output (MIRROR)
 template <int MAXL, int MT>
 cudaError_t launch_ozaki_product_t(const void* Wp, const void* We, const void* d, void* out,
                                    int rows, int n, int B, int64_t sdb, int64_t sdj, int s,
-                                   int n_slices, int cut, cudaStream_t stream) {
+                                   int n_slices, int cut, const void* dst, cudaStream_t stream) {
   const int rows_pad = (rows + kOzRowPad - 1) / kOzRowPad * kOzRowPad;
   const dim3 grid((B + kOzLanes - 1) / kOzLanes, rows_pad / (16 * MT));
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  ozaki_product_kernel<MAXL, MT><<<grid, 32 * kOzWarps, 0, stream>>>(
-      static_cast<const uint4*>(Wp), static_cast<const double*>(We),
-      static_cast<const double*>(d), static_cast<double*>(out), rows, n, B, sdb, sdj, s,
-      n_slices, cut);
+  const auto* Wp_ = static_cast<const uint4*>(Wp);
+  const auto* We_ = static_cast<const double*>(We);
+  const auto* d_ = static_cast<const double*>(d);
+  auto* out_ = static_cast<double*>(out);
+  const auto* dst_ = static_cast<const int2*>(dst);
+  if (dst_ == nullptr)
+    ozaki_product_kernel<MAXL, MT, false><<<grid, 32 * kOzWarps, 0, stream>>>(
+        Wp_, We_, d_, out_, rows, n, B, sdb, sdj, s, n_slices, cut, dst_);
+  else
+    ozaki_product_kernel<MAXL, MT, true><<<grid, 32 * kOzWarps, 0, stream>>>(
+        Wp_, We_, d_, out_, rows, n, B, sdb, sdj, s, n_slices, cut, dst_);
   return cudaGetLastError();
 }
 
@@ -239,20 +269,20 @@ cudaError_t launch_ozaki_product_t(const void* Wp, const void* We, const void* d
 // the level accumulators within the register file.
 cudaError_t launch_ozaki_product(const void* Wp, const void* We, const void* d, void* out,
                                  int rows, int n, int B, int64_t sdb, int64_t sdj, int s,
-                                 int n_slices, int cut, cudaStream_t stream) {
+                                 int n_slices, int cut, const void* dst, cudaStream_t stream) {
   const int levels = cut - 1;
   if (levels < 1 || levels > kOzMaxLevels || n_slices < 1 || s < 1) return cudaErrorInvalidValue;
   if (levels <= 8)
     return launch_ozaki_product_t<8, 2>(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices, cut,
-                                        stream);
+                                        dst, stream);
   if (levels <= 12)
     return launch_ozaki_product_t<12, 2>(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices, cut,
-                                         stream);
+                                         dst, stream);
   if (levels <= 16)
     return launch_ozaki_product_t<16, 1>(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices, cut,
-                                         stream);
+                                         dst, stream);
   return launch_ozaki_product_t<24, 1>(Wp, We, d, out, rows, n, B, sdb, sdj, s, n_slices, cut,
-                                       stream);
+                                       dst, stream);
 }
 
 }  // namespace

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "pycllp_slice_rounds_bl": (_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP),
     # Wp, We, d, out, rows, n, B, d's strides (lane, contraction), s, n_slices, cut, stream
     "pycllp_ozaki_product_bl": (_VP, _VP, _VP, _VP) + (_INT,) * 8 + (_VP,),
+    # Wp, We, dst (each packed row's two rows of M), d, out, then as above
+    "pycllp_ozaki_formation_bl": (_VP,) * 5 + (_INT,) * 8 + (_VP,),
     # mode, A, then x, s, y each with its (lane, element) strides, reg and its lane
     # stride, out, m, n, B, P, Q, bulk, grid, smem, stream
     "pycllp_lane_matvec_f32": _LANE_MATVEC,

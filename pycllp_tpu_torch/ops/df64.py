@@ -30,7 +30,11 @@ native FP64, so here the card computes in FP64:
   products of the plain and split routes are exact only if every integer
   partial sum stays ≤ 2²⁴ in a full f32 accumulator, so they refuse to
   run with TF32 on.  A prepared operand holds its slices once, packed as
-  the kernel reads them; those routes unpack one slice at a time.
+  the kernel reads them; those routes unpack one slice at a time.  The
+  formation runs on M's triangle (:func:`_ozaki_formation`): W = A∘A's
+  rows i·m + j and j·m + i are equal bit for bit, so the operand holds the
+  m(m+1)/2 rows with i ≤ j, and the kernel stores each computed row at
+  both of its places in M, bitwise the product over all m² rows.
 
 Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`,
@@ -39,7 +43,8 @@ for CPU tensors; for a CUDA tensor they launch the kernel or raise.  Each
 launch adds one to ``DF_CHOL_LAUNCHES``, ``DF_SOLVE_LAUNCHES``,
 ``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, each Ozaki product with lanes
 sent to the card one to ``OZAKI_MATMUL_LAUNCHES`` (whatever route runs
-it: one ``ozaki_product_bl`` launch), a factor or solve on the
+it: one ``ozaki_product_bl`` launch), each of them a formation on M's
+triangle one to ``OZAKI_SYM_LAUNCHES`` too, a factor or solve on the
 lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
 ``DF_SOLVE_SMEM_LAUNCHES``, and one on the streaming design one to its
 shape in :data:`~pycllp_tpu_torch.ops.batchlast.STREAM_LAUNCHES`.
@@ -59,6 +64,7 @@ iteration, where the reference has no cap.
 
 from __future__ import annotations
 
+import math
 import typing
 
 import torch
@@ -102,6 +108,7 @@ DF_SOLVE_SMEM_LAUNCHES = 0
 SLICE_LAUNCHES = 0
 OZAKI_LAUNCHES = 0
 OZAKI_MATMUL_LAUNCHES = 0
+OZAKI_SYM_LAUNCHES = 0
 
 # ---------------------------------------------------------------------------
 # double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
@@ -476,8 +483,13 @@ def _ozaki_matmul_split(W, d, *, s, n_slices, cut):
     return _ozaki_group_gemms(W, d, s=s, n_slices=n_slices, cut=cut)
 
 
-def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int):
-    """``W @ dᵀ`` as one launch of the hand-written ``ozaki_product_bl``."""
+def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int, dst=None):
+    """``W @ dᵀ`` as one launch of the hand-written ``ozaki_product_bl``.
+
+    With ``dst``, ``W`` holds the rows of M's triangle (an
+    :class:`OzakiTriangle`'s ``op``) and each row r of the product is
+    stored at rows ``dst[r]`` of an (m·m, B) output: the kernel's mirrored
+    epilogue."""
     global OZAKI_LAUNCHES
     _require(d.dim() == 2, f"d must be (B, n), got {tuple(d.shape)}")
     B, n = d.shape
@@ -492,16 +504,24 @@ def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int):
              f"s={s}, n_slices={n_slices}, cut={cut}: the kernel takes 1 to "
              f"{OZAKI_MAX_LEVELS} levels and normal f32 slice scales")
     _require(max(d.stride()) < 2**31, "d's strides must fit in 32 bits")
-    out = torch.empty((rows, B), dtype=torch.float64, device=d.device)
+    out_rows = rows
+    if dst is not None:
+        _check_cuda("dst", dst, (rows, 2), torch.int32)
+        _require(dst.device == d.device and dst.data_ptr() % 8 == 0,
+                 "dst must be on d's device, 8-byte aligned")
+        out_rows = _triangle_side(rows) ** 2
+    out = torch.empty((out_rows, B), dtype=torch.float64, device=d.device)
     if rows * B == 0:
         return out
     lib = _build.load()
+    args = (d.data_ptr(), out.data_ptr(), rows, n, B, d.stride(0), d.stride(1), s, n_slices, cut)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pycllp_ozaki_product_bl(
-            W.packed.data_ptr(), W.e.data_ptr(), d.data_ptr(), out.data_ptr(), rows, n, B,
-            d.stride(0), d.stride(1), s, n_slices, cut, stream,
-        )
+        if dst is None:
+            err = lib.pycllp_ozaki_product_bl(W.packed.data_ptr(), W.e.data_ptr(), *args, stream)
+        else:
+            err = lib.pycllp_ozaki_formation_bl(W.packed.data_ptr(), W.e.data_ptr(),
+                                                dst.data_ptr(), *args, stream)
     _raise_on_error("ozaki_product_bl", err)
     OZAKI_LAUNCHES += 1
     return out
@@ -522,6 +542,60 @@ def _ozaki_matmul(W, d, *, s, n_slices, cut):
     return _ozaki_product_bl_cuda(W, d.to(torch.float64), s, n_slices, cut)
 
 
+class OzakiTriangle(typing.NamedTuple):
+    """The normal-matrix formation's operand: the rows (i, j), i ≤ j, of
+    W = A∘A (row-major: i, then j ≥ i) as an :class:`OzakiOperand`, and
+    where each goes in the (m·m, B) product."""
+
+    op: OzakiOperand
+    dst: typing.Any  # (m(m+1)/2, 2) int32: rows (i·m + j, j·m + i) of packed row (i, j)
+
+
+def _triangle_side(rows: int) -> int:
+    """m of a triangle of ``rows`` = m(m+1)/2 rows (``ValueError`` if none)."""
+    m = (math.isqrt(8 * rows + 1) - 1) // 2
+    _require(m * (m + 1) // 2 == rows and m * m < 2**31,
+             f"{rows} rows are not the triangle of an m x m matrix with m² < 2^31")
+    return m
+
+
+def _ozaki_triangle(W64, m: int, *, s, n_slices, cut):
+    """Slice the rows of M's triangle of ``W`` (m·m, n) once: an
+    :class:`OzakiTriangle`, through :func:`_ozaki_prepare`."""
+    i, j = torch.triu_indices(m, m, device=W64.device)
+    dst = torch.stack([i * m + j, j * m + i], dim=1).to(torch.int32).contiguous()
+    op = _ozaki_prepare(W64.index_select(0, dst[:, 0]), s=s, n_slices=n_slices, cut=cut)
+    return OzakiTriangle(op=op, dst=dst)
+
+
+def _mirror_rows(P, dst):
+    """The (m(m+1)/2, B) rows of M's triangle → the (m·m, B) product: row r
+    at rows ``dst[r]``, as the kernel's mirrored epilogue stores it."""
+    out = P.new_empty((_triangle_side(P.shape[0]) ** 2, P.shape[1]))
+    for col in (1, 0):
+        out.index_copy_(0, dst[:, col].long(), P)
+    return out
+
+
+def _ozaki_formation(W, d, *, s, n_slices, cut):
+    """~2^(−s·(cut−1))-accurate ``W @ dᵀ`` over W = A∘A's m·m rows, in f64,
+    as (m·m, B), from ``W`` an :class:`OzakiTriangle`: bitwise
+    :func:`_ozaki_matmul` on the operand of every row.
+
+    A CUDA ``d`` launches the mirrored ``ozaki_product_bl`` (or raises),
+    counted in ``OZAKI_MATMUL_LAUNCHES`` and ``OZAKI_SYM_LAUNCHES``; a CPU
+    ``d`` runs :func:`_ozaki_matmul` (its plain version) on the triangle
+    and places each row at both of its places.
+    """
+    global OZAKI_MATMUL_LAUNCHES, OZAKI_SYM_LAUNCHES
+    if d.device.type == "cpu":
+        return _mirror_rows(_ozaki_matmul(W.op, d, s=s, n_slices=n_slices, cut=cut), W.dst)
+    launched = bool(d.shape[0] and W.dst.shape[0])
+    OZAKI_MATMUL_LAUNCHES += launched
+    OZAKI_SYM_LAUNCHES += launched
+    return _ozaki_product_bl_cuda(W.op, d.to(torch.float64), s, n_slices, cut, dst=W.dst)
+
+
 # ---------------------------------------------------------------------------
 # KernelSet implementation (f64 public interface)
 # ---------------------------------------------------------------------------
@@ -533,7 +607,7 @@ class PreparedDF(typing.NamedTuple):
     W: typing.Any  # (m², n) f64 self-outer-product, or None for 3-D A
     Wh: typing.Any  # f32 hi/lo split of W (the fast formation's GEMM inputs)
     Wl: typing.Any
-    Woz: typing.Any  # OzakiOperand of W, or None
+    Woz: typing.Any  # OzakiTriangle of W (the formation's operand), or None
     Amv: typing.Any  # OzakiOperand of A — exact f64 matvecs
     Armv: typing.Any  # ... and of Aᵀ (different contraction length)
 
@@ -554,7 +628,8 @@ class DoubleSingleKernels(KernelSet):
     The reference's name is kept (there the factor and solve run in
     double-single Pallas); on the card they compute in native FP64.
     Shared-A matvecs run as Ozaki products; the normal matrix is formed
-    by the Ozaki product (``form="ozaki"``, default), an f64 GEMM
+    by the Ozaki product on M's triangle (``form="ozaki"``, default:
+    :func:`_ozaki_formation`), an f64 GEMM
     (``form="f64"``) or three f32 GEMMs on hi/lo splits (``form="fast"``),
     and handed to :func:`df_chol_bl` in f64.
 
@@ -604,7 +679,7 @@ class DoubleSingleKernels(KernelSet):
         Woz = None
         if self.form == "ozaki":
             s, n_slices, cut = ozaki_params(n, self.bits)
-            Woz = _ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
+            Woz = _ozaki_triangle(W, m, s=s, n_slices=n_slices, cut=cut)
         sm, nm, cm = ozaki_mv_params(n, self.mv_bits)
         sr, nr, cr = ozaki_mv_params(m, self.mv_bits)
         Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
@@ -642,7 +717,7 @@ class DoubleSingleKernels(KernelSet):
             M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()
         elif self.form == "ozaki":
             s, n_slices, cut = ozaki_params(ctx.A.shape[-1], self.bits)
-            M = _ozaki_matmul(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
+            M = _ozaki_formation(ctx.Woz, d, s=s, n_slices=n_slices, cut=cut).reshape(m, m, B)
         elif self.form == "fast":
             # three f32 GEMMs (full f32: the solver switches TF32 off); a d
             # beyond f32's range makes dh inf and NaNs the lane, as in the

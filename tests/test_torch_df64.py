@@ -309,6 +309,108 @@ def test_ozaki_kernel_schedule_matches_plain_bitwise(which):
     np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
 
 
+# the formation on M's triangle: (n, bits) giving 8, 11 and 14 levels
+TRIANGLE_LEVELS = {8: (40, 56), 11: (150, None), 14: (400, None)}
+
+
+def _triangle_case(m, levels, seed):
+    """A (m, n), W = A∘A (m², n), the Ozaki parameters at ``levels`` and
+    d (37, n): 37 lanes, not a multiple of the kernel's 32."""
+    n, bits = TRIANGLE_LEVELS[levels]
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)) * 10.0 ** rng.uniform(-3, 3, (m, 1))
+    W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+    params = df64.ozaki_params(n, bits)
+    assert params[2] - 1 == levels
+    return A, W, params, _ozaki_lanes(37, n, rng)
+
+
+@pytest.mark.parametrize("levels", sorted(TRIANGLE_LEVELS))
+@pytest.mark.parametrize("m", [1, 5, 27, 33, 56, 64])
+def test_ozaki_triangle_formation_is_the_square_product_bitwise(m, levels):
+    """The formation on M's triangle (the m(m+1)/2 rows (i, j), i ≤ j, of
+    W, each placed at rows i·m + j and j·m + i) equals _ozaki_matmul on
+    the operand of all m² rows bit for bit, and DoubleSingleKernels
+    prepares that triangle: rows row-major, padded to 32."""
+    A, W, (s, n_slices, cut), d = _triangle_case(m, levels, seed=100 + m + levels)
+    Wt, dt = _t(W, d)
+    kw = dict(s=s, n_slices=n_slices, cut=cut)
+    tri = df64._ozaki_triangle(Wt, m, **kw)
+    i, j = np.triu_indices(m)
+    assert tri.dst.dtype == torch.int32 and tri.dst.is_contiguous()
+    np.testing.assert_array_equal(tri.dst.numpy(), np.stack([i * m + j, j * m + i], axis=1))
+    T = m * (m + 1) // 2
+    assert tri.op.e.shape == (T, 1)
+    assert tri.op.packed.shape == (-(-T // 32) * 2, n_slices, -(-W.shape[1] // 16), 32, 8)
+    got = df64._ozaki_formation(tri, dt, **kw)
+    want = df64._ozaki_matmul(df64._ozaki_prepare(Wt, **kw), dt, **kw)
+    assert got.shape == (m * m, 37)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    if levels != 8:  # the default width: the set's own operand
+        ctx = DF.prepare(torch.from_numpy(A))
+        assert torch.equal(ctx.Woz.dst, tri.dst) and torch.equal(ctx.Woz.op.e, tri.op.e)
+        assert torch.equal(ctx.Woz.op.packed.view(torch.int16), tri.op.packed.view(torch.int16))
+
+
+@pytest.mark.parametrize("m,levels", [(5, 11), (16, 8), (27, 14)])
+def test_ozaki_kernel_schedule_mirrored_matches_plain_bitwise(m, levels):
+    """The kernel's schedule replayed on the CPU from the triangle's packed
+    slices (as test_ozaki_kernel_schedule_matches_plain_bitwise), with the
+    mirrored epilogue: each computed row r stored at rows dst[r] of the
+    (m², B) output, once on the diagonal.  It equals _ozaki_formation and
+    the square product bit for bit."""
+    _, W, (s, n_slices, cut), d = _triangle_case(m, levels, seed=7 * m + levels)
+    Wt, dt = _t(W, d)
+    kw = dict(s=s, n_slices=n_slices, cut=cut)
+    tri = df64._ozaki_triangle(Wt, m, **kw)
+    T, n = tri.op.e.shape[0], W.shape[1]
+    Ws, _ = _unpack_slices(tri.op.packed, T, n)
+    mx = np.maximum(np.abs(d).max(axis=1), np.finfo(np.float32).tiny)
+    E = np.ceil(np.log2(mx))
+    hi, lo = df64._split_hi_lo(torch.from_numpy(d.T * np.exp2(-E)))
+    L = min(n_slices, cut - 1)
+    ds = df64._slice_rounds_bl_plain(hi.contiguous(), lo.contiguous(), s, L).numpy()
+    acc = None
+    for t in range(2, cut + 1):
+        G = sum(Ws[k - 1].astype(np.float64) @ ds[t - k - 1].astype(np.float64)
+                for k in range(1, L + 1) if 1 <= t - k <= L)
+        assert np.abs(G).max() <= 2.0 ** 24  # exact in an f32 accumulator
+        term = G.astype(np.float32).astype(np.float64) * 2.0 ** (-s * t)
+        acc = term if acc is None else acc + term
+    rows = acc * (tri.op.e.numpy() * np.exp2(E)[None, :])
+    got = np.full((m * m, d.shape[0]), np.nan)
+    for r, (a, b) in enumerate(tri.dst.numpy()):
+        got[a] = rows[r]
+        if b != a:
+            got[b] = rows[r]
+    assert not np.isnan(got).any()  # every row of M written
+    for want in (df64._ozaki_formation(tri, dt, **kw),
+                 df64._ozaki_matmul_plain(df64._ozaki_prepare(Wt, **kw), dt, **kw)):
+        np.testing.assert_array_equal(got.view(np.int64), want.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("m,n", [(5, 12), (27, 40), (33, 150)])
+def test_df64_factor_on_the_triangle_is_the_square_formation_bitwise(monkeypatch, m, n):
+    """DoubleSingleKernels.factor forms M on the triangle; with the square
+    route (_ozaki_matmul on the operand of W's m² rows) monkeypatched in,
+    L, dinv and δ are the same bits."""
+    rng = np.random.default_rng(m + n)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    d = 10.0 ** rng.uniform(-6, 6, size=(37, n))
+    At, dt = _t(A, d)
+    ctx = DF.prepare(At)
+    tri = DF.factor(ctx, dt, 1e-12)
+    s, n_slices, cut = df64.ozaki_params(n)
+    square = df64._ozaki_prepare(ctx.W, s=s, n_slices=n_slices, cut=cut)
+    monkeypatch.setattr(df64, "_ozaki_formation",
+                        lambda W, d, **kw: df64._ozaki_matmul(square, d, **kw))
+    sq = DF.factor(ctx, dt, 1e-12)
+    for name in ("L", "dinv", "reg"):
+        a, b = getattr(tri, name), getattr(sq, name)
+        assert torch.equal(a.view(torch.int64), b.view(torch.int64)), name
+    assert torch.isfinite(tri.dinv).all()
+
+
 @pytest.mark.parametrize("m,n,B", [(16, 24, 128), (32, 48, 256)])
 def test_df64_set_contracts_and_parity(m, n, B):
     rng = np.random.default_rng(m)

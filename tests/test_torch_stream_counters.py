@@ -10,13 +10,17 @@ On the CPU:
   context's bytes, the crossover's set prepared in both crossovers;
 * ``hsd.CROSSOVER_LANES``: every lane tried in each crossover, the
   accepted ones among them;
+* ``df64.OZAKI_SYM_LAUNCHES``: one a wide formation sent to the card (on
+  M's triangle), none a matvec, with the launches faked on the meta
+  device;
 * the readers ``stream_ms``, ``stream_chol_roofline``,
   ``crossover_accept_share`` and ``prepared_gib`` on synthetic traces and
   counters, and nothing read where there is nothing to read.
 
 On a card only (skipped here): a solve whose m takes the streaming
 kernels records their shapes, the same on the graph route as with eager
-segments.  The file imports no JAX: on the card run it alone, without the
+segments; a shared-A solve with the f64 finish forms every wide M on the
+triangle, one ``OZAKI_SYM_LAUNCHES`` a wide factor.  The file imports no JAX: on the card run it alone, without the
 suite's ``conftest.py``:
 ``python -m pytest tests/test_torch_stream_counters.py --noconftest -o addopts="" -q``.
 """
@@ -112,9 +116,10 @@ def test_prepared_bytes_and_crossover_lanes_of_a_batched_solve(monkeypatch):
     nbytes = {name: size for name, size in prepared}
     # the narrow set: A, A² and W = A∘A in f32
     assert nbytes[BATCHLAST_KERNELS.name] == (2 * m * N + m * m * N) * 4
-    # the wide set holds W in f64 and its packed Ozaki operand besides
+    # the wide set holds W in f64 and its packed Ozaki operand besides: the
+    # m(m+1)/2 rows of M's triangle, padded to 32
     s, n_slices, _ = df64.ozaki_params(N)
-    packed = -(-m * m // 32) * 32 * n_slices * -(-N // 16) * 16 * 2
+    packed = -(-m * (m + 1) // 2 // 32) * 32 * n_slices * -(-N // 16) * 16 * 2
     assert nbytes[wide.name] > m * m * N * 8 + packed
     # the crossover's: the narrow set's context within it
     assert nbytes[cross.name] > nbytes[BATCHLAST_KERNELS.name]
@@ -127,6 +132,37 @@ def test_prepared_bytes_and_crossover_lanes_of_a_batched_solve(monkeypatch):
     for tried, accepted in lanes.values():
         assert tried == 2 * B and 0 <= accepted <= tried
     assert (out["status"] == int(port_pkg.Status.OPTIMAL)).all()
+
+
+def test_ozaki_sym_launches_count_the_formations_alone(monkeypatch):
+    """Each wide formation sent to the card counts one OZAKI_SYM_LAUNCHES
+    and one OZAKI_MATMUL_LAUNCHES and launches the mirrored product; a
+    matvec counts only the latter.  The tensors lie on the meta device, so
+    the wrappers count and call the launchers, which are faked."""
+    m, n, B = 6, 9, 5
+    launched = []
+
+    def product(W, d, s, n_slices, cut, dst=None):
+        launched.append(dst is not None)
+        rows = W.e.shape[0] if dst is None else m * m
+        return torch.empty((rows, d.shape[0]), dtype=torch.float64, device=d.device)
+
+    monkeypatch.setattr(df64, "_ozaki_product_bl_cuda", product)
+    monkeypatch.setattr(df64, "df_chol_bl", lambda M, reg: (M, reg.expand(m, B)))
+    monkeypatch.setattr(df64, "OZAKI_SYM_LAUNCHES", 0)
+    monkeypatch.setattr(df64, "OZAKI_MATMUL_LAUNCHES", 0)
+    wide = df64.DF64_FINISH_KERNELS
+    ctx = _loop._map(lambda t: t.to("meta"),
+                     wide.prepare(torch.rand(m, n, dtype=torch.float64)))
+    meta = dict(dtype=torch.float64, device="meta")
+    assert wide.mv(ctx, torch.empty((B, n), **meta)).shape == (B, m)
+    assert wide.rmv(ctx, torch.empty((B, m), **meta)).shape == (B, n)
+    assert (df64.OZAKI_SYM_LAUNCHES, df64.OZAKI_MATMUL_LAUNCHES) == (0, 2)
+    for _ in range(2):
+        fac = wide.factor(ctx, torch.empty((B, n), **meta), 1e-12)
+        assert fac.L.shape == (m, m, B)
+    assert (df64.OZAKI_SYM_LAUNCHES, df64.OZAKI_MATMUL_LAUNCHES) == (2, 4)
+    assert launched == [False, False, True, True]
 
 
 def test_narrow_only_solve_prepares_one_set():
@@ -240,3 +276,18 @@ def test_streaming_shapes_count_at_replay(card, monkeypatch):
     assert first == second == eager
     kinds = {(kind, dt) for kind, dt, mm, bb, _ in first if (mm, bb) == (m, B)}
     assert kinds == {("chol", "f32"), ("solve", "f32"), ("chol", "f64"), ("solve", "f64")}
+
+
+def test_every_wide_formation_runs_on_the_triangle(card):
+    """A shared-A batch with the f64 finish: each wide factor's formation is
+    one mirrored launch on M's triangle (OZAKI_SYM_LAUNCHES equals the FP64
+    factors), and each counts in OZAKI_LAUNCHES with the matvecs."""
+    A, b, c = _scenarios(27, 20, 256, seed=3)
+    names = ("OZAKI_SYM_LAUNCHES", "DF_CHOL_LAUNCHES", "OZAKI_LAUNCHES", "OZAKI_MATMUL_LAUNCHES")
+    before = [getattr(df64, name) for name in names]
+    hsd.hsd_solve_batched(A, b, c, BENCH, BATCHLAST_KERNELS, device=card)
+    torch.cuda.synchronize()
+    sym, chol, launches, products = (getattr(df64, name) - was
+                                     for name, was in zip(names, before))
+    assert sym == chol > 0
+    assert launches == products > sym
