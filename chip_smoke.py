@@ -23,7 +23,7 @@ PyTorch version on the card, and drives the port's paths:
    one f64 ``torch.matmul``; the formation on M's triangle (the mirrored
    instantiation, ``_hold_triangle``) BITWISE against the product over
    all m² rows at (m, n, B) = (64, 128, 1,024), (56, 153, 8,192) and
-   (471, 971, 2,048), each launch counted in ``OZAKI_SYM_LAUNCHES``,
+   (471, 971, 2,048), each launch counted in ``LAUNCHES["ozaki_sym"]``,
    timed in turns against it; the lane matvec for per-instance A
    (``phase_lanemv_kernels``: A·x, Aᵀ·y and the normal product, f32 and
    f64) against its plain version (the einsum route) at the padded netlib
@@ -123,13 +123,13 @@ Usage (from the repository root, one CUDA card):
 
 Every phase prints lines; any failure raises and the script exits
 non-zero (there is no CPU fallback).  Every path phase checks, by the
-``*_SMEM_LAUNCHES`` counters, that each of its factors, solves and fused
-launches ran the lane-group design, and that each of its shared-A Ozaki
-products was one ``ozaki_product_bl`` launch (``OZAKI_LAUNCHES`` equals
-the products counted at ``df64._ozaki_matmul`` and ``df64._ozaki_formation``, no
-``slice_rounds_bl``); the profiled host-loop solve checks that every
-formation, and nothing else, ran the mirrored instantiation and counted in
-``OZAKI_SYM_LAUNCHES``.  The script's wall is printed just
+``_smem`` keys of ``ops._launch.LAUNCHES``, that each of its factors,
+solves and fused launches ran the lane-group design, and that each of its
+shared-A Ozaki products was one ``ozaki_product_bl`` launch (that key
+equals the products counted at ``df64._ozaki_matmul`` and
+``df64._ozaki_formation``, ``ozaki_products``; no ``slice_rounds_bl``);
+the profiled host-loop solve checks that every formation, and nothing
+else, ran the mirrored instantiation and counted in ``ozaki_sym``.  The script's wall is printed just
 before the kernel report; the kernel report, as JSON, is the line before
 the last, and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -169,6 +169,7 @@ from pycllp_tpu_torch.ops import _build  # noqa: E402
 from pycllp_tpu_torch.ops import batchlast as bl  # noqa: E402
 from pycllp_tpu_torch.ops import df64  # noqa: E402
 from pycllp_tpu_torch.ops import lanemv  # noqa: E402
+from pycllp_tpu_torch.ops._launch import LAUNCHES  # noqa: E402
 from pycllp_tpu_torch.ops.reference import REFERENCE_KERNELS, PreparedA  # noqa: E402
 from pycllp_tpu_torch.parallel.dchol import rowshard_cholesky, rowshard_cholesky_solve  # noqa: E402
 from pycllp_tpu_torch.solvers import _loop  # noqa: E402
@@ -472,37 +473,26 @@ def no_library(why: str) -> dict:
             "library_none": why}
 
 
+# the keys of LAUNCHES that read_counts reports, each launched or not
+KERNEL_KEYS = ("chol_bl", "solve_bl", "fused_factor_bl", "facsol_bl", "df_chol_bl", "df_solve_bl",
+               "slice_rounds_bl", "ozaki_product_bl", "ozaki_products", "ozaki_sym",
+               "chol_bl_smem", "solve_bl_smem", "fused_factor_bl_smem", "facsol_bl_smem",
+               "df_chol_bl_smem", "df_solve_bl_smem", "lane_mv", "lane_rmv", "lane_normal")
+
+
 def zero_counts() -> None:
-    bl.CHOL_LAUNCHES = bl.SOLVE_LAUNCHES = 0
-    bl.CHOL_SMEM_LAUNCHES = bl.SOLVE_SMEM_LAUNCHES = 0
-    bl.FUSED_FACTOR_LAUNCHES = bl.FACSOL_LAUNCHES = 0
-    bl.FUSED_FACTOR_SMEM_LAUNCHES = bl.FACSOL_SMEM_LAUNCHES = 0
-    df64.DF_CHOL_LAUNCHES = df64.DF_SOLVE_LAUNCHES = df64.SLICE_LAUNCHES = 0
-    df64.DF_CHOL_SMEM_LAUNCHES = df64.DF_SOLVE_SMEM_LAUNCHES = 0
-    df64.OZAKI_LAUNCHES = df64.OZAKI_MATMUL_LAUNCHES = df64.OZAKI_SYM_LAUNCHES = 0
-    lanemv.LANE_MV_LAUNCHES = lanemv.LANE_RMV_LAUNCHES = lanemv.LANE_NORMAL_LAUNCHES = 0
+    LAUNCHES.clear()
     hsd_mod.HOST_STEPS = 0
     _loop.GATED_OFF_STEPS = _loop.HOST_SYNCS = _loop.GRAPH_CAPTURES = _loop.GRAPH_REPLAYS = 0
     _loop.STAGE_READS = _loop.SEGMENT_CALLS = 0
 
 
 def read_counts() -> dict:
-    return {"chol_bl": bl.CHOL_LAUNCHES, "solve_bl": bl.SOLVE_LAUNCHES,
-            "fused_factor_bl": bl.FUSED_FACTOR_LAUNCHES, "facsol_bl": bl.FACSOL_LAUNCHES,
-            "df_chol_bl": df64.DF_CHOL_LAUNCHES, "df_solve_bl": df64.DF_SOLVE_LAUNCHES,
-            "slice_rounds_bl": df64.SLICE_LAUNCHES, "ozaki_product_bl": df64.OZAKI_LAUNCHES,
-            "ozaki_products": df64.OZAKI_MATMUL_LAUNCHES, "ozaki_sym": df64.OZAKI_SYM_LAUNCHES,
+    return {**{key: LAUNCHES[key] for key in KERNEL_KEYS},
             "host_steps": hsd_mod.HOST_STEPS,
             "gated_off": _loop.GATED_OFF_STEPS, "host_syncs": _loop.HOST_SYNCS,
             "graph_captures": _loop.GRAPH_CAPTURES, "graph_replays": _loop.GRAPH_REPLAYS,
-            "stage_reads": _loop.STAGE_READS, "segment_calls": _loop.SEGMENT_CALLS,
-            "chol_bl_smem": bl.CHOL_SMEM_LAUNCHES, "solve_bl_smem": bl.SOLVE_SMEM_LAUNCHES,
-            "fused_factor_bl_smem": bl.FUSED_FACTOR_SMEM_LAUNCHES,
-            "facsol_bl_smem": bl.FACSOL_SMEM_LAUNCHES,
-            "df_chol_bl_smem": df64.DF_CHOL_SMEM_LAUNCHES,
-            "df_solve_bl_smem": df64.DF_SOLVE_SMEM_LAUNCHES,
-            "lane_mv": lanemv.LANE_MV_LAUNCHES, "lane_rmv": lanemv.LANE_RMV_LAUNCHES,
-            "lane_normal": lanemv.LANE_NORMAL_LAUNCHES}
+            "stage_reads": _loop.STAGE_READS, "segment_calls": _loop.SEGMENT_CALLS}
 
 
 # each kernel's name in the profiler's device events (_kernel_group)
@@ -536,7 +526,7 @@ def check_smem_route(label: str, counts: dict) -> None:
 # the shape of every shared-A Ozaki product with lanes on the card, where the
 # kernel sets call it (df64._ozaki_matmul, and df64._ozaki_formation for the
 # formation on M's triangle), while a phase records them; the products
-# themselves are counted by df64.OZAKI_MATMUL_LAUNCHES (a product inside a
+# themselves are counted by LAUNCHES["ozaki_products"] (a product inside a
 # captured block once a replay)
 _PRODUCT_SHAPES = {"on": False, "shapes": []}  # (rows, n, B, levels, output rows)
 
@@ -1277,24 +1267,24 @@ def _hold_triangle(src: str, A64, B: int, rng, dev) -> dict:
     ozaki_product_bl on the m(m+1)/2 rows of W = A∘A with i ≤ j) BITWISE
     against the product over all m² rows (the kernel without the mirror,
     held to the split route above), NaN lane in place, one
-    OZAKI_SYM_LAUNCHES a launch; then the two timed in turns, each beside
+    ``LAUNCHES["ozaki_sym"]`` a launch; then the two timed in turns, each beside
     its bound."""
     m, n = A64.shape
     W = (A64[:, None, :] * A64[None, :, :]).reshape(m * m, n)
     s, n_slices, cut = df64.ozaki_params(n)
     kw = dict(s=s, n_slices=n_slices, cut=cut)
     square = df64._ozaki_prepare(W, **kw)
-    tri = df64._ozaki_triangle(W, m, **kw)
+    tri = df64._ozaki_triangle(A64, **kw)
     d = _ozaki_lanes(B, n, rng, dev)
     at = f"{src} formation {m}x{n} on the triangle, B={B}, {cut - 1} levels"
-    sym = df64.OZAKI_SYM_LAUNCHES
+    sym = LAUNCHES["ozaki_sym"]
     out_t = df64._ozaki_formation(tri, d, **kw)
     out_s = df64._ozaki_product_bl_cuda(square, d, s, n_slices, cut)
     torch.cuda.synchronize()
     same, diff = _bitwise(out_t, out_s)
     check(same, f"{at}: not bitwise equal to the product over all {m * m} rows (max abs diff "
           f"{diff:.3e})")
-    check(df64.OZAKI_SYM_LAUNCHES == sym + 1, f"{at}: OZAKI_SYM_LAUNCHES did not count it")
+    check(LAUNCHES["ozaki_sym"] == sym + 1, f"{at}: LAUNCHES['ozaki_sym'] did not count it")
     del out_t, out_s
     reps = 10 if m <= 64 else 2
     t_tri, t_sq = in_turns(f"ozaki_product_bl formation on the triangle vs on all rows at {at}",
@@ -1810,7 +1800,8 @@ def _fastform_factor() -> None:
         M = ((ctx.Wh @ dh).double() + (ctx.Wh @ dl + ctx.Wl @ dh).double()).reshape(m, m, B)
     reg = fac.reg.to(torch.float32).to(torch.float64)
     L_plain, _ = df64._df_chol_bl_plain(M, reg)
-    L64, _ = df64._df_chol_bl_plain((ctx.W @ d.T).reshape(m, m, B).contiguous(), reg)
+    W = (A[:, None, :] * A[None, :, :]).reshape(m * m, -1)
+    L64, _ = df64._df_chol_bl_plain((W @ d.T).reshape(m, m, B).contiguous(), reg)
     low = torch.tril(torch.ones(m, m, dtype=torch.bool, device=CARD))[..., None]
     L, L_plain, L64 = (torch.where(low, x, 0.0) for x in (fac.L, L_plain, L64))
     rel_plain, rel_64 = rel_err(L, L_plain), rel_err(L, L64)
@@ -2184,8 +2175,8 @@ def _mirrored_launches(kernels, products: list, counts: dict) -> None:
     """On the host loop (one recorded product a launch): each
     ozaki_product_kernel launch ran the mirrored instantiation exactly when
     its product was a formation (output rows m² from the triangle's rows),
-    the matvecs the one without the mirror, and OZAKI_SYM_LAUNCHES counted
-    the formations."""
+    the matvecs the one without the mirror, and LAUNCHES["ozaki_sym"]
+    counted the formations."""
     ks = [e for e in kernels if _kernel_group(e.name) == "ozaki_product_kernel"]
     mirrored = [", true>" in e.name for e in ks]
     formations = [out != rows for rows, _n, _B, _lv, out in products]
@@ -2193,9 +2184,9 @@ def _mirrored_launches(kernels, products: list, counts: dict) -> None:
           f"profile: {sum(mirrored)} of {len(ks)} ozaki_product_kernel launches mirrored, "
           f"{sum(formations)} of {len(products)} recorded products formations")
     check(counts["ozaki_sym"] == sum(formations) > 0,
-          f"profile: OZAKI_SYM_LAUNCHES {counts['ozaki_sym']}, formations {sum(formations)}")
+          f"profile: ozaki_sym launches {counts['ozaki_sym']}, formations {sum(formations)}")
     say("profile", f"{sum(formations)} formations on the mirrored instantiation "
-        f"(= OZAKI_SYM_LAUNCHES), {len(ks) - sum(formations)} matvecs on the one without")
+        f"(= ozaki_sym launches), {len(ks) - sum(formations)} matvecs on the one without")
 
 
 def _gemms_by_shape(prof) -> list:

@@ -31,12 +31,10 @@ Each kernel has a plain PyTorch version beside it (:func:`_chol_bl_plain`,
 :func:`_solve_bl_plain`, :func:`_fused_factor_bl_plain`,
 :func:`_facsol_bl_plain`) that runs the same loop order on tensors.  The
 wrappers take the plain version only for tensors on the CPU; for a CUDA
-tensor they launch the kernel or raise.  Each launch adds one to
-``CHOL_LAUNCHES``, ``SOLVE_LAUNCHES``, ``FUSED_FACTOR_LAUNCHES`` or
-``FACSOL_LAUNCHES``; a launch on the lane-group design also adds one to
-``CHOL_SMEM_LAUNCHES``, ``SOLVE_SMEM_LAUNCHES``, ``FUSED_FACTOR_SMEM_LAUNCHES``
-or ``FACSOL_SMEM_LAUNCHES``; one on the streaming design adds one to its
-shape in ``STREAM_LAUNCHES`` (the FP64 pair's too).
+tensor they launch the kernel or raise.  Each launch adds one to its
+kernel's key of :data:`~pycllp_tpu_torch.ops._launch.LAUNCHES` (and, on the
+lane-group design, to the key with ``_smem``); one on the streaming design
+adds one to its shape in ``STREAM_LAUNCHES`` (the FP64 pair's too).
 
 Per-instance (3-D) A takes the hand-written lane matvec of
 :mod:`pycllp_tpu_torch.ops.lanemv` for ``mv``, ``rmv``, the factor's
@@ -59,7 +57,17 @@ import typing
 
 import torch
 
-from pycllp_tpu_torch.ops import _build
+from pycllp_tpu_torch.ops import _build, lanemv
+from pycllp_tpu_torch.ops._launch import (
+    H100_SMS,
+    LAUNCHES,
+    _SMEM_LIMIT,
+    _check_cuda,
+    _raise_on_error,
+    _require,
+    _sm_count,
+    replayed,
+)
 # NormalFactor and ReferenceKernels are re-exported, as the reference's module does
 from pycllp_tpu_torch.ops.reference import (  # noqa: F401
     KernelSet,
@@ -84,27 +92,11 @@ __all__ = [
     "pack_w",
 ]
 
-# launch counters: one per kernel launch, nowhere else.  CHOL_LAUNCHES and
-# SOLVE_LAUNCHES count every launch of either design; the _SMEM counters
-# count the launches that ran the lane-group design.
-CHOL_LAUNCHES = 0
-SOLVE_LAUNCHES = 0
-CHOL_SMEM_LAUNCHES = 0
-SOLVE_SMEM_LAUNCHES = 0
-FUSED_FACTOR_LAUNCHES = 0
-FACSOL_LAUNCHES = 0
-FUSED_FACTOR_SMEM_LAUNCHES = 0
-FACSOL_SMEM_LAUNCHES = 0
 # the launches on the streaming design, of this module's kernels and of
 # df64's FP64 pair, by shape: (kind, dtype, m, B, k) → launches, kind
 # "chol", "solve", "fused" or "facsol", dtype "f32" or "f64", k the
 # right-hand sides (1 for a factor)
-STREAM_LAUNCHES: collections.Counter = collections.Counter()
-
-# shared memory a block may use on the H100 (sm_90), in bytes
-_SMEM_LIMIT = 232448
-# the H100 SXM's SM count, for plans made without a card (the CPU tests)
-H100_SMS = 132
+STREAM_LAUNCHES: collections.Counter = replayed(collections.Counter())
 
 
 # ---------------------------------------------------------------------------
@@ -217,16 +209,6 @@ def lane_plan(kind: str, m: int, B: int, dtype, n_sm: int = H100_SMS, k: int = 1
     return LanePlan("smem", lanes, -(-B // lanes), smem)
 
 
-_SM_COUNT: dict = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SM_COUNT[idx]
-
-
 # ---------------------------------------------------------------------------
 # plain versions (CPU tensors, and the on-card comparison)
 # ---------------------------------------------------------------------------
@@ -325,23 +307,6 @@ def _facsol_bl_plain(M, reg, R):
 # ---------------------------------------------------------------------------
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(what)
-
-
-def _check_cuda(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32) -> None:
-    _require(t.is_cuda, f"{name} must be a CUDA tensor, got device {t.device}")
-    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-    _require(tuple(t.shape) == shape, f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    _require(t.is_contiguous(), f"{name} must be contiguous")
-
-
-def _raise_on_error(fn: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError_t {err}")
-
-
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -400,33 +365,31 @@ def _launch_solve(L, dinv, R, dtype, design=None, lanes=None):
     return V, plan
 
 
-def _count_stream(plan, kind: str, dtype, m: int, B: int, k: int = 1) -> None:
-    """One launch of ``plan`` in ``STREAM_LAUNCHES`` where it ran the
-    streaming design."""
-    if plan is not None and plan.design == "stream":
+def _count(key: str, plan, kind: str, dtype, m: int, B: int, k: int = 1) -> None:
+    """One launch of ``plan`` in ``LAUNCHES[key]``, and in ``key + "_smem"``
+    or in ``STREAM_LAUNCHES`` by the design it ran; nothing when nothing
+    launched (``plan`` None)."""
+    if plan is None:
+        return
+    LAUNCHES[key] += 1
+    if plan.design == "smem":
+        LAUNCHES[key + "_smem"] += 1
+    else:
         STREAM_LAUNCHES[(kind, _SUFFIX[dtype], m, B, k)] += 1
 
 
 def _chol_bl_cuda(M, reg, design=None, lanes=None):
     """The f32 factor on the card; ``design="stream"`` (or ``"smem"``, and
     ``lanes``) force a design for the on-card comparisons."""
-    global CHOL_LAUNCHES, CHOL_SMEM_LAUNCHES
     L, dinv, plan = _launch_chol(M, reg, torch.float32, design, lanes)
-    if plan is not None:
-        CHOL_LAUNCHES += 1
-        CHOL_SMEM_LAUNCHES += plan.design == "smem"
-        _count_stream(plan, "chol", torch.float32, M.shape[0], M.shape[2])
+    _count("chol_bl", plan, "chol", torch.float32, M.shape[0], M.shape[2])
     return L, dinv
 
 
 def _solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     """The f32 solve on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
-    global SOLVE_LAUNCHES, SOLVE_SMEM_LAUNCHES
     V, plan = _launch_solve(L, dinv, R, torch.float32, design, lanes)
-    if plan is not None:
-        SOLVE_LAUNCHES += 1
-        SOLVE_SMEM_LAUNCHES += plan.design == "smem"
-        _count_stream(plan, "solve", torch.float32, L.shape[0], L.shape[2], R.shape[0])
+    _count("solve_bl", plan, "solve", torch.float32, L.shape[0], L.shape[2], R.shape[0])
     return V
 
 
@@ -445,7 +408,6 @@ def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None, Wp=None):
     """fused_factor_bl on the card; ``design``/``lanes`` as
     :func:`_chol_bl_cuda`.  ``Wp`` is :func:`pack_w` of W, which the
     lane-group kernel reads; without it the wrapper packs W itself."""
-    global FUSED_FACTOR_LAUNCHES, FUSED_FACTOR_SMEM_LAUNCHES
     _require(W.dim() == 2 and dT.dim() == 2, "W must be (m², n) and dT (n, B)")
     m = math.isqrt(W.shape[0])
     n, B = dT.shape
@@ -474,15 +436,12 @@ def _fused_factor_bl_cuda(W, dT, reg, design=None, lanes=None, Wp=None):
     with torch.cuda.device(dT.device):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(entry, err)
-    FUSED_FACTOR_LAUNCHES += 1
-    FUSED_FACTOR_SMEM_LAUNCHES += plan.design == "smem"
-    _count_stream(plan, "fused", torch.float32, m, B)
+    _count("fused_factor_bl", plan, "fused", torch.float32, m, B)
     return L, dinv
 
 
 def _facsol_bl_cuda(M, reg, R, design=None, lanes=None):
     """facsol_bl on the card; ``design``/``lanes`` as :func:`_chol_bl_cuda`."""
-    global FACSOL_LAUNCHES, FACSOL_SMEM_LAUNCHES
     _require(M.dim() == 3 and M.shape[0] == M.shape[1], f"M must be (m, m, B), got {tuple(M.shape)}")
     _require(R.dim() == 3, f"R must be (k, m, B), got {tuple(R.shape)}")
     m, B = M.shape[0], M.shape[2]
@@ -506,9 +465,7 @@ def _facsol_bl_cuda(M, reg, R, design=None, lanes=None):
     with torch.cuda.device(M.device):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(entry, err)
-    FACSOL_LAUNCHES += 1
-    FACSOL_SMEM_LAUNCHES += plan.design == "smem"
-    _count_stream(plan, "facsol", torch.float32, m, B, k)
+    _count("facsol_bl", plan, "facsol", torch.float32, m, B, k)
     return M, dinv, V
 
 
@@ -755,6 +712,3 @@ class BatchLastKernels(KernelSet):
 
 BATCHLAST_KERNELS = BatchLastKernels()
 BATCHLAST_FUSED_KERNELS = BatchLastKernels(fuse_form=True)
-
-# last: lanemv imports this module's launch helpers
-from pycllp_tpu_torch.ops import lanemv  # noqa: E402

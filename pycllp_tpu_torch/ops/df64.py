@@ -40,14 +40,15 @@ Each kernel has a plain PyTorch version beside it (:func:`_df_chol_bl_plain`,
 :func:`_df_solve_bl_plain`, :func:`_slice_rounds_bl_plain`,
 :func:`_ozaki_matmul_plain`).  The wrappers take the plain version only
 for CPU tensors; for a CUDA tensor they launch the kernel or raise.  Each
-launch adds one to ``DF_CHOL_LAUNCHES``, ``DF_SOLVE_LAUNCHES``,
-``SLICE_LAUNCHES`` or ``OZAKI_LAUNCHES``, each Ozaki product with lanes
-sent to the card one to ``OZAKI_MATMUL_LAUNCHES`` (whatever route runs
-it: one ``ozaki_product_bl`` launch), each of them a formation on M's
-triangle one to ``OZAKI_SYM_LAUNCHES`` too, a factor or solve on the
-lane-group design one to ``DF_CHOL_SMEM_LAUNCHES`` or
-``DF_SOLVE_SMEM_LAUNCHES``, and one on the streaming design one to its
-shape in :data:`~pycllp_tpu_torch.ops.batchlast.STREAM_LAUNCHES`.
+launch adds one to its kernel's key of
+:data:`~pycllp_tpu_torch.ops._launch.LAUNCHES` (``df_chol_bl``,
+``df_solve_bl``, ``slice_rounds_bl``, ``ozaki_product_bl``), each Ozaki
+product with lanes sent to the card one to ``ozaki_products`` (whatever
+route runs it: one ``ozaki_product_bl`` launch), each of them a formation
+on M's triangle one to ``ozaki_sym`` too, a factor or solve on the
+lane-group design one to ``df_chol_bl_smem`` or ``df_solve_bl_smem``, and
+one on the streaming design one to its shape in
+:data:`~pycllp_tpu_torch.ops.batchlast.STREAM_LAUNCHES`.
 
 The reference's environment knobs ``PYCLLP_OZAKI_BITS`` and
 ``PYCLLP_OZAKI_MV_BITS`` are arguments here: ``bits=`` / ``mv_bits=`` of
@@ -70,17 +71,15 @@ import typing
 import torch
 
 from pycllp_tpu_torch.ops import _build
+from pycllp_tpu_torch.ops._launch import LAUNCHES, _check_cuda, _raise_on_error, _require
 from pycllp_tpu_torch.ops.batchlast import (
     _amv,
     _armv,
-    _check_cuda,
     _chol_bl_plain,
-    _count_stream,
+    _count,
     _launch_chol,
     _launch_solve,
     _matvec_M,
-    _raise_on_error,
-    _require,
     _solve_bl_plain,
 )
 from pycllp_tpu_torch.ops.reference import KernelSet
@@ -98,17 +97,6 @@ __all__ = [
     "check_ozaki_width",
     "check_ozaki_levels",
 ]
-
-# launch counters: one per kernel launch, nowhere else; the _SMEM counters
-# count the factor and solve launches that ran the lane-group design
-DF_CHOL_LAUNCHES = 0
-DF_SOLVE_LAUNCHES = 0
-DF_CHOL_SMEM_LAUNCHES = 0
-DF_SOLVE_SMEM_LAUNCHES = 0
-SLICE_LAUNCHES = 0
-OZAKI_LAUNCHES = 0
-OZAKI_MATMUL_LAUNCHES = 0
-OZAKI_SYM_LAUNCHES = 0
 
 # ---------------------------------------------------------------------------
 # double-single arithmetic on f32 tensors (the Ozaki slicing's remainder)
@@ -181,28 +169,19 @@ def _slice_rounds_bl_plain(Rh, Rl, s: int, n_slices: int):
 def _df_chol_bl_cuda(M, reg, design=None, lanes=None):
     """The FP64 factor on the card; ``design="stream"`` (or ``"smem"``, and
     ``lanes``) force a design for the on-card comparisons."""
-    global DF_CHOL_LAUNCHES, DF_CHOL_SMEM_LAUNCHES
     L, dinv, plan = _launch_chol(M, reg, torch.float64, design, lanes)
-    if plan is not None:
-        DF_CHOL_LAUNCHES += 1
-        DF_CHOL_SMEM_LAUNCHES += plan.design == "smem"
-        _count_stream(plan, "chol", torch.float64, M.shape[0], M.shape[2])
+    _count("df_chol_bl", plan, "chol", torch.float64, M.shape[0], M.shape[2])
     return L, dinv
 
 
 def _df_solve_bl_cuda(L, dinv, R, design=None, lanes=None):
     """The FP64 solve on the card; ``design``/``lanes`` as :func:`_df_chol_bl_cuda`."""
-    global DF_SOLVE_LAUNCHES, DF_SOLVE_SMEM_LAUNCHES
     V, plan = _launch_solve(L, dinv, R, torch.float64, design, lanes)
-    if plan is not None:
-        DF_SOLVE_LAUNCHES += 1
-        DF_SOLVE_SMEM_LAUNCHES += plan.design == "smem"
-        _count_stream(plan, "solve", torch.float64, L.shape[0], L.shape[2], R.shape[0])
+    _count("df_solve_bl", plan, "solve", torch.float64, L.shape[0], L.shape[2], R.shape[0])
     return V
 
 
 def _slice_rounds_bl_cuda(Rh, Rl, s: int, n_slices: int):
-    global SLICE_LAUNCHES
     _require(Rh.dim() == 2, f"Rh must be (r, B), got {tuple(Rh.shape)}")
     r, B = Rh.shape
     _check_cuda("Rh", Rh, (r, B))
@@ -220,7 +199,7 @@ def _slice_rounds_bl_cuda(Rh, Rl, s: int, n_slices: int):
             Rh.data_ptr(), Rl.data_ptr(), S.data_ptr(), r, B, s, n_slices, stream
         )
     _raise_on_error("slice_rounds_bl", err)
-    SLICE_LAUNCHES += 1
+    LAUNCHES["slice_rounds_bl"] += 1
     return S
 
 
@@ -407,14 +386,16 @@ def _pack_slices(slices):
     return S.permute(1, 0, 4, 3, 6, 5, 2, 7).reshape(Rp // 16, ns, Np // 16, 32, 8).contiguous()
 
 
-def _ozaki_prepare(W64, *, s, n_slices, cut):
+def _ozaki_prepare(W64, *, s, n_slices, cut, pairs=None):
     """Slice ``W`` (rows, n) once: an :class:`OzakiOperand`.
 
     The rows are sliced and packed in blocks of whole 32-row tiles whose
     f32 slices take about ``OZAKI_PREPARE_BLOCK_BYTES``: the slicing is per
-    row, so the blocks give the one-shot operand bit for bit.
+    row, so the blocks give the one-shot operand bit for bit.  With
+    ``pairs`` (two index tensors i, j), ``W64`` is A and row r is
+    ``A[i[r]] * A[j[r]]``, made a block at a time: no W is ever whole.
     """
-    rows, n = W64.shape
+    rows, n = W64.shape if pairs is None else (pairs[0].shape[0], W64.shape[1])
     tile_bytes = 4 * n_slices * max(n, 1) * OZAKI_ROW_PAD
     per = max(1, OZAKI_PREPARE_BLOCK_BYTES // tile_bytes) * OZAKI_ROW_PAD
     packed = torch.empty((-(-rows // OZAKI_ROW_PAD) * OZAKI_ROW_PAD // 16, n_slices,
@@ -422,8 +403,9 @@ def _ozaki_prepare(W64, *, s, n_slices, cut):
     e = torch.empty((rows, 1), dtype=torch.float64, device=W64.device)
     for r0 in range(0, rows, per):
         r1 = min(r0 + per, rows)
-        sl, e[r0:r1] = _df_slice_int(W64[r0:r1].to(torch.float64), axis=1, s=s,
-                                     n_slices=n_slices)
+        X = (W64[r0:r1] if pairs is None else
+             W64.index_select(0, pairs[0][r0:r1]) * W64.index_select(0, pairs[1][r0:r1]))
+        sl, e[r0:r1] = _df_slice_int(X.to(torch.float64), axis=1, s=s, n_slices=n_slices)
         block = _pack_slices(sl)
         packed[r0 // 16:r0 // 16 + block.shape[0]] = block
     return OzakiOperand(e=e, packed=packed)
@@ -490,7 +472,6 @@ def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int, dst=None):
     :class:`OzakiTriangle`'s ``op``) and each row r of the product is
     stored at rows ``dst[r]`` of an (m·m, B) output: the kernel's mirrored
     epilogue."""
-    global OZAKI_LAUNCHES
     _require(d.dim() == 2, f"d must be (B, n), got {tuple(d.shape)}")
     B, n = d.shape
     _require(d.is_cuda, f"d must be a CUDA tensor, got device {d.device}")
@@ -523,7 +504,7 @@ def _ozaki_product_bl_cuda(W, d, s: int, n_slices: int, cut: int, dst=None):
             err = lib.pycllp_ozaki_formation_bl(W.packed.data_ptr(), W.e.data_ptr(),
                                                 dst.data_ptr(), *args, stream)
     _raise_on_error("ozaki_product_bl", err)
-    OZAKI_LAUNCHES += 1
+    LAUNCHES["ozaki_product_bl"] += 1
     return out
 
 
@@ -535,17 +516,17 @@ def _ozaki_matmul(W, d, *, s, n_slices, cut):
     ``ozaki_product_bl`` (or raises); a CPU ``d`` runs
     :func:`_ozaki_matmul_plain`.
     """
-    global OZAKI_MATMUL_LAUNCHES
     if d.device.type == "cpu":
         return _ozaki_matmul_plain(W, d, s=s, n_slices=n_slices, cut=cut)
-    OZAKI_MATMUL_LAUNCHES += bool(d.shape[0] and W.e.shape[0])
+    LAUNCHES["ozaki_products"] += bool(d.shape[0] and W.e.shape[0])
     return _ozaki_product_bl_cuda(W, d.to(torch.float64), s, n_slices, cut)
 
 
 class OzakiTriangle(typing.NamedTuple):
     """The normal-matrix formation's operand: the rows (i, j), i ≤ j, of
-    W = A∘A (row-major: i, then j ≥ i) as an :class:`OzakiOperand`, and
-    where each goes in the (m·m, B) product."""
+    W = A∘A (row-major: i, then j ≥ i; row (i, j) is W's row i·m + j,
+    ``A[i] * A[j]``) as an :class:`OzakiOperand`, and where each goes in
+    the (m·m, B) product."""
 
     op: OzakiOperand
     dst: typing.Any  # (m(m+1)/2, 2) int32: rows (i·m + j, j·m + i) of packed row (i, j)
@@ -559,12 +540,13 @@ def _triangle_side(rows: int) -> int:
     return m
 
 
-def _ozaki_triangle(W64, m: int, *, s, n_slices, cut):
-    """Slice the rows of M's triangle of ``W`` (m·m, n) once: an
-    :class:`OzakiTriangle`, through :func:`_ozaki_prepare`."""
-    i, j = torch.triu_indices(m, m, device=W64.device)
+def _ozaki_triangle(A, *, s, n_slices, cut):
+    """Slice the rows of M's triangle of W = A∘A, A (m, n) f64, once: an
+    :class:`OzakiTriangle`, through :func:`_ozaki_prepare` on A's row pairs."""
+    m = A.shape[0]
+    i, j = torch.triu_indices(m, m, device=A.device)
     dst = torch.stack([i * m + j, j * m + i], dim=1).to(torch.int32).contiguous()
-    op = _ozaki_prepare(W64.index_select(0, dst[:, 0]), s=s, n_slices=n_slices, cut=cut)
+    op = _ozaki_prepare(A, s=s, n_slices=n_slices, cut=cut, pairs=(i, j))
     return OzakiTriangle(op=op, dst=dst)
 
 
@@ -583,16 +565,15 @@ def _ozaki_formation(W, d, *, s, n_slices, cut):
     :func:`_ozaki_matmul` on the operand of every row.
 
     A CUDA ``d`` launches the mirrored ``ozaki_product_bl`` (or raises),
-    counted in ``OZAKI_MATMUL_LAUNCHES`` and ``OZAKI_SYM_LAUNCHES``; a CPU
+    counted in ``LAUNCHES["ozaki_products"]`` and ``["ozaki_sym"]``; a CPU
     ``d`` runs :func:`_ozaki_matmul` (its plain version) on the triangle
     and places each row at both of its places.
     """
-    global OZAKI_MATMUL_LAUNCHES, OZAKI_SYM_LAUNCHES
     if d.device.type == "cpu":
         return _mirror_rows(_ozaki_matmul(W.op, d, s=s, n_slices=n_slices, cut=cut), W.dst)
     launched = bool(d.shape[0] and W.dst.shape[0])
-    OZAKI_MATMUL_LAUNCHES += launched
-    OZAKI_SYM_LAUNCHES += launched
+    LAUNCHES["ozaki_products"] += launched
+    LAUNCHES["ozaki_sym"] += launched
     return _ozaki_product_bl_cuda(W.op, d.to(torch.float64), s, n_slices, cut, dst=W.dst)
 
 
@@ -604,8 +585,8 @@ def _ozaki_formation(W, d, *, s, n_slices, cut):
 class PreparedDF(typing.NamedTuple):
     A: typing.Any  # (m, n) or (B, m, n) f64
     Asq: typing.Any
-    W: typing.Any  # (m², n) f64 self-outer-product, or None for 3-D A
-    Wh: typing.Any  # f32 hi/lo split of W (the fast formation's GEMM inputs)
+    W: typing.Any  # (m², n) f64 self-outer-product (form "f64"), else None
+    Wh: typing.Any  # f32 hi/lo split of W (form "fast": its GEMM inputs)
     Wl: typing.Any
     Woz: typing.Any  # OzakiTriangle of W (the formation's operand), or None
     Amv: typing.Any  # OzakiOperand of A — exact f64 matvecs
@@ -674,12 +655,15 @@ class DoubleSingleKernels(KernelSet):
                               Armv=None)
         m, n = A.shape
         self.check_ozaki_levels(m, n)
-        W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
-        Wh, Wl = _split_hi_lo(W) if self.form == "fast" else (None, None)
-        Woz = None
+        W = Wh = Wl = Woz = None
         if self.form == "ozaki":
             s, n_slices, cut = ozaki_params(n, self.bits)
-            Woz = _ozaki_triangle(W, m, s=s, n_slices=n_slices, cut=cut)
+            Woz = _ozaki_triangle(A, s=s, n_slices=n_slices, cut=cut)
+        else:
+            W = (A[:, None, :] * A[None, :, :]).reshape(m * m, n)
+            if self.form == "fast":
+                Wh, Wl = _split_hi_lo(W)
+                W = None
         sm, nm, cm = ozaki_mv_params(n, self.mv_bits)
         sr, nr, cr = ozaki_mv_params(m, self.mv_bits)
         Amv = _ozaki_prepare(A, s=sm, n_slices=nm, cut=cm)
@@ -713,7 +697,7 @@ class DoubleSingleKernels(KernelSet):
         ds = (d / dmax_s[..., None]).to(torch.float32)
         diag32 = _amv(ctx.Asq.to(torch.float32), ds)
         reg = reg_eps * diag32.amax(dim=-1).to(torch.float64) * dmax_s
-        if ctx.W is None:
+        if ctx.A.dim() == 3:
             M = torch.einsum("bmn,bn,bkn->mkb", ctx.A, d, ctx.A).contiguous()
         elif self.form == "ozaki":
             s, n_slices, cut = ozaki_params(ctx.A.shape[-1], self.bits)

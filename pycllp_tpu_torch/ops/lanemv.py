@@ -16,9 +16,9 @@ kernel: the reference leaves these products to XLA's einsum.  Each
 function has a plain version beside it (:func:`_lane_mv_plain`,
 :func:`_lane_rmv_plain`, :func:`_lane_normal_plain`): today's einsum
 expressions.  The wrappers take it only for CPU tensors; for CUDA tensors
-they launch the kernel or raise.  Each launch adds one to
-``LANE_MV_LAUNCHES``, ``LANE_RMV_LAUNCHES`` or ``LANE_NORMAL_LAUNCHES``; a
-lane too large for one shared-memory stage runs its normal product as an
+they launch the kernel or raise.  Each launch adds one to ``lane_mv``,
+``lane_rmv`` or ``lane_normal`` of
+:data:`~pycllp_tpu_torch.ops._launch.LAUNCHES`; a lane too large for one shared-memory stage runs its normal product as an
 rmv launch and an mv launch, and counts them as such.
 """
 
@@ -29,8 +29,9 @@ import typing
 import torch
 
 from pycllp_tpu_torch.ops import _build
-from pycllp_tpu_torch.ops.batchlast import (
+from pycllp_tpu_torch.ops._launch import (
     H100_SMS,
+    LAUNCHES,
     _SMEM_LIMIT,
     _raise_on_error,
     _require,
@@ -39,16 +40,12 @@ from pycllp_tpu_torch.ops.batchlast import (
 
 __all__ = ["KERNEL_NAMES", "LaneMvPlan", "lane_mv", "lane_mv_plan", "lane_normal", "lane_rmv"]
 
-# launch counters: one per kernel launch, nowhere else
-LANE_MV_LAUNCHES = 0
-LANE_RMV_LAUNCHES = 0
-LANE_NORMAL_LAUNCHES = 0
-
 # the device kernels this module launches, by the name a profiler shows
 KERNEL_NAMES = ("lane_matvec_kernel",)
 
-# the kernel's modes (csrc/lanemv.cu: LaneMvMode)
+# the kernel's modes (csrc/lanemv.cu: LaneMvMode), and their keys in LAUNCHES
 _MV, _RMV, _NORMAL = 0, 1, 2
+_KEYS = ("lane_mv", "lane_rmv", "lane_normal")
 # shared memory of one H100 SM, and what the card reserves for each block
 _SM_SMEM = 233472
 _BLOCK_RESERVED = 1024
@@ -161,7 +158,6 @@ def _operands(A, **vecs):
 def _lane_cuda(mode: int, A, x=None, s=None, y=None, reg=None, out_len: int = 0):
     """One launch of ``lane_matvec_kernel`` in ``mode`` on 3-D CUDA A; the
     absent vectors are null pointers.  Returns the (B, out_len) output."""
-    global LANE_MV_LAUNCHES, LANE_RMV_LAUNCHES, LANE_NORMAL_LAUNCHES
     _require(A.is_cuda, f"A must be a CUDA tensor, got device {A.device}")
     given = {k: v for k, v in (("x", x), ("s", s), ("y", y), ("reg", reg)) if v is not None}
     vecs = _operands(A, **given)
@@ -186,12 +182,7 @@ def _lane_cuda(mode: int, A, x=None, s=None, y=None, reg=None, out_len: int = 0)
             int(plan.bulk), plan.grid, plan.smem, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(entry, err)
-    if mode == _MV:
-        LANE_MV_LAUNCHES += 1
-    elif mode == _RMV:
-        LANE_RMV_LAUNCHES += 1
-    else:
-        LANE_NORMAL_LAUNCHES += 1
+    LAUNCHES[_KEYS[mode]] += 1
     return out
 
 

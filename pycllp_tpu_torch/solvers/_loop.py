@@ -54,14 +54,11 @@ in the key (the kernel set and the options are, in
 changed between calls: code that swaps a kernel wrapper for a run calls
 :func:`_clear_graphs` before and after it.
 
-The launch counters (``*_LAUNCHES`` of :mod:`pycllp_tpu_torch.ops.batchlast`,
-:mod:`pycllp_tpu_torch.ops.df64` and :mod:`pycllp_tpu_torch.ops.lanemv`, an
-int or, for ``STREAM_LAUNCHES``, a ``collections.Counter`` of launch
-shapes) and the Counter :data:`pycllp_tpu_torch.solvers.hsd.PREPARED_BYTES`
-of prepared contexts are added to by Python at the call that issues a
-launch or a prepare, so at capture only: the capture's increments are
-taken back, and every replay adds them again, so a counter counts the
-launches that ran.
+The Counters of :data:`pycllp_tpu_torch.ops._launch.REPLAYED` (the launch
+counts, and those their owners register there) are added to by Python at
+the call that issues a launch or a prepare, so at capture only: the
+capture's increments are taken back, and every replay adds them again, so
+a counter counts the launches that ran.
 
 The profiler marks (``torch.profiler.record_function`` ranges, recorded
 only while a profiler runs, always in host code outside any captured
@@ -81,6 +78,8 @@ import time
 import weakref
 
 import torch
+
+from pycllp_tpu_torch.ops import _build, _launch
 
 # gated iterations a block where the lanes share A: chosen on the card from
 # {2, 3, 4, 6} by the main cell's wall and its gated-off share (PERF.md §6);
@@ -182,8 +181,6 @@ def _new_graph():
     compile of the kernel library where the warm-up's first launch ran it
     (a process's first graph in a checkout without the built library)."""
     global CAPTURE_SECONDS
-    from pycllp_tpu_torch.ops import _build
-
     built = _build._INFO
     t0 = time.perf_counter()
     with torch.profiler.record_function("graph capture"):
@@ -209,41 +206,28 @@ def _read(flag):
     return _host_read(flag)
 
 
-def _counters() -> list:
-    from pycllp_tpu_torch.ops import batchlast, df64, lanemv
-    from pycllp_tpu_torch.solvers import hsd
-
-    return [(mod, name) for mod in (batchlast, df64, lanemv) for name in vars(mod)
-            if name.endswith("_LAUNCHES")] + [(hsd, "PREPARED_BYTES")]
+def _counts() -> list:
+    """The Counters of ``_launch.REPLAYED``, each with a copy of it now."""
+    return [(c, collections.Counter(c)) for c in _launch.REPLAYED]
 
 
-def _take_back(counters: list, before: list) -> list:
-    """The counters' increments since ``before`` (their values then, a
-    Counter copied), taken back: [(module, name, increment)], nonzero
-    ones only.  A Counter is restored in place."""
+def _take_back(before: list) -> list:
+    """The increments of the Counters of ``before`` (:func:`_counts`) since
+    then, taken back in place: [(counter, increment)], nonzero ones only."""
     deltas = []
-    for (ns, name), b in zip(counters, before):
-        now = getattr(ns, name)
-        if isinstance(now, collections.Counter):
-            d = now - b
-            now.clear()
-            now.update(b)
-        else:
-            d = now - b
-            setattr(ns, name, b)
+    for now, b in before:
+        d = now - b
+        now.clear()
+        now.update(b)
         if d:
-            deltas.append((ns, name, d))
+            deltas.append((now, d))
     return deltas
 
 
 def _add_back(deltas: list) -> None:
-    """Each counter's increment of ``deltas`` added again (a replay's)."""
-    for ns, name, d in deltas:
-        now = getattr(ns, name)
-        if isinstance(now, collections.Counter):
-            now.update(d)
-        else:
-            setattr(ns, name, now + d)
+    """Each Counter's increment of ``deltas`` added again (a replay's)."""
+    for now, d in deltas:
+        now.update(d)
 
 
 def _gated(cond, body, s, limit, steps):
@@ -356,9 +340,7 @@ def _capture(device, run):
     pool: (graph, the launch counts it adds a replay).  A capture that
     fails raises."""
     global GRAPH_CAPTURES
-    counters = _counters()
-    before = [collections.Counter(v) if isinstance(v, collections.Counter) else v
-              for v in (getattr(ns, name) for ns, name in counters)]
+    before = _counts()
     side = _side_stream(device)
     graph = torch.cuda.CUDAGraph()
     torch.cuda.synchronize(device)
@@ -369,7 +351,7 @@ def _capture(device, run):
         finally:
             graph.capture_end()
     # nothing ran: take the capture's counts back, keep them per replay
-    deltas = _take_back(counters, before)
+    deltas = _take_back(before)
     GRAPH_CAPTURES += 1
     return graph, deltas
 

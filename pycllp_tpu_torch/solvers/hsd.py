@@ -71,6 +71,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pycllp_tpu_torch.ops._launch import replayed
 from pycllp_tpu_torch.ops.batchlast import uses_smem
 from pycllp_tpu_torch.ops.reference import KernelSet, REFERENCE_KERNELS
 from pycllp_tpu_torch.solvers import _loop
@@ -97,9 +98,9 @@ HOST_STEPS = 0
 # the contexts that the kernel sets' ``prepare`` returned in the last entry
 # call (hsd_solve_batched, hsd_solve_scan): (set name, bytes of the
 # context's tensors, each storage once) → prepares, counted at replay too,
-# as the launch counters are (_loop._counters).  A set that prepares the
-# same A in two segments (the crossover's) shows one key, counted twice
-PREPARED_BYTES: collections.Counter = collections.Counter()
+# as the launch counters are (ops._launch.REPLAYED).  A set that prepares
+# the same A in two segments (the crossover's) shows one key, counted twice
+PREPARED_BYTES: collections.Counter = replayed(collections.Counter())
 # the vertex crossover's lanes on the device, per (device, crossover): int64
 # (tried, accepted), added to inside the segments that run it, never read
 # by the solver.  "first" is a crossover whose rejects go on to the wide IPM

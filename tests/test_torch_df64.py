@@ -13,7 +13,9 @@ versions of its CUDA kernels; the JAX Pallas kernels run in interpret mode.
   all-zero lane and a lane whose max is a power of two; the bf16 packing
   of W's slices for the ``ozaki_product_bl`` kernel (main-cell and netlib
   shapes) and the kernel's schedule, replayed on the CPU, bitwise equal
-  to the plain version;
+  to the plain version; the Ozaki form's context of a shared A holds no
+  W = A∘A, its triangle operand (packed from A's row pairs) bitwise the
+  one cut from a whole W;
 * ``DF64_FINISH_KERNELS``: backward error < 1e-11 at a 1e±12 spread
   (tests_tpu/smoke.py's contract), agreement with the reference's set
   < 1e-7 at 1e±3; the f32 rounding of δ; the NaN lane; per-instance A;
@@ -38,6 +40,7 @@ from pycllp_tpu.ops import mixed as ref_mixed
 from pycllp_tpu.ops.batchlast import BATCHLAST_KERNELS as REF_BL
 from pycllp_tpu_torch.ops import batchlast as bl
 from pycllp_tpu_torch.ops import df64, mixed
+from pycllp_tpu_torch.ops._launch import LAUNCHES
 from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
 
 DF = df64.DF64_FINISH_KERNELS
@@ -335,7 +338,7 @@ def test_ozaki_triangle_formation_is_the_square_product_bitwise(m, levels):
     A, W, (s, n_slices, cut), d = _triangle_case(m, levels, seed=100 + m + levels)
     Wt, dt = _t(W, d)
     kw = dict(s=s, n_slices=n_slices, cut=cut)
-    tri = df64._ozaki_triangle(Wt, m, **kw)
+    tri = df64._ozaki_triangle(torch.from_numpy(A), **kw)
     i, j = np.triu_indices(m)
     assert tri.dst.dtype == torch.int32 and tri.dst.is_contiguous()
     np.testing.assert_array_equal(tri.dst.numpy(), np.stack([i * m + j, j * m + i], axis=1))
@@ -359,10 +362,10 @@ def test_ozaki_kernel_schedule_mirrored_matches_plain_bitwise(m, levels):
     mirrored epilogue: each computed row r stored at rows dst[r] of the
     (m², B) output, once on the diagonal.  It equals _ozaki_formation and
     the square product bit for bit."""
-    _, W, (s, n_slices, cut), d = _triangle_case(m, levels, seed=7 * m + levels)
+    A, W, (s, n_slices, cut), d = _triangle_case(m, levels, seed=7 * m + levels)
     Wt, dt = _t(W, d)
     kw = dict(s=s, n_slices=n_slices, cut=cut)
-    tri = df64._ozaki_triangle(Wt, m, **kw)
+    tri = df64._ozaki_triangle(torch.from_numpy(A), **kw)
     T, n = tri.op.e.shape[0], W.shape[1]
     Ws, _ = _unpack_slices(tri.op.packed, T, n)
     mx = np.maximum(np.abs(d).max(axis=1), np.finfo(np.float32).tiny)
@@ -401,7 +404,8 @@ def test_df64_factor_on_the_triangle_is_the_square_formation_bitwise(monkeypatch
     ctx = DF.prepare(At)
     tri = DF.factor(ctx, dt, 1e-12)
     s, n_slices, cut = df64.ozaki_params(n)
-    square = df64._ozaki_prepare(ctx.W, s=s, n_slices=n_slices, cut=cut)
+    W = (At[:, None, :] * At[None, :, :]).reshape(m * m, n)
+    square = df64._ozaki_prepare(W, s=s, n_slices=n_slices, cut=cut)
     monkeypatch.setattr(df64, "_ozaki_formation",
                         lambda W, d, **kw: df64._ozaki_matmul(square, d, **kw))
     sq = DF.factor(ctx, dt, 1e-12)
@@ -409,6 +413,32 @@ def test_df64_factor_on_the_triangle_is_the_square_formation_bitwise(monkeypatch
         a, b = getattr(tri, name), getattr(sq, name)
         assert torch.equal(a.view(torch.int64), b.view(torch.int64)), name
     assert torch.isfinite(tri.dinv).all()
+
+
+@pytest.mark.parametrize("m,n", [(1, 5), (7, 20), (64, 128), (56, 153)])
+def test_ozaki_context_holds_no_w(m, n):
+    """On a shared A the Ozaki form's context holds no W = A∘A: its
+    triangle operand, packed from A's row pairs, is bitwise the one cut
+    from the rows (i, j), i ≤ j, of a W built whole.  Form "f64" still
+    holds that W, and form "fast" its f32 hi/lo split alone."""
+    rng = np.random.default_rng(m * n)
+    At = torch.from_numpy(rng.standard_normal((m, n)) * 10.0 ** rng.uniform(-3, 3, (m, 1)))
+    W = (At[:, None, :] * At[None, :, :]).reshape(m * m, n)
+    ctx = DF.prepare(At)
+    assert ctx.W is None and ctx.Wh is None and ctx.Wl is None
+    i, j = torch.triu_indices(m, m)
+    want = df64._ozaki_prepare(W.index_select(0, i * m + j), **dict(zip(
+        ("s", "n_slices", "cut"), df64.ozaki_params(n))))
+    assert torch.equal(ctx.Woz.dst, torch.stack([i * m + j, j * m + i], dim=1).to(torch.int32))
+    assert torch.equal(ctx.Woz.op.e.view(torch.int64), want.e.view(torch.int64))
+    assert torch.equal(ctx.Woz.op.packed.view(torch.int16), want.packed.view(torch.int16))
+    f64 = df64.DF64_F64FORM_KERNELS.prepare(At)
+    assert f64.Woz is None and f64.Wh is None and torch.equal(f64.W, W)
+    fast = df64.DF64_FASTFORM_KERNELS.prepare(At)
+    assert fast.W is None and fast.Woz is None
+    Wh, Wl = df64._split_hi_lo(W)
+    assert torch.equal(fast.Wh, Wh) and torch.equal(fast.Wl, Wl)
+    torch.testing.assert_close(fast.Wh.double() + fast.Wl.double(), W, rtol=1e-14, atol=0)
 
 
 @pytest.mark.parametrize("m,n,B", [(16, 24, 128), (32, 48, 256)])
@@ -497,7 +527,7 @@ def test_df64_per_instance_A():
     d = np.abs(rng.standard_normal((B, n))) + 1e-2
     r = rng.standard_normal((B, m))
     ctx = DF.prepare(torch.from_numpy(A3))
-    assert ctx.W is None and ctx.Amv is None
+    assert ctx.W is None and ctx.Woz is None and ctx.Amv is None
     fac = DF.factor(ctx, torch.from_numpy(d), 1e-14)
     (v,) = DF.solve(fac, (torch.from_numpy(r),))
     assert _backward_error(A3, d, fac.reg.numpy(), r, v.numpy()) < 1e-13
@@ -549,7 +579,9 @@ def test_fastform_is_not_ported(fastform_pair):
     m = p["m"]
     ctx = p["ctx"]
     assert ctx.Wh.dtype == ctx.Wl.dtype == torch.float32 and ctx.Wh.shape == (m * m, 2 * m + 2)
-    torch.testing.assert_close(ctx.Wh.double() + ctx.Wl.double(), ctx.W, rtol=1e-14, atol=0)
+    assert ctx.W is None
+    W = (ctx.A[:, None, :] * ctx.A[None, :, :]).reshape(m * m, -1)
+    torch.testing.assert_close(ctx.Wh.double() + ctx.Wl.double(), W, rtol=1e-14, atol=0)
     ok = np.ones(p["L"].shape[-1], bool)
     ok[BIG_LANE] = False
     np.testing.assert_allclose(p["reg"][ok], p["ref_reg"][ok], rtol=1e-6)
@@ -631,10 +663,9 @@ def test_ozaki_gemm_refuses_tf32(monkeypatch):
         df64._ozaki_matmul(op, d, s=s, n_slices=n_slices, cut=cut)
 
 
-def test_cpu_tensors_never_launch_a_wide_kernel(monkeypatch):
-    names = ("DF_CHOL_LAUNCHES", "DF_SOLVE_LAUNCHES", "SLICE_LAUNCHES", "OZAKI_LAUNCHES")
-    for name in names:
-        monkeypatch.setattr(df64, name, 0)
+def test_cpu_tensors_never_launch_a_wide_kernel():
+    names = ("df_chol_bl", "df_solve_bl", "slice_rounds_bl", "ozaki_product_bl")
+    LAUNCHES.clear()
     rng = np.random.default_rng(1)
     At, dt, rt = _t(rng.standard_normal((6, 10)), rng.uniform(0.5, 2, (8, 10)),
                     rng.standard_normal((8, 6)))
@@ -644,7 +675,7 @@ def test_cpu_tensors_never_launch_a_wide_kernel(monkeypatch):
     DF.rmv(ctx, rt)
     mixed.MIXED_IR1_KERNELS.solve(mixed.MIXED_IR1_KERNELS.factor(
         mixed.MIXED_IR1_KERNELS.prepare(At), dt, 1e-12), (rt,))
-    assert tuple(getattr(df64, name) for name in names) == (0, 0, 0, 0)
+    assert tuple(LAUNCHES[name] for name in names) == (0, 0, 0, 0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

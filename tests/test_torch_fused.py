@@ -21,6 +21,7 @@ from pycllp_tpu.ops import batchlast as ref_bl
 from pycllp_tpu.solvers import hsd as ref_hsd
 from pycllp_tpu_torch import SolverOptions, Status
 from pycllp_tpu_torch.ops import batchlast as bl
+from pycllp_tpu_torch.ops._launch import LAUNCHES
 from pycllp_tpu_torch.ops.reference import NormalFactor
 from pycllp_tpu_torch.solvers import hsd as port_hsd
 
@@ -165,16 +166,15 @@ def test_nonpsd_lane_produces_nan_in_both_kernels():
         assert torch.isfinite(f.dinv_diag[:, [0, 1, 3]]).all()
 
 
-def test_cpu_tensors_never_launch_a_kernel(monkeypatch):
-    for name in ("CHOL_LAUNCHES", "SOLVE_LAUNCHES", "FUSED_FACTOR_LAUNCHES", "FACSOL_LAUNCHES"):
-        monkeypatch.setattr(bl, name, 0)
+def test_cpu_tensors_never_launch_a_kernel():
+    LAUNCHES.clear()
     A, d, rs = _problem(8, 20, 32, seed=0)
     At, dt, r0, r1 = _t(A, d, *rs)
     for kset in (bl.BATCHLAST_FUSED_KERNELS, bl.BatchLastKernels(fuse_facsol=True)):
         fac, _ = kset.factor_and_solve(kset.prepare(At), dt, 1e-7, (r0, r1))
         kset.solve(fac, (r0,))
-    counts = (bl.CHOL_LAUNCHES, bl.SOLVE_LAUNCHES, bl.FUSED_FACTOR_LAUNCHES, bl.FACSOL_LAUNCHES)
-    assert counts == (0, 0, 0, 0)
+    counts = [LAUNCHES[k] for k in ("chol_bl", "solve_bl", "fused_factor_bl", "facsol_bl")]
+    assert counts == [0, 0, 0, 0]
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

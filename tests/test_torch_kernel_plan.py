@@ -16,6 +16,7 @@ import torch
 from pycllp_tpu_torch.ops import _build
 from pycllp_tpu_torch.ops import batchlast as bl
 from pycllp_tpu_torch.ops import df64
+from pycllp_tpu_torch.ops._launch import LAUNCHES
 
 SMEM_LIMIT = 232448  # a block's shared memory on the H100 (sm_90)
 SMS = 132  # the H100 SXM's SMs
@@ -152,13 +153,8 @@ def test_wrappers_refuse_cpu_tensors_on_every_design(design):
         df64._df_solve_bl_cuda(L.double(), dinv.double(), R.double(), design=design)
 
 
-def test_cpu_tensors_leave_every_counter_at_zero(monkeypatch):
-    for mod, names in ((bl, ("CHOL_LAUNCHES", "SOLVE_LAUNCHES", "CHOL_SMEM_LAUNCHES",
-                             "SOLVE_SMEM_LAUNCHES")),
-                       (df64, ("DF_CHOL_LAUNCHES", "DF_SOLVE_LAUNCHES", "DF_CHOL_SMEM_LAUNCHES",
-                               "DF_SOLVE_SMEM_LAUNCHES"))):
-        for name in names:
-            monkeypatch.setattr(mod, name, 0)
+def test_cpu_tensors_leave_every_counter_at_zero():
+    LAUNCHES.clear()
     g = torch.Generator().manual_seed(0)
     A = torch.randn(6, 6, 5, generator=g, dtype=torch.float64)
     M = torch.einsum("ikb,jkb->ijb", A, A).contiguous()
@@ -168,10 +164,8 @@ def test_cpu_tensors_leave_every_counter_at_zero(monkeypatch):
     df64.df_solve_bl(L, dinv, R)
     L, dinv = bl.chol_bl(M.float(), reg.float())
     bl.solve_bl(L, dinv, R.float())
-    assert (bl.CHOL_LAUNCHES, bl.SOLVE_LAUNCHES, bl.CHOL_SMEM_LAUNCHES,
-            bl.SOLVE_SMEM_LAUNCHES) == (0, 0, 0, 0)
-    assert (df64.DF_CHOL_LAUNCHES, df64.DF_SOLVE_LAUNCHES, df64.DF_CHOL_SMEM_LAUNCHES,
-            df64.DF_SOLVE_SMEM_LAUNCHES) == (0, 0, 0, 0)
+    for kernel in ("chol_bl", "solve_bl", "df_chol_bl", "df_solve_bl"):
+        assert (LAUNCHES[kernel], LAUNCHES[kernel + "_smem"]) == (0, 0), kernel
 
 
 # the fused pair: (m, n) at the shapes the port meets (netlib afiro, sc50a,
@@ -295,11 +289,9 @@ def test_fused_pair_wrappers_refuse_cpu_tensors_on_every_design(design):
         bl._facsol_bl_cuda(M, reg, torch.ones(2, m, B), design=design)
 
 
-def test_cpu_tensors_leave_the_fused_pair_counters_at_zero(monkeypatch):
-    names = ("FUSED_FACTOR_LAUNCHES", "FACSOL_LAUNCHES", "FUSED_FACTOR_SMEM_LAUNCHES",
-             "FACSOL_SMEM_LAUNCHES")
-    for name in names:
-        monkeypatch.setattr(bl, name, 0)
+def test_cpu_tensors_leave_the_fused_pair_counters_at_zero():
+    names = ("fused_factor_bl", "facsol_bl", "fused_factor_bl_smem", "facsol_bl_smem")
+    LAUNCHES.clear()
     g = torch.Generator().manual_seed(1)
     A = torch.randn(5, 9, generator=g)
     W = (A[:, None, :] * A[None, :, :]).reshape(25, 9)
@@ -309,7 +301,7 @@ def test_cpu_tensors_leave_the_fused_pair_counters_at_zero(monkeypatch):
     M = (W @ dT).reshape(5, 5, 6)
     bl.facsol_bl(M, reg, torch.randn(3, 5, 6, generator=g))
     assert torch.isfinite(L.tril().permute(2, 0, 1)).all() and torch.isfinite(dinv).all()
-    assert tuple(getattr(bl, n) for n in names) == (0, 0, 0, 0)
+    assert tuple(LAUNCHES[n] for n in names) == (0, 0, 0, 0)
 
 
 def test_fused_factor_reads_w_packed_and_transposed():

@@ -35,6 +35,7 @@ import pycllp_tpu_torch as port_pkg
 from lpbench.inputs import traffic
 from lpbench.kernel_names import is_library
 from pycllp_tpu_torch.ops import _build, batchlast, df64, lanemv, mixed, reference
+from pycllp_tpu_torch.ops._launch import LAUNCHES, REPLAYED
 from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
 from pycllp_tpu_torch.solvers import _loop, hsd
 
@@ -267,10 +268,18 @@ def test_kernel_names_are_the_programs():
         assert not is_library(shown)
 
 
+# the kernel's modes, by their keys in LAUNCHES
+MODES = ("lane_mv", "lane_rmv", "lane_normal")
+
+
 def test_loop_counts_the_modules_launches():
-    names = {(mod.__name__, name) for mod, name in _loop._counters()}
-    for counter in ("LANE_MV_LAUNCHES", "LANE_RMV_LAUNCHES", "LANE_NORMAL_LAUNCHES"):
-        assert ("pycllp_tpu_torch.ops.lanemv", counter) in names
+    """The module counts its launches in LAUNCHES, which a replay repeats,
+    under one key a mode, and imports nothing of the batch-last set."""
+    assert any(c is LAUNCHES for c in REPLAYED)
+    assert lanemv.LAUNCHES is LAUNCHES and lanemv._KEYS == MODES
+    assert not hasattr(lanemv, "batchlast")
+    src = Path(lanemv.__file__).read_text()
+    assert "ops.batchlast" not in src and "_LAUNCHES" not in src
 
 
 # ---------------------------------------------------------------------------
@@ -349,14 +358,14 @@ def test_capture_counts_each_replay(card):
 
     run()  # builds the library and warms up outside the capture
     torch.cuda.synchronize()
-    before = lanemv.LANE_NORMAL_LAUNCHES
+    before = LAUNCHES["lane_normal"]
     graph, deltas = _loop._capture(card, run)
     try:
-        assert lanemv.LANE_NORMAL_LAUNCHES == before
+        assert LAUNCHES["lane_normal"] == before
         for _ in range(3):
             _loop._replay(graph, deltas, "loop replay")
         torch.cuda.synchronize()
-        assert lanemv.LANE_NORMAL_LAUNCHES == before + 3
+        assert LAUNCHES["lane_normal"] == before + 3
         assert torch.equal(out, lanemv.lane_normal(A, v["d"], v["y"], v["reg"]))
     finally:
         # the graph leaves the shared pool: drop the pool with it, as a
@@ -373,17 +382,16 @@ def test_repeat_padded_solve_is_bitwise(card):
     """A padded netlib batch solved twice on the card: the same bits, with
     every mode launched; a shared-A bucket launches none."""
     batch, opts = _padded_batch(64)
-    before = [lanemv.LANE_MV_LAUNCHES, lanemv.LANE_RMV_LAUNCHES, lanemv.LANE_NORMAL_LAUNCHES]
+    before = [LAUNCHES[k] for k in MODES]
     first = hsd.hsd_solve_batched(batch.A, batch.b, batch.c, opts, BATCHLAST_KERNELS, device=card)
-    after = [lanemv.LANE_MV_LAUNCHES, lanemv.LANE_RMV_LAUNCHES, lanemv.LANE_NORMAL_LAUNCHES]
+    after = [LAUNCHES[k] for k in MODES]
     assert all(a > b for a, b in zip(after, before)), (before, after)
     second = hsd.hsd_solve_batched(batch.A, batch.b, batch.c, opts, BATCHLAST_KERNELS, device=card)
     for k in first:
         np.testing.assert_array_equal(_host(first[k]), _host(second[k]), err_msg=k)
     assert (_host(first["status"]) == int(port_pkg.Status.OPTIMAL)).all()
-    before = [lanemv.LANE_MV_LAUNCHES, lanemv.LANE_RMV_LAUNCHES, lanemv.LANE_NORMAL_LAUNCHES]
+    before = [LAUNCHES[k] for k in MODES]
     hsd.hsd_solve_batched(batch.A[0], batch.b[:64], batch.c[:64], opts, BATCHLAST_KERNELS,
                           device=card)
     torch.cuda.synchronize()
-    assert [lanemv.LANE_MV_LAUNCHES, lanemv.LANE_RMV_LAUNCHES,
-            lanemv.LANE_NORMAL_LAUNCHES] == before
+    assert [LAUNCHES[k] for k in MODES] == before

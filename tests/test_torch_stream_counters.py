@@ -3,14 +3,15 @@ vertex crossover keep, and the benchmark's readers of them.
 
 On the CPU:
 
-* the capture bookkeeping of ``_loop``: a capture's increments of an int
-  counter and of a Counter of launch shapes are taken back, and each
-  replay adds them again;
+* the capture bookkeeping of ``_loop``: a capture's increments of each
+  Counter of ``ops._launch.REPLAYED`` (launches by kernel, launch shapes,
+  prepares, and one registered from outside the package) are taken back,
+  and each replay adds them again;
 * ``hsd.PREPARED_BYTES`` after a batched solve: one key a kernel set, its
   context's bytes, the crossover's set prepared in both crossovers;
 * ``hsd.CROSSOVER_LANES``: every lane tried in each crossover, the
   accepted ones among them;
-* ``df64.OZAKI_SYM_LAUNCHES``: one a wide formation sent to the card (on
+* ``LAUNCHES["ozaki_sym"]``: one a wide formation sent to the card (on
   M's triangle), none a matvec, with the launches faked on the meta
   device;
 * the readers ``stream_ms``, ``stream_chol_roofline``,
@@ -20,8 +21,8 @@ On the CPU:
 On a card only (skipped here): a solve whose m takes the streaming
 kernels records their shapes, the same on the graph route as with eager
 segments; a shared-A solve with the f64 finish forms every wide M on the
-triangle, one ``OZAKI_SYM_LAUNCHES`` a wide factor.  The file imports no JAX: on the card run it alone, without the
-suite's ``conftest.py``:
+triangle, one ``LAUNCHES["ozaki_sym"]`` a wide factor.  The file imports
+no JAX: on the card run it alone, without the suite's ``conftest.py``:
 ``python -m pytest tests/test_torch_stream_counters.py --noconftest -o addopts="" -q``.
 """
 
@@ -37,7 +38,8 @@ from lpbench import harness
 from lpbench.harness import Run
 from lpbench.inputs import generate
 from lpbench.trace import Event, Trace
-from pycllp_tpu_torch.ops import batchlast, df64
+from pycllp_tpu_torch.ops import _launch, batchlast, df64
+from pycllp_tpu_torch.ops._launch import LAUNCHES
 from pycllp_tpu_torch.ops.batchlast import BATCHLAST_KERNELS
 from pycllp_tpu_torch.solvers import _loop, hsd
 
@@ -70,33 +72,59 @@ def read(name, run):
 
 
 def test_capture_takes_back_each_counter_and_replays_add_it():
-    ns = types.SimpleNamespace(N_LAUNCHES=5, SHAPE_LAUNCHES=collections.Counter({"a": 1}))
-    shapes = ns.SHAPE_LAUNCHES
-    counters = [(ns, "N_LAUNCHES"), (ns, "SHAPE_LAUNCHES")]
-    before = [5, collections.Counter(shapes)]
+    launches = collections.Counter({"chol_bl": 5})
+    shapes = collections.Counter({"a": 1})
+    before = [(launches, collections.Counter(launches)), (shapes, collections.Counter(shapes))]
     # what a capture's launches add
-    ns.N_LAUNCHES += 3
+    launches["chol_bl"] += 3
     shapes[("chol", "f32", 471, 4096, 1)] += 2
     shapes["a"] += 1
-    deltas = _loop._take_back(counters, before)
-    assert ns.N_LAUNCHES == 5 and ns.SHAPE_LAUNCHES is shapes
+    deltas = _loop._take_back(before)
+    assert launches == collections.Counter({"chol_bl": 5})
     assert shapes == collections.Counter({"a": 1})
     for _ in range(3):
         _loop._add_back(deltas)
-    assert ns.N_LAUNCHES == 5 + 9
+    assert launches == collections.Counter({"chol_bl": 5 + 9})
     assert shapes == collections.Counter({"a": 4, ("chol", "f32", 471, 4096, 1): 6})
     # a counter the capture left alone gives no delta
-    assert _loop._take_back(counters, [ns.N_LAUNCHES, collections.Counter(shapes)]) == []
+    assert _loop._take_back([(c, collections.Counter(c)) for c in (launches, shapes)]) == []
+
+
+def test_a_counter_registered_outside_the_package_counts_each_replay(monkeypatch):
+    """A Counter that a module outside the package registers with
+    ``_launch.replayed`` is taken back at capture and added again at each
+    replay, by the bookkeeping that ``_capture`` and ``_replay`` run (the
+    graph faked: nothing here launches)."""
+    monkeypatch.setattr(_launch, "REPLAYED", list(_launch.REPLAYED))
+    monkeypatch.setattr(_loop, "GRAPH_REPLAYS", 0)
+    mine = _launch.replayed(collections.Counter({"x": 2}))
+    assert _launch.REPLAYED[-1] is mine
+    before = _loop._counts()
+    assert any(c is mine for c, _ in before)
+    mine["x"] += 1  # the capture's increment
+    mine["y"] += 2
+    deltas = _loop._take_back(before)
+    assert mine == collections.Counter({"x": 2})
+    assert [d for c, d in deltas if c is mine] == [collections.Counter({"x": 1, "y": 2})]
+    graph = types.SimpleNamespace(replay=lambda: None)
+    for _ in range(2):
+        _loop._replay(graph, deltas, "loop replay")
+    assert mine == collections.Counter({"x": 4, "y": 4})
+    assert _loop.GRAPH_REPLAYS == 2
 
 
 def test_loop_counts_the_shapes_and_the_prepares():
-    names = {(mod.__name__, name) for mod, name in _loop._counters()}
-    assert ("pycllp_tpu_torch.ops.batchlast", "STREAM_LAUNCHES") in names
-    assert ("pycllp_tpu_torch.solvers.hsd", "PREPARED_BYTES") in names
+    """The Counters that a replay repeats: the launches by kernel, the
+    streaming shapes and the prepares, each the object its owner reads,
+    and Counters alone."""
+    for counter in (LAUNCHES, batchlast.STREAM_LAUNCHES, hsd.PREPARED_BYTES):
+        assert sum(c is counter for c in _launch.REPLAYED) == 1
+    assert all(isinstance(c, collections.Counter) for c in _launch.REPLAYED)
+    assert df64.LAUNCHES is LAUNCHES
 
 
-def test_cpu_solves_record_no_streaming_launch(monkeypatch):
-    monkeypatch.setattr(batchlast, "STREAM_LAUNCHES", collections.Counter())
+def test_cpu_solves_record_no_streaming_launch():
+    batchlast.STREAM_LAUNCHES.clear()
     A, b, c = _scenarios(8, 10, 6)
     hsd.hsd_solve_batched(A, b, c, BENCH, BATCHLAST_KERNELS, device="cpu")
     assert not batchlast.STREAM_LAUNCHES
@@ -116,11 +144,11 @@ def test_prepared_bytes_and_crossover_lanes_of_a_batched_solve(monkeypatch):
     nbytes = {name: size for name, size in prepared}
     # the narrow set: A, A² and W = A∘A in f32
     assert nbytes[BATCHLAST_KERNELS.name] == (2 * m * N + m * m * N) * 4
-    # the wide set holds W in f64 and its packed Ozaki operand besides: the
-    # m(m+1)/2 rows of M's triangle, padded to 32
+    # the wide set holds A and A² in f64 and the packed Ozaki operand of the
+    # m(m+1)/2 rows of M's triangle, padded to 32, but no W = A∘A
     s, n_slices, _ = df64.ozaki_params(N)
     packed = -(-m * (m + 1) // 2 // 32) * 32 * n_slices * -(-N // 16) * 16 * 2
-    assert nbytes[wide.name] > m * m * N * 8 + packed
+    assert 2 * m * N * 8 + packed < nbytes[wide.name] < m * m * N * 8 + packed
     # the crossover's: the narrow set's context within it
     assert nbytes[cross.name] > nbytes[BATCHLAST_KERNELS.name]
     # a second call counts its own prepares only
@@ -135,9 +163,9 @@ def test_prepared_bytes_and_crossover_lanes_of_a_batched_solve(monkeypatch):
 
 
 def test_ozaki_sym_launches_count_the_formations_alone(monkeypatch):
-    """Each wide formation sent to the card counts one OZAKI_SYM_LAUNCHES
-    and one OZAKI_MATMUL_LAUNCHES and launches the mirrored product; a
-    matvec counts only the latter.  The tensors lie on the meta device, so
+    """Each wide formation sent to the card counts one ``ozaki_sym`` and one
+    ``ozaki_products`` launch and launches the mirrored product; a matvec
+    counts only the latter.  The tensors lie on the meta device, so
     the wrappers count and call the launchers, which are faked."""
     m, n, B = 6, 9, 5
     launched = []
@@ -149,19 +177,18 @@ def test_ozaki_sym_launches_count_the_formations_alone(monkeypatch):
 
     monkeypatch.setattr(df64, "_ozaki_product_bl_cuda", product)
     monkeypatch.setattr(df64, "df_chol_bl", lambda M, reg: (M, reg.expand(m, B)))
-    monkeypatch.setattr(df64, "OZAKI_SYM_LAUNCHES", 0)
-    monkeypatch.setattr(df64, "OZAKI_MATMUL_LAUNCHES", 0)
+    LAUNCHES.clear()
     wide = df64.DF64_FINISH_KERNELS
     ctx = _loop._map(lambda t: t.to("meta"),
                      wide.prepare(torch.rand(m, n, dtype=torch.float64)))
     meta = dict(dtype=torch.float64, device="meta")
     assert wide.mv(ctx, torch.empty((B, n), **meta)).shape == (B, m)
     assert wide.rmv(ctx, torch.empty((B, m), **meta)).shape == (B, n)
-    assert (df64.OZAKI_SYM_LAUNCHES, df64.OZAKI_MATMUL_LAUNCHES) == (0, 2)
+    assert (LAUNCHES["ozaki_sym"], LAUNCHES["ozaki_products"]) == (0, 2)
     for _ in range(2):
         fac = wide.factor(ctx, torch.empty((B, n), **meta), 1e-12)
         assert fac.L.shape == (m, m, B)
-    assert (df64.OZAKI_SYM_LAUNCHES, df64.OZAKI_MATMUL_LAUNCHES) == (2, 4)
+    assert (LAUNCHES["ozaki_sym"], LAUNCHES["ozaki_products"]) == (2, 4)
     assert launched == [False, False, True, True]
 
 
@@ -199,7 +226,7 @@ def test_stream_ms_reads_the_streaming_kernels_alone():
     assert read("stream_ms", Run(trace=_trace())) == pytest.approx(200.5 / 2)
 
 
-def test_stream_chol_roofline_at_scagr25(monkeypatch):
+def test_stream_chol_roofline_at_scagr25():
     m, B = 471, 4096
     flops_s = B * m**3 / 3 / 66.9e12
     bytes_s = B * m * (m + 1) / 2 * 4 * 2 / 3.35e12
@@ -207,9 +234,10 @@ def test_stream_chol_roofline_at_scagr25(monkeypatch):
     # FP32 bounds it at this shape: 2.13 ms against the triangle's 1.09 ms
     assert roof.bound_s(m, B) == pytest.approx(flops_s) and flops_s > bytes_s
     assert flops_s == pytest.approx(2.1324e-3, rel=1e-4)
-    shapes = collections.Counter({("chol", "f32", m, B, 1): 26, ("solve", "f32", m, B, 2): 90,
-                                  ("chol", "f64", m, B, 1): 8})
-    monkeypatch.setattr(batchlast, "STREAM_LAUNCHES", shapes)
+    shapes = batchlast.STREAM_LAUNCHES
+    shapes.clear()
+    shapes.update({("chol", "f32", m, B, 1): 26, ("solve", "f32", m, B, 2): 90,
+                   ("chol", "f64", m, B, 1): 8})
     # each f32 launch of the trace takes 100 ms
     assert read("stream_chol_roofline", Run(trace=_trace())) == pytest.approx(
         100 * flops_s / 0.1)
@@ -223,8 +251,8 @@ def test_crossover_and_prepared_readers(monkeypatch):
     monkeypatch.setattr(hsd, "CROSSOVER_LANES", {("cuda:0", "first"): torch.tensor([4096, 1024]),
                                                  ("cuda:0", "final"): torch.tensor([4096, 3072])})
     assert read("crossover_accept_share", Run()) == pytest.approx(50.0)
-    monkeypatch.setattr(hsd, "PREPARED_BYTES", collections.Counter(
-        {("narrow", 2**30): 1, ("wide", 6 * 2**30): 1, ("cross", 2**30): 2}))
+    hsd.PREPARED_BYTES.clear()
+    hsd.PREPARED_BYTES.update({("narrow", 2**30): 1, ("wide", 6 * 2**30): 1, ("cross", 2**30): 2})
     assert read("prepared_gib", Run()) == pytest.approx(8.0)
 
 
@@ -232,8 +260,8 @@ def test_crossover_and_prepared_readers(monkeypatch):
                                   "prepared_gib"])
 def test_nothing_to_read_gives_nothing(monkeypatch, name):
     monkeypatch.setattr(hsd, "CROSSOVER_LANES", {})
-    monkeypatch.setattr(hsd, "PREPARED_BYTES", collections.Counter())
-    monkeypatch.setattr(batchlast, "STREAM_LAUNCHES", collections.Counter())
+    hsd.PREPARED_BYTES.clear()
+    batchlast.STREAM_LAUNCHES.clear()
     assert read(name, Run()) is None
     assert read(name, Run(trace=Trace(batches=1))) is None
     if name == "stream_ms":  # reads the trace alone
@@ -280,14 +308,15 @@ def test_streaming_shapes_count_at_replay(card, monkeypatch):
 
 def test_every_wide_formation_runs_on_the_triangle(card):
     """A shared-A batch with the f64 finish: each wide factor's formation is
-    one mirrored launch on M's triangle (OZAKI_SYM_LAUNCHES equals the FP64
-    factors), and each counts in OZAKI_LAUNCHES with the matvecs."""
+    one mirrored launch on M's triangle (``ozaki_sym`` equals the FP64
+    factors, ``df_chol_bl``), and each counts in ``ozaki_product_bl`` with
+    the matvecs."""
     A, b, c = _scenarios(27, 20, 256, seed=3)
-    names = ("OZAKI_SYM_LAUNCHES", "DF_CHOL_LAUNCHES", "OZAKI_LAUNCHES", "OZAKI_MATMUL_LAUNCHES")
-    before = [getattr(df64, name) for name in names]
+    names = ("ozaki_sym", "df_chol_bl", "ozaki_product_bl", "ozaki_products")
+    before = [LAUNCHES[name] for name in names]
     hsd.hsd_solve_batched(A, b, c, BENCH, BATCHLAST_KERNELS, device=card)
     torch.cuda.synchronize()
-    sym, chol, launches, products = (getattr(df64, name) - was
+    sym, chol, launches, products = (LAUNCHES[name] - was
                                      for name, was in zip(names, before))
     assert sym == chol > 0
     assert launches == products > sym
